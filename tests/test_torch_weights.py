@@ -1,0 +1,67 @@
+"""The port's weight carrier (tiseg_tpu_torch/utils/weights.py) against the
+JAX package's reference-checkpoint importer (tiseg_tpu/utils/torch_import.py):
+flax variables -> port state dict -> importer -> the same flax variables,
+exactly."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tiseg_tpu.utils.torch_import import _Mapper, map_unet_head, map_vgg_backbone
+from tiseg_tpu_torch.models import UNetNet
+from tiseg_tpu_torch.utils.weights import unet_state_dict_from_flax, unflatten_variables
+from torch_port_utils import random_unet_variables
+
+
+@pytest.fixture(scope='module')
+def variables():
+    return random_unet_variables(seed=1)
+
+
+def _import(variables, sd):
+    m = _Mapper(variables, sd)
+    map_vgg_backbone(m)
+    map_unet_head(m)
+    return m
+
+
+def test_state_dict_round_trips_through_reference_importer(variables):
+    sd = unet_state_dict_from_flax(variables)
+    back = _import(variables, sd).done()
+    flat_a = jax.tree_util.tree_leaves_with_path(variables)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, a in flat_a:
+        np.testing.assert_array_equal(np.asarray(flat_b[path]), a, err_msg=jax.tree_util.keystr(path))
+
+
+def test_port_state_dict_keys_are_all_imported(variables):
+    """Every key of the port's state_dict() is read by the reference importer,
+    except the VGG conv biases (zero: flax's VGG convs have none) and BN's
+    num_batches_tracked (a training counter, not a weight)."""
+    port_keys = set(UNetNet(2, device='cpu').state_dict())
+    sd = unet_state_dict_from_flax(variables)
+    assert set(sd) == port_keys
+    used = _import(variables, sd).used
+    unused = port_keys - used
+    vgg_biases = {k for k in port_keys if k.startswith('backbone.stages.') and k.endswith('.bias')
+                  and k.replace('.bias', '.running_mean') not in port_keys}
+    counters = {k for k in port_keys if k.endswith('num_batches_tracked')}
+    assert len(vgg_biases) == 13
+    assert unused == vgg_biases | counters
+    assert all(not sd[k].any() for k in vgg_biases)
+    assert used <= port_keys
+
+
+def test_state_dict_loads_strictly_and_npz_layout_unflattens(variables):
+    flat = {f'{col}/' + '/'.join(p.key for p in path): leaf
+            for col in ('params', 'batch_stats')
+            for path, leaf in jax.tree_util.tree_leaves_with_path(variables[col])}
+    tree = unflatten_variables(flat)
+    net = UNetNet(2, device='cpu')
+    net.load_state_dict(unet_state_dict_from_flax(tree), strict=True)
+    np.testing.assert_array_equal(net.head.postprocess.bias.detach().numpy(),
+                                  variables['params']['head']['cls']['bias'])
+    assert torch.equal(net.backbone.stages[1][1].weight,
+                       torch.from_numpy(variables['params']['backbone']['stage1_conv0']['Conv_0']['kernel']
+                                        .transpose(3, 2, 0, 1).copy()))

@@ -1,0 +1,114 @@
+"""Seeded synthetic inputs: nuclei images at MoNuSeg density and hand-made
+semantic planes that stress instance post-processing."""
+from __future__ import annotations
+
+import numpy as np
+
+
+def make_nuclei(seed: int, hw: int = 256, n_inst: int = 150):
+    """H&E-like nuclei image (~150 nuclei per 256^2, foreground ~0.18).
+
+    Returns (img float32 (hw, hw, 3) in [0, 1], sem uint8, inst int32)."""
+    rng = np.random.default_rng(seed)
+    inst = np.zeros((hw, hw), np.int32)
+    nid = 0
+    for _ in range(n_inst):
+        cy, cx = rng.integers(8, hw - 8, 2)
+        a, b = rng.uniform(3.5, 7.5, 2)
+        th = rng.uniform(0, np.pi)
+        r = int(np.ceil(max(a, b))) + 1
+        yy, xx = np.mgrid[-r:r + 1, -r:r + 1]
+        ry = yy * np.cos(th) + xx * np.sin(th)
+        rx = -yy * np.sin(th) + xx * np.cos(th)
+        m = (ry / a) ** 2 + (rx / b) ** 2 <= 1.0
+        y0, y1 = max(cy - r, 0), min(cy + r + 1, hw)
+        x0, x1 = max(cx - r, 0), min(cx + r + 1, hw)
+        m = m[y0 - (cy - r):m.shape[0] - ((cy + r + 1) - y1),
+              x0 - (cx - r):m.shape[1] - ((cx + r + 1) - x1)]
+        win = inst[y0:y1, x0:x1]
+        if (win[m] > 0).mean() > 0.25:
+            continue
+        nid += 1
+        win[m & (win == 0)] = nid
+    sem = (inst > 0).astype(np.uint8)
+    img = np.empty((hw, hw, 3), np.float32)
+    img[..., 0] = 0.80 - 0.42 * sem
+    img[..., 1] = 0.55 - 0.35 * sem
+    img[..., 2] = 0.75 - 0.18 * sem
+    img = np.clip(img + rng.normal(0, 0.06, (hw, hw, 3)), 0, 1).astype(np.float32)
+    return img, sem, inst
+
+
+def nuclei_density(hw: int) -> int:
+    """Nuclei count at MoNuSeg density (150 per 256^2) for an hw^2 plane."""
+    return int(150 * (hw / 256.0) ** 2)
+
+
+def _disk(plane, cy, cx, r, value):
+    yy, xx = np.ogrid[:plane.shape[0], :plane.shape[1]]
+    plane[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = value
+
+
+def spiral(n: int) -> np.ndarray:
+    """n x n square spiral wall, 1 px wide, with a 1 px corridor that opens
+    at (1, 0): one 4-connected component whose geodesic bends ~n times."""
+    a = np.zeros((n, n), np.int32)
+    y = x = 0
+    a[0, 0] = 1
+    dirs = ((0, 1), (1, 0), (0, -1), (-1, 0))
+    lengths = [n - 1, n - 1, n - 1]
+    k = n - 3
+    while k > 0:
+        lengths += [k, k]
+        k -= 2
+    for step, length in enumerate(lengths):
+        dy, dx = dirs[step % 4]
+        for _ in range(length):
+            y, x = y + dy, x + dx
+            a[y, x] = 1
+    return a
+
+
+def hard_plane(hw: int = 64) -> np.ndarray:
+    """One (hw, hw) int32 semantic plane (hw >= 64) holding the cases a
+    post-processor gets wrong first: a nucleus with a hole, a ring whose
+    hole touches the border, an open and a closed spiral, a diagonal-only
+    8-link of two kept 4-components, a diagonal pair of 4 px objects
+    (dropped: the 4-connected size counts), and objects of 4 and 5 px."""
+    p = np.zeros((hw, hw), np.int32)
+    _disk(p, 12, 12, 7, 1)
+    _disk(p, 12, 12, 2, 0)                  # hole: filled
+    _disk(p, 0, 32, 7, 1)
+    _disk(p, 0, 32, 3, 0)                   # hole open to the border: kept open
+    p[44:61, 2:19] = spiral(17)             # corridor opens to the background
+    p[23:40, 43:60] = 1
+    p[24:39, 44:59] = 0
+    p[24:39, 44:59] = spiral(15)            # enclosed by the box: filled solid
+    p[24:27, 4:7] = 1
+    p[27:30, 7:10] = 1                      # 8-linked only
+    p[34:36, 4:6] = 1
+    p[36:38, 6:8] = 1                       # two 4 px objects, 8-linked
+    p[40, 24:28] = 1                        # 4 px: dropped
+    p[20, 23:26] = 1
+    p[19:22, 24] = 1                        # 5 px plus: kept
+    return p
+
+
+def hard_planes(hw: int = 64) -> np.ndarray:
+    """(4, hw, hw) int32: the hard plane, its transpose, an empty plane and
+    a full one."""
+    p = hard_plane(hw)
+    return np.stack([p, p.T.copy(), np.zeros_like(p), np.ones_like(p)])
+
+
+def blob_planes(seed: int, batch: int, hw: int, n: int = 25, rmax: int = 7) -> np.ndarray:
+    """(batch, hw, hw) int32 planes of random overlapping disks."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((batch, hw, hw), np.int32)
+    yy, xx = np.ogrid[:hw, :hw]
+    for b in range(batch):
+        for _ in range(n):
+            cy, cx = rng.integers(0, hw, 2)
+            r = rng.integers(2, rmax)
+            out[b][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 1
+    return out

@@ -1,0 +1,68 @@
+"""PyTorch building blocks of the UNet family (port of tiseg_tpu/models/nn.py).
+
+Modules take and return NCHW tensors; the segmentor's public functions
+convert from and to the JAX package's NHWC. BatchNorm uses eps 1e-5 and
+momentum 0.1 (flax's 0.9 counted the other way).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class ConvModule(nn.Module):
+    """conv -> BN -> ReLU, with the reference's ``.conv``/``.bn`` names."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, device=None):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, padding=kernel_size // 2, bias=False,
+                              device=device)
+        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1, device=device)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(x)))
+
+
+def transposed_conv_module(in_channels: int, out_channels: int, device=None) -> nn.Sequential:
+    """4x4/stride-2 transposed conv -> BN -> ReLU (exact 2x upsample). The
+    flax ConvTranspose 'SAME' of the JAX package equals this with its kernel
+    flipped spatially (see utils/weights.py)."""
+    return nn.Sequential(
+        nn.ConvTranspose2d(in_channels, out_channels, 4, stride=2, padding=1, bias=False, device=device),
+        nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1, device=device),
+        nn.ReLU())
+
+
+def max_pool_2x(x):
+    return F.max_pool2d(x, 2, 2)
+
+
+def pad_to_match(x, target_hw):
+    """Center zero-pad x (NCHW) up to the target spatial size (the decoder
+    skip-alignment fix, reference unet_head.py:44-48)."""
+    dh = target_hw[0] - x.shape[2]
+    dw = target_hw[1] - x.shape[3]
+    if dh == 0 and dw == 0:
+        return x
+    return F.pad(x, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+
+
+@torch.no_grad()
+def he_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded He-normal init of every conv and transposed conv (fan-in over
+    the inputs that reach one output), zero biases, unit BN. Values are
+    drawn on the CPU from ``generator`` so that a seed gives the same
+    weights on every device."""
+    for mod in module.modules():
+        if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = mod.weight
+            if isinstance(mod, nn.ConvTranspose2d):
+                fan_in = w.shape[0] * w.shape[2] * w.shape[3] // (mod.stride[0] * mod.stride[1])
+            else:
+                fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+            w.copy_(torch.randn(w.shape, generator=generator) * (2.0 / fan_in) ** 0.5)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.BatchNorm2d):
+            mod.reset_parameters()

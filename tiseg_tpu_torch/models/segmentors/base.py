@@ -1,0 +1,110 @@
+"""BaseSegmentor: the shared inference engine (port of
+tiseg_tpu/models/segmentors/base.py).
+
+A segmentor owns ``self.net``, an ``nn.Module`` on ``self.device`` whose
+forward takes an NHWC image batch and returns ``{head: NHWC logits}``. Where
+the JAX segmentor is given its variables on every call, the port's net holds
+its weights.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ...ops.sliding import resize_bilinear, reverse_tta_transform, tta_forward_views, tta_views
+from ...utils.device import resolve_device
+
+
+class BaseSegmentor:
+    """Common inference plumbing. Subclasses set ``self.net`` and implement
+    ``postprocess``."""
+
+    # softmax-fused heads under TTA; others are mean-fused raw
+    softmax_heads = ('sem',)
+
+    def __init__(self, num_classes: int, train_cfg: Optional[dict] = None, test_cfg: Optional[dict] = None,
+                 device=None):
+        self.num_classes = num_classes
+        self.train_cfg = dict(train_cfg or {})
+        self.test_cfg = dict(test_cfg or {})
+        self.device = resolve_device(device)
+        self.net = None  # set by subclass
+
+    # -- forward ------------------------------------------------------------
+    def forward_heads(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Eval forward of an NHWC batch."""
+        self.net.eval()
+        with torch.inference_mode():
+            return self.net(img)
+
+    # -- TTA head fusion hooks ------------------------------------------------
+    def reverse_head(self, name: str, logit: torch.Tensor, rotate_degree: int, flip_direction: str):
+        """Undo a TTA view on one head's output."""
+        return reverse_tta_transform(logit, rotate_degree, flip_direction)
+
+    def fuse_head(self, name: str, logit: torch.Tensor) -> torch.Tensor:
+        if name in self.softmax_heads:
+            return torch.softmax(logit, dim=-1)
+        return logit
+
+    # -- inference engine -----------------------------------------------------
+    def inference(self, img: torch.Tensor, ori_hw: Optional[Tuple[int, int]] = None):
+        """TTA x (split | whole) -> per-head fused maps (B, H, W, K) at ori_hw."""
+        mode = self.test_cfg.get('mode', 'whole')
+        if mode not in ('split', 'whole'):
+            raise ValueError(f'unknown test mode {mode!r}')
+        views = tta_views(self.test_cfg)
+        ws = self.test_cfg.get('crop_size', (0,))[0]
+        os_ = self.test_cfg.get('overlap_size', (0,))[0]
+        img = torch.as_tensor(img, device=self.device)
+        with torch.inference_mode():
+            outs = tta_forward_views(self.forward_heads, img, views, mode, ws, os_,
+                                     chunk=self.test_cfg.get('patch_batch', 8))
+            accum = None
+            for (rot, flip), out in zip(views, outs):
+                out = {k: self.fuse_head(k, self.reverse_head(k, o, rot, flip)) for k, o in out.items()}
+                accum = out if accum is None else {k: accum[k] + out[k] for k in out}
+            fused = {k: v / len(views) for k, v in accum.items()}
+            if ori_hw is not None:
+                fused = {k: resize_bilinear(v, ori_hw) for k, v in fused.items()}
+        return fused
+
+    # -- eval post-processing (host) -------------------------------------------
+    def postprocess(self, fused: Dict):
+        """fused: per-head numpy maps for ONE image (H, W, K). Returns
+        {'sem_pred': uint8 (H, W), 'inst_pred': int32 (H, W)}."""
+        raise NotImplementedError
+
+    # -- fused device path -------------------------------------------------------
+    device_pp_supported = False
+    device_pp_strip_boundary = False
+    device_pp_default_radius = 1
+
+    def inference_and_postprocess(self, img: torch.Tensor, ori_hw=None):
+        """Full eval step on the device; returns {'sem_pred' (B,H,W) uint8,
+        'inst_pred' (B,H,W) int32} or None if unsupported/disabled."""
+        if not (self.device_pp_supported and self.test_cfg.get('device_postprocess', False)):
+            return None
+        fused = self.inference(img, ori_hw=ori_hw)
+        sem_out, inst_out = self._device_instance_pp(self._device_sem_pred(fused))
+        return {'sem_pred': sem_out, 'inst_pred': inst_out}
+
+    def _device_sem_pred(self, fused):
+        """Fused maps -> the int32 semantic plane the instance post-processor
+        consumes."""
+        sem_pred = torch.argmax(fused['sem'], dim=-1).to(torch.int32)
+        if self.device_pp_strip_boundary:
+            sem_pred = torch.where(sem_pred == self.num_classes, 0, sem_pred)
+        return sem_pred
+
+    def _device_instance_pp(self, sem_pred):
+        """Batched fill/CCL/remove-small/dilate on the device
+        (ops.instance_pp; the CUDA kernel for a CUDA tensor)."""
+        from ...ops.instance_pp import instance_postprocess_sweep
+        radius = self.test_cfg.get('radius', self.device_pp_default_radius)
+        return instance_postprocess_sweep(sem_pred, radius=radius, num_classes=self.num_classes,
+                                          sweeps=self.test_cfg.get('pp_sweeps', 16),
+                                          fill_sweeps=self.test_cfg.get('pp_fill_sweeps', 32),
+                                          multiclass_vectorized=self.test_cfg.get(
+                                              'pp_multiclass_vectorized', True))

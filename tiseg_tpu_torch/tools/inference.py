@@ -1,0 +1,60 @@
+"""Single-image inference (port of tools/inference.py).
+
+Usage::
+
+    python -m tiseg_tpu_torch.tools.inference <config.py> <image> [--weights vars.npz]
+        [--device cpu] [--out pred.png]
+
+``--weights`` is an ``.npz`` of the JAX package's flattened UNet variables
+(``params/...`` and ``batch_stats/...`` keys), carried over by
+``utils.weights``. Without it the net has seeded random weights. Prints the
+instance count; ``--out`` also writes the instance map as a PNG.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser('Single-image inference (PyTorch port)')
+    p.add_argument('config')
+    p.add_argument('image')
+    p.add_argument('--weights', default=None, help='.npz of flattened flax UNet variables')
+    p.add_argument('--device', default=None, help="torch device (default: cuda)")
+    p.add_argument('--seed', type=int, default=0, help='init seed when no --weights are given')
+    p.add_argument('--out', default=None, help='write the instance map to this PNG')
+    args = p.parse_args(argv)
+
+    from ..apis import InferenceRunner
+    from ..datasets.transforms import Normalize, read_image
+    from ..models import build_segmentor
+    from ..utils import Config
+    from ..utils.weights import unet_state_dict_from_flax, unflatten_variables
+
+    cfg = Config.fromfile(args.config)
+    seg = build_segmentor(cfg.model, device=args.device, seed=args.seed)
+    if args.weights:
+        with np.load(args.weights) as z:
+            variables = unflatten_variables(dict(z))
+        seg.net.load_state_dict(unet_state_dict_from_flax(variables))
+    else:
+        print(f'no --weights given: random weights from seed {args.seed}')
+
+    img = read_image(args.image)
+    data = Normalize()({'img': img})
+    pred = InferenceRunner(seg)(data['img'][None], img.shape[:2])
+    inst = pred['inst_pred'][0] if 'inst_pred' in pred else seg.postprocess(
+        {k: v[0] for k, v in pred.items()})['inst_pred']
+    n_inst = len(np.unique(inst[inst > 0]))
+    print(f'instances: {n_inst}')
+    if args.out:
+        from PIL import Image
+        Image.fromarray((inst % 65536).astype(np.uint16)).save(args.out)
+        print(f'saved {args.out}')
+    return n_inst
+
+
+if __name__ == '__main__':
+    main()
