@@ -1,16 +1,17 @@
-"""The port's weight carrier (tiseg_tpu_torch/utils/weights.py) against the
+"""The port's weight carriers (tiseg_tpu_torch/utils/weights.py) against the
 JAX package's reference-checkpoint importer (tiseg_tpu/utils/torch_import.py):
 flax variables -> port state dict -> importer -> the same flax variables,
-exactly."""
+exactly, for UNet and HoVer-Net."""
 import jax
 import numpy as np
 import pytest
 import torch
 
-from tiseg_tpu.utils.torch_import import _Mapper, map_unet_head, map_vgg_backbone
-from tiseg_tpu_torch.models import UNetNet
-from tiseg_tpu_torch.utils.weights import unet_state_dict_from_flax, unflatten_variables
-from torch_port_utils import random_unet_variables
+from tiseg_tpu.utils.torch_import import _Mapper, map_hover_branch, map_resnet, map_unet_head, map_vgg_backbone
+from tiseg_tpu_torch.models import HoverNetNet, UNetNet
+from tiseg_tpu_torch.utils.weights import (hovernet_state_dict_from_flax, state_dict_from_flax,
+                                           unet_state_dict_from_flax, unflatten_variables)
+from torch_port_utils import random_hovernet_variables, random_unet_variables
 
 
 @pytest.fixture(scope='module')
@@ -65,3 +66,52 @@ def test_state_dict_loads_strictly_and_npz_layout_unflattens(variables):
     assert torch.equal(net.backbone.stages[1][1].weight,
                        torch.from_numpy(variables['params']['backbone']['stage1_conv0']['Conv_0']['kernel']
                                         .transpose(3, 2, 0, 1).copy()))
+
+
+@pytest.fixture(scope='module')
+def hover_variables():
+    return random_hovernet_variables(seed=1)
+
+
+def _import_hovernet(variables, sd):
+    """The steps of torch_import.import_hovernet, keeping the mapper."""
+    m = _Mapper(variables, sd)
+    map_resnet(m, depth=50)
+    m.conv('conv_bot', ('conv_bot',))
+    for branch in ('tp', 'np', 'hv'):
+        map_hover_branch(m, f'decoder.{branch}', (branch,))
+    return m
+
+
+def test_hovernet_state_dict_round_trips_through_reference_importer(hover_variables):
+    sd = hovernet_state_dict_from_flax(hover_variables)
+    back = _import_hovernet(hover_variables, sd).done()
+    flat_a = jax.tree_util.tree_leaves_with_path(hover_variables)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, a in flat_a:
+        np.testing.assert_array_equal(np.asarray(flat_b[path]), a, err_msg=jax.tree_util.keystr(path))
+
+
+def test_hovernet_state_dict_keys_are_all_imported(hover_variables):
+    """Every key of the port's HoverNetNet state_dict() is read by the
+    reference importer, except the stem conv bias (zero: flax folds it into
+    the stem BN, and the importer reads it only to fold it) and BN's
+    num_batches_tracked."""
+    port = HoverNetNet(7, device='cpu').state_dict()
+    sd = hovernet_state_dict_from_flax(hover_variables)
+    assert set(sd) == set(port)
+    assert all(sd[k].shape == port[k].shape for k in port)
+    used = _import_hovernet(hover_variables, sd).used
+    counters = {k for k in port if k.endswith('num_batches_tracked')}
+    assert set(port) - used == {'backbone.conv1.bias'} | counters
+    assert used <= set(port)
+    assert not sd['backbone.conv1.bias'].any()
+
+
+def test_carrier_table_dispatches_on_model_type(variables, hover_variables):
+    assert set(state_dict_from_flax('UNet', variables)) == set(unet_state_dict_from_flax(variables))
+    assert set(state_dict_from_flax('HoverNet', hover_variables)) == set(hovernet_state_dict_from_flax(
+        hover_variables))
+    with pytest.raises(NotImplementedError, match='CDNet'):
+        state_dict_from_flax('CDNet', variables)

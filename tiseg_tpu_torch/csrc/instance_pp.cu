@@ -21,46 +21,9 @@
 // i = b*H*W + y*W + x), on the caller's stream. The caller allocates the
 // scratch: `par` (int32, union-find parents), `aux` (int32: border flags,
 // then component sizes, then labels) and `m` (uint8, the current mask).
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "uf.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-
-// Parents only ever decrease (par[x] <= x), so every tree's root is the
-// minimum global index of its component. Reads bypass L1 (__ldcg) so that a
-// thread sees other SMs' links; stale reads are still safe because a
-// parent only ever moves to a smaller index of the same set.
-__device__ __forceinline__ int find_root(int* par, int x) {
-  int p = __ldcg(par + x);
-  while (p != x) {
-    int gp = __ldcg(par + p);
-    if (gp < p) atomicMin(par + x, gp);  // path halving that only lowers a parent
-    x = p;
-    p = gp;
-  }
-  return x;
-}
-
-// Playne & Hawick's lock-free union: link the larger root under the smaller
-// with atomicMin; if the target was no longer a root, retry from what it
-// pointed to.
-__device__ __forceinline__ void unite(int* par, int a, int b) {
-  while (true) {
-    a = find_root(par, a);
-    b = find_root(par, b);
-    if (a == b) return;
-    if (a > b) {
-      int t = a;
-      a = b;
-      b = t;
-    }
-    int old = atomicMin(par + b, a);
-    if (old == b) return;
-    b = old;
-  }
-}
 
 __global__ void k_init_bg(const int* __restrict__ sem, uint8_t* __restrict__ m, int* __restrict__ par,
                           int n, int c) {
@@ -68,41 +31,6 @@ __global__ void k_init_bg(const int* __restrict__ sem, uint8_t* __restrict__ m, 
   if (i >= n) return;
   m[i] = sem[i] != c;
   par[i] = i;
-}
-
-// Each set pixel unites with its west and north neighbours (and, for
-// 8-connectivity, north-west and north-east): every edge once.
-__global__ void k_merge(const uint8_t* __restrict__ m, int* par, int n, int HW, int W, int conn8) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !m[i]) return;
-  int r = i % HW;
-  int y = r / W;
-  int x = r - y * W;
-  if (x > 0 && m[i - 1]) unite(par, i, i - 1);
-  if (y > 0) {
-    if (m[i - W]) unite(par, i, i - W);
-    if (conn8) {
-      if (x > 0 && m[i - W - 1]) unite(par, i, i - W - 1);
-      if (x < W - 1 && m[i - W + 1]) unite(par, i, i - W + 1);
-    }
-  }
-}
-
-__global__ void k_flatten(const uint8_t* __restrict__ m, int* par, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !m[i]) return;
-  par[i] = find_root(par, i);
-}
-
-// Flag the root of every background component that touches the border.
-__global__ void k_border_flag(const uint8_t* __restrict__ m, const int* __restrict__ par,
-                              int* __restrict__ flag, int n, int HW, int H, int W) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !m[i]) return;
-  int r = i % HW;
-  int y = r / W;
-  int x = r - y * W;
-  if (y == 0 || y == H - 1 || x == 0 || x == W - 1) flag[par[i]] = 1;
 }
 
 // filled = class pixels + background whose component has no border flag;
@@ -113,27 +41,6 @@ __global__ void k_fill(const int* __restrict__ sem, uint8_t* __restrict__ m, int
   if (i >= n) return;
   m[i] = sem[i] == c || flag[par[i]] == 0;
   par[i] = i;
-}
-
-__global__ void k_count(const uint8_t* __restrict__ m, const int* __restrict__ par, int* size, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !m[i]) return;
-  atomicAdd(size + par[i], 1);
-}
-
-__global__ void k_keep(uint8_t* __restrict__ m, int* __restrict__ par, const int* __restrict__ size,
-                       int n, int min_size) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  m[i] = m[i] && size[par[i]] >= min_size;
-  par[i] = i;
-}
-
-// Undilated label: the component's minimum in-plane linear index + 1.
-__global__ void k_label(const uint8_t* __restrict__ m, int* par, int* __restrict__ lab, int n, int HW) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  lab[i] = m[i] ? find_root(par, i) - (i / HW) * HW + 1 : 0;
 }
 
 // Grey max-dilation by disk(radius) with 0 fill, reading the undilated
@@ -164,18 +71,6 @@ __global__ void k_dilate(const int* __restrict__ lab, uint8_t* __restrict__ sem_
 }
 
 }  // namespace
-
-#define TISEG_CHECK(expr)                    \
-  do {                                       \
-    cudaError_t err_ = (expr);               \
-    if (err_ != cudaSuccess) return (int)err_; \
-  } while (0)
-
-#define TISEG_LAUNCH(kernel, ...)                              \
-  do {                                                         \
-    kernel<<<grid, kThreads, 0, stream>>>(__VA_ARGS__);        \
-    TISEG_CHECK(cudaGetLastError());                           \
-  } while (0)
 
 extern "C" {
 
@@ -214,7 +109,5 @@ int tiseg_instance_pp(const int* sem, uint8_t* sem_out, int* inst_out, int* par,
   }
   return 0;
 }
-
-const char* tiseg_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 }  // extern "C"

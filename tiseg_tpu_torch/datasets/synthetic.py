@@ -1,5 +1,6 @@
-"""Seeded synthetic inputs: nuclei images at MoNuSeg density and hand-made
-semantic planes that stress instance post-processing."""
+"""Seeded synthetic inputs: nuclei images at MoNuSeg or CoNIC density,
+HoVer-Net-like output maps, and hand-made semantic planes that stress
+instance post-processing."""
 from __future__ import annotations
 
 import numpy as np
@@ -42,6 +43,36 @@ def make_nuclei(seed: int, hw: int = 256, n_inst: int = 150):
 def nuclei_density(hw: int) -> int:
     """Nuclei count at MoNuSeg density (150 per 256^2) for an hw^2 plane."""
     return int(150 * (hw / 256.0) ** 2)
+
+
+# CoNIC (Lizard at 20x): about half a million nuclei in 4,981 patches of
+# 256^2, so ~100 per patch
+CONIC_NUCLEI_PER_PATCH = 100
+
+
+def hover_maps(inst: np.ndarray, seed: int = 0, noise: float = 0.1):
+    """HoVer-Net-like outputs for an (H, W) instance map: the foreground
+    probability (0.85 on nuclei, 0.15 off them, plus Gaussian noise of
+    ``noise``, clipped to [0, 1]) and the (H, W, 2) HV maps (per instance,
+    the x and y offsets from its centroid scaled by the largest one to
+    [-1, 1], the HVLabelMake target; 0 off nuclei; plus noise / 5).
+    Returns float32 (fore, hv)."""
+    rng = np.random.default_rng(seed)
+    H, W = inst.shape
+    fg = inst > 0
+    fore = np.clip(np.where(fg, 0.85, 0.15) + rng.normal(0, noise, (H, W)), 0, 1).astype(np.float32)
+    hv = np.zeros((H, W, 2), np.float32)
+    ids = inst[fg]
+    yy, xx = np.nonzero(fg)
+    count = np.bincount(ids)
+    for c, coord in enumerate((xx, yy)):
+        centre = np.bincount(ids, coord) / np.maximum(count, 1)
+        off = coord - centre[ids]
+        scale = np.zeros(len(count))
+        np.maximum.at(scale, ids, np.abs(off))
+        hv[yy, xx, c] = off / np.maximum(scale[ids], 1e-6)
+    hv += (rng.normal(0, noise / 5, hv.shape) * fg[..., None]).astype(np.float32)
+    return fore, hv
 
 
 def _disk(plane, cy, cx, r, value):

@@ -1,4 +1,4 @@
-"""PyTorch building blocks of the UNet family (port of tiseg_tpu/models/nn.py).
+"""PyTorch building blocks of the segmentors (port of tiseg_tpu/models/nn.py).
 
 Modules take and return NCHW tensors; the segmentor's public functions
 convert from and to the JAX package's NHWC. BatchNorm uses eps 1e-5 and
@@ -36,6 +36,11 @@ def transposed_conv_module(in_channels: int, out_channels: int, device=None) -> 
 
 def max_pool_2x(x):
     return F.max_pool2d(x, 2, 2)
+
+
+def upsample_2x_nearest(x):
+    """Kronecker 2x nearest upsample of NCHW (HoVer-Net's UpSample2x)."""
+    return F.interpolate(x, scale_factor=2, mode='nearest')
 
 
 def pad_to_match(x, target_hw):

@@ -1,4 +1,5 @@
 from .base import BaseSegmentor
+from .hovernet import HoverNet, HoverNetNet
 from .unet import UNet, UNetNet, instance_postprocess
 
-__all__ = ['BaseSegmentor', 'UNet', 'UNetNet', 'instance_postprocess']
+__all__ = ['BaseSegmentor', 'HoverNet', 'HoverNetNet', 'UNet', 'UNetNet', 'instance_postprocess']

@@ -20,8 +20,10 @@ class BaseSegmentor:
     """Common inference plumbing. Subclasses set ``self.net`` and implement
     ``postprocess``."""
 
-    # softmax-fused heads under TTA; others are mean-fused raw
+    # softmax-fused heads under TTA; others are mean-fused raw, except the
+    # first-view heads, taken from the first (identity) view alone
     softmax_heads = ('sem',)
+    first_view_heads = ()
 
     def __init__(self, num_classes: int, train_cfg: Optional[dict] = None, test_cfg: Optional[dict] = None,
                  device=None):
@@ -61,11 +63,15 @@ class BaseSegmentor:
         with torch.inference_mode():
             outs = tta_forward_views(self.forward_heads, img, views, mode, ws, os_,
                                      chunk=self.test_cfg.get('patch_batch', 8))
-            accum = None
+            accum, first = None, None
             for (rot, flip), out in zip(views, outs):
-                out = {k: self.fuse_head(k, self.reverse_head(k, o, rot, flip)) for k, o in out.items()}
+                out = {k: self.reverse_head(k, o, rot, flip) for k, o in out.items()}
+                if first is None:
+                    first = {k: out[k] for k in self.first_view_heads}
+                out = {k: self.fuse_head(k, o) for k, o in out.items() if k not in self.first_view_heads}
                 accum = out if accum is None else {k: accum[k] + out[k] for k in out}
             fused = {k: v / len(views) for k, v in accum.items()}
+            fused.update(first)
             if ori_hw is not None:
                 fused = {k: resize_bilinear(v, ori_hw) for k, v in fused.items()}
         return fused

@@ -1,0 +1,138 @@
+"""HoVer-Net segmentor, evaluation path (port of
+tiseg_tpu/models/segmentors/hovernet.py; reference tiseg/models/segmentors/hovernet.py).
+
+ResNet50 trunk with a stride-1 stem and no stem pool (pyramid strides
+1/2/4/8), a 1x1 bottleneck to 1024 channels, and three dense-block decoder
+branches (``tp`` = types, ``np`` = foreground, ``hv`` = horizontal/vertical
+maps) joined by Kronecker 2x upsampling and skip additions. TTA fuses
+``sem``/``fore`` by softmax mean but keeps only the first (identity) view's
+HV maps. Instances come from the Sobel/marker watershed on the device
+(``ops/hover.py``). Module names follow the reference state dict
+(``conv_bot``, ``decoder.{tp,np,hv}.u{3,2,1,0}``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...ops.hover import hover_post_proc_device
+from ..backbones.resnet import ResNetExt
+from ..builder import SEGMENTORS
+from ..nn import he_init_, upsample_2x_nearest
+from .base import BaseSegmentor
+
+
+def _bn(ch, device):
+    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1, device=device)
+
+
+def _conv(in_ch, out_ch, k, device, groups=1, bias=False):
+    return nn.Conv2d(in_ch, out_ch, k, padding=k // 2, groups=groups, bias=bias, device=device)
+
+
+class HoverDenseBlock(nn.Module):
+    """Pre-activation dense block: each unit is BN-ReLU-conv1x1(128) ->
+    BN-ReLU-convKxK(32, 4 groups), concatenated onto its input; then a final
+    BN-ReLU (``units.{u}.{0,2,3,5}``, ``blk_bna.0``)."""
+
+    def __init__(self, in_ch: int, unit_count: int, unit_ch=(128, 32), ksize: int = 3, split: int = 4,
+                 device=None):
+        super().__init__()
+        units, ch = [], in_ch
+        for _ in range(unit_count):
+            units.append(nn.Sequential(
+                _bn(ch, device), nn.ReLU(), _conv(ch, unit_ch[0], 1, device),
+                _bn(unit_ch[0], device), nn.ReLU(), _conv(unit_ch[0], unit_ch[1], ksize, device, groups=split)))
+            ch += unit_ch[1]
+        self.units = nn.ModuleList(units)
+        self.blk_bna = nn.Sequential(_bn(ch, device), nn.ReLU())
+        self.out_channels = ch
+
+    def forward(self, x):
+        for unit in self.units:
+            x = torch.cat([x, unit(x)], dim=1)
+        return self.blk_bna(x)
+
+
+class HoverDecoderBranch(nn.Module):
+    """Decode (d0, d1, d2, d3) at strides (1, 2, 4, 8) to ``out_ch`` logits."""
+
+    def __init__(self, out_ch: int, ksize: int = 3, device=None):
+        super().__init__()
+        dense3 = HoverDenseBlock(256, 8, ksize=ksize, device=device)
+        self.u3 = nn.Sequential(_conv(1024, 256, ksize, device), dense3,
+                                _conv(dense3.out_channels, 512, 1, device))
+        dense2 = HoverDenseBlock(128, 4, ksize=ksize, device=device)
+        self.u2 = nn.Sequential(_conv(512, 128, ksize, device), dense2,
+                                _conv(dense2.out_channels, 256, 1, device))
+        self.u1 = nn.Sequential(_conv(256, 64, ksize, device))
+        self.u0 = nn.Sequential(_bn(64, device), nn.ReLU(), _conv(64, out_ch, 1, device, bias=True))
+
+    def forward(self, feats):
+        d0, d1, d2, d3 = feats
+        u3 = self.u3(upsample_2x_nearest(d3) + d2)
+        u2 = self.u2(upsample_2x_nearest(u3) + d1)
+        u1 = self.u1(upsample_2x_nearest(u2) + d0)
+        return self.u0(u1)
+
+
+class HoverNetNet(nn.Module):
+    """ResNetExt + conv_bot + tp/np/hv branches. ``forward`` takes an NHWC
+    batch and returns ``{'sem', 'fore', 'hv'}`` NHWC logits."""
+
+    def __init__(self, num_classes: int, device=None):
+        super().__init__()
+        self.backbone = ResNetExt(device=device)
+        self.conv_bot = _conv(2048, 1024, 1, device)
+        self.decoder = nn.ModuleDict({'tp': HoverDecoderBranch(num_classes, device=device),
+                                      'np': HoverDecoderBranch(2, device=device),
+                                      'hv': HoverDecoderBranch(2, device=device)})
+
+    def forward(self, x):
+        d0, d1, d2, d3 = self.backbone(x.permute(0, 3, 1, 2))
+        feats = (d0, d1, d2, self.conv_bot(d3))
+        out = {head: self.decoder[branch](feats) for head, branch in (('sem', 'tp'), ('fore', 'np'), ('hv', 'hv'))}
+        return {k: v.permute(0, 2, 3, 1) for k, v in out.items()}
+
+
+@SEGMENTORS.register_module()
+class HoverNet(BaseSegmentor):
+    """``seed`` draws the initial weights (He-normal, ``nn.he_init_``);
+    load trained ones with ``net.load_state_dict``.
+
+    Instances are recovered on the device only: the JAX package's host route
+    (``device_postprocess=False`` or ``scale_factor != 1``) needs cv2 and is
+    not ported; both raise ``NotImplementedError``."""
+
+    softmax_heads = ('sem', 'fore')
+    first_view_heads = ('hv',)
+    device_pp_supported = True
+
+    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device)
+        self.net = HoverNetNet(num_classes, device=self.device)
+        he_init_(self.net, torch.Generator().manual_seed(seed))
+        self.net.to(memory_format=torch.channels_last).eval()
+
+    def _check_device_route(self):
+        if not self.test_cfg.get('device_postprocess', False) or self.test_cfg.get('scale_factor', 1) != 1:
+            raise NotImplementedError('HoVer-Net post-processing is ported for device_postprocess=True and '
+                                      'scale_factor=1 only: the host cv2 route is not (ROADMAP A)')
+
+    def _instances(self, fused):
+        sem_pred = torch.argmax(fused['sem'], dim=-1).to(torch.uint8)
+        return {'sem_pred': sem_pred, 'inst_pred': hover_post_proc_device(fused['fore'][..., 1], fused['hv'])}
+
+    def inference_and_postprocess(self, img: torch.Tensor, ori_hw=None):
+        """Fused eval on the device: inference, argmax of ``sem``, and
+        instances from ``fore[..., 1]`` and ``hv``."""
+        if not self.test_cfg.get('device_postprocess', False):
+            return None
+        self._check_device_route()
+        return self._instances(self.inference(img, ori_hw=ori_hw))
+
+    def postprocess(self, fused):
+        self._check_device_route()
+        maps = {k: torch.as_tensor(np.asarray(fused[k]), device=self.device)[None] for k in ('sem', 'fore', 'hv')}
+        return {k: v[0].cpu().numpy() for k, v in self._instances(maps).items()}

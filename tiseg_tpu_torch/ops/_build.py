@@ -3,11 +3,13 @@
 Each source under ``tiseg_tpu_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``build/kernels/`` beside the package, at first use, and loaded with
-``ctypes``. Nothing is built when the package is imported.
+``ctypes``. Nothing is built when the package is imported. A library is
+rebuilt when its source or any shared header (``csrc/*.cuh``) is newer.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import os.path as osp
 import shutil
@@ -18,7 +20,7 @@ CSRC = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), 'csrc')
 BUILD_DIR = osp.join(osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__)))), 'build', 'kernels')
 
 # library name -> source file under csrc/
-SOURCES = {'tiseg_pp': 'instance_pp.cu'}
+SOURCES = {'tiseg_pp': 'instance_pp.cu', 'tiseg_flood': 'flood.cu', 'tiseg_ws': 'watershed.cu'}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -37,7 +39,10 @@ def lib_path(name: str) -> str:
 
 def _stale(name: str) -> bool:
     so = lib_path(name)
-    return not osp.isfile(so) or osp.getmtime(so) < osp.getmtime(osp.join(CSRC, SOURCES[name]))
+    if not osp.isfile(so):
+        return True
+    inputs = [osp.join(CSRC, SOURCES[name])] + glob.glob(osp.join(CSRC, '*.cuh'))
+    return osp.getmtime(so) < max(osp.getmtime(p) for p in inputs)
 
 
 def build(names: Iterable[str] = None, verbose: bool = False) -> None:
@@ -76,3 +81,11 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(lib_path(name))
     return _loaded[name]
+
+
+def raise_on_error(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a kernel library's entry point returned a CUDA error."""
+    if err != 0:
+        lib.tiseg_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.tiseg_cuda_error_string.restype = ctypes.c_char_p
+        raise RuntimeError(f'{what} kernel failed: {lib.tiseg_cuda_error_string(err).decode()} ({err})')

@@ -19,6 +19,8 @@ import ctypes
 
 import torch
 
+from ._build import raise_on_error
+
 _INT32_MAX = 2 ** 31 - 1
 _N4 = ((1, 0), (-1, 0), (0, 1), (0, -1))
 _N8 = _N4 + ((1, 1), (1, -1), (-1, 1), (-1, -1))
@@ -103,8 +105,6 @@ def _lib():
     lib = load('tiseg_pp')
     lib.tiseg_instance_pp.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.tiseg_instance_pp.restype = ctypes.c_int
-    lib.tiseg_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.tiseg_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -120,9 +120,7 @@ def _launch_cuda(sem: torch.Tensor, radius: int, min_size: int, num_classes: int
         stream = torch.cuda.current_stream(sem.device).cuda_stream
         err = lib.tiseg_instance_pp(sem.data_ptr(), sem_out.data_ptr(), inst_out.data_ptr(), par.data_ptr(),
                                     aux.data_ptr(), m.data_ptr(), B, H, W, num_classes, radius, min_size, stream)
-    if err != 0:
-        raise RuntimeError(f'instance_postprocess_sweep kernel failed: '
-                           f'{lib.tiseg_cuda_error_string(err).decode()} ({err})')
+    raise_on_error(lib, err, 'instance_postprocess_sweep')
     instance_postprocess_sweep.launches += 1
     return sem_out, inst_out
 

@@ -3,12 +3,15 @@
 Usage::
 
     python -m tiseg_tpu_torch.tools.inference <config.py> <image> [--weights vars.npz]
-        [--device cpu] [--out pred.png]
+        [--device cpu] [--device-postprocess] [--out pred.png]
 
-``--weights`` is an ``.npz`` of the JAX package's flattened UNet variables
-(``params/...`` and ``batch_stats/...`` keys), carried over by
-``utils.weights``. Without it the net has seeded random weights. Prints the
-instance count; ``--out`` also writes the instance map as a PNG.
+``--weights`` is an ``.npz`` of the JAX package's flattened variables
+(``params/...`` and ``batch_stats/...`` keys) of the config's model type,
+carried over by ``utils.weights.state_dict_from_flax``. Without it the net
+has seeded random weights. ``--device-postprocess`` sets
+``test_cfg.device_postprocess`` (HoVer-Net recovers instances on the device
+only). Prints the instance count; ``--out`` also writes the instance map as
+a PNG.
 """
 from __future__ import annotations
 
@@ -21,9 +24,11 @@ def main(argv=None):
     p = argparse.ArgumentParser('Single-image inference (PyTorch port)')
     p.add_argument('config')
     p.add_argument('image')
-    p.add_argument('--weights', default=None, help='.npz of flattened flax UNet variables')
+    p.add_argument('--weights', default=None, help='.npz of flattened flax variables of the model')
     p.add_argument('--device', default=None, help="torch device (default: cuda)")
     p.add_argument('--seed', type=int, default=0, help='init seed when no --weights are given')
+    p.add_argument('--device-postprocess', action='store_true',
+                   help='recover instances on the device (test_cfg.device_postprocess=True)')
     p.add_argument('--out', default=None, help='write the instance map to this PNG')
     args = p.parse_args(argv)
 
@@ -31,14 +36,16 @@ def main(argv=None):
     from ..datasets.transforms import Normalize, read_image
     from ..models import build_segmentor
     from ..utils import Config
-    from ..utils.weights import unet_state_dict_from_flax, unflatten_variables
+    from ..utils.weights import state_dict_from_flax, unflatten_variables
 
     cfg = Config.fromfile(args.config)
+    if args.device_postprocess:
+        cfg.model.test_cfg = dict(cfg.model.get('test_cfg', {}), device_postprocess=True)
     seg = build_segmentor(cfg.model, device=args.device, seed=args.seed)
     if args.weights:
         with np.load(args.weights) as z:
             variables = unflatten_variables(dict(z))
-        seg.net.load_state_dict(unet_state_dict_from_flax(variables))
+        seg.net.load_state_dict(state_dict_from_flax(cfg.model.type, variables))
     else:
         print(f'no --weights given: random weights from seed {args.seed}')
 

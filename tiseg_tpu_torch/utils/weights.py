@@ -1,20 +1,23 @@
-"""Carry the JAX package's UNet variables over to the port's state dict.
+"""Carry the JAX package's variables over to the port's state dicts.
 
-``unet_state_dict_from_flax`` takes the ``{'params', 'batch_stats'}`` tree
-(as numpy arrays) of ``tiseg_tpu``'s ``UNetNet`` and returns the state dict
-of the port's ``UNetNet``. Layouts:
+Each carrier takes the ``{'params', 'batch_stats'}`` tree (as numpy arrays)
+of a ``tiseg_tpu`` net and returns the state dict of the port's net;
+:func:`state_dict_from_flax` picks the carrier by ``cfg.model.type``.
+Layouts:
 
-- conv kernel HWIO -> OIHW;
+- conv kernel HWIO -> OIHW (a grouped conv's (kH, kW, I/G, O) -> (O, I/G,
+  kH, kW));
 - transposed-conv kernel (kH, kW, I, O), spatially flipped -> (I, O, kH, kW)
   (flax ConvTranspose 'SAME' 4x4/s2 is torch's ConvTranspose2d(k=4, s=2,
   p=1) with the kernel flipped);
 - BN scale/bias -> weight/bias, mean/var -> running_mean/running_var;
-- the reference's VGG conv biases, which flax folds away, are zero.
+- the reference's VGG conv biases and HoVer-Net's stem conv bias, which
+  flax folds away, are zero.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -23,6 +26,9 @@ import torch
 # Sequential, so their conv/bn indices start at 1)
 _VGG16_STAGE_CONVS = (2, 2, 3, 3, 3)
 _NUM_DECODE = 5
+# ResNet50 blocks per stage; HoVer-Net dense units per decoder stage
+_RESNET50_LAYERS = (3, 4, 6, 3)
+_HOVER_DENSE_UNITS = {'u3': 8, 'u2': 4}
 
 
 def _t(a) -> torch.Tensor:
@@ -73,6 +79,66 @@ def unet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd['head.postprocess.weight'] = _conv(hp['cls']['kernel'])
     sd['head.postprocess.bias'] = _t(hp['cls']['bias'])
     return sd
+
+
+def _resnet50(sd, prefix, params, stats):
+    """ResNet50 / ResNetExt trunk (stem conv bias zero)."""
+    kernel = np.asarray(params['stem_conv']['kernel'])
+    sd[f'{prefix}.conv1.weight'] = _conv(kernel)
+    sd[f'{prefix}.conv1.bias'] = torch.zeros(kernel.shape[-1])
+    _bn(sd, f'{prefix}.bn1', params['stem_bn'], stats['stem_bn'])
+    for li, n_blocks in enumerate(_RESNET50_LAYERS, start=1):
+        for b in range(n_blocks):
+            fx = f'layer{li}_block{b}'
+            pre = f'{prefix}.layer{li}.{b}'
+            for c in (1, 2, 3):
+                sd[f'{pre}.conv{c}.weight'] = _conv(params[fx][f'conv{c}']['kernel'])
+                _bn(sd, f'{pre}.bn{c}', params[fx][f'bn{c}'], stats[fx][f'bn{c}'])
+            if 'downsample' in params[fx]:
+                sd[f'{pre}.downsample.0.weight'] = _conv(params[fx]['downsample']['kernel'])
+                _bn(sd, f'{pre}.downsample.1', params[fx]['bn_down'], stats[fx]['bn_down'])
+
+
+def hovernet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of ``tiseg_tpu_torch``'s ``HoverNetNet`` from the flax
+    ``{'params', 'batch_stats'}`` tree of ``tiseg_tpu``'s ``HoverNetNet``."""
+    params, stats = variables['params'], variables['batch_stats']
+    sd = OrderedDict()
+    _resnet50(sd, 'backbone', params['backbone'], stats['backbone'])
+    sd['conv_bot.weight'] = _conv(params['conv_bot']['kernel'])
+    for branch in ('tp', 'np', 'hv'):
+        bp, bs = params[branch], stats[branch]
+        pre = f'decoder.{branch}'
+        for stage, units in _HOVER_DENSE_UNITS.items():
+            sd[f'{pre}.{stage}.0.weight'] = _conv(bp[f'{stage}_conva']['kernel'])
+            dp, ds = bp[f'{stage}_dense'], bs[f'{stage}_dense']
+            for u in range(units):
+                _bn(sd, f'{pre}.{stage}.1.units.{u}.0', dp[f'u{u}_bn1'], ds[f'u{u}_bn1'])
+                sd[f'{pre}.{stage}.1.units.{u}.2.weight'] = _conv(dp[f'u{u}_conv1']['kernel'])
+                _bn(sd, f'{pre}.{stage}.1.units.{u}.3', dp[f'u{u}_bn2'], ds[f'u{u}_bn2'])
+                sd[f'{pre}.{stage}.1.units.{u}.5.weight'] = _conv(dp[f'u{u}_conv2']['kernel'])
+            _bn(sd, f'{pre}.{stage}.1.blk_bna.0', dp['blk_bn'], ds['blk_bn'])
+            sd[f'{pre}.{stage}.2.weight'] = _conv(bp[f'{stage}_convf']['kernel'])
+        sd[f'{pre}.u1.0.weight'] = _conv(bp['u1_conva']['kernel'])
+        _bn(sd, f'{pre}.u0.0', bp['u0_bn'], bs['u0_bn'])
+        sd[f'{pre}.u0.2.weight'] = _conv(bp['u0_cls']['kernel'])
+        sd[f'{pre}.u0.2.bias'] = _t(bp['u0_cls']['bias'])
+    return sd
+
+
+# cfg.model.type -> carrier
+CARRIERS: Dict[str, Callable[[Mapping], Dict[str, torch.Tensor]]] = {
+    'UNet': unet_state_dict_from_flax,
+    'HoverNet': hovernet_state_dict_from_flax,
+}
+
+
+def state_dict_from_flax(model_type: str, variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's state dict for a ``model_type`` net from its flax variables."""
+    if model_type not in CARRIERS:
+        raise NotImplementedError(f'no weight carrier for model type {model_type!r} '
+                                  f'(carried: {sorted(CARRIERS)})')
+    return CARRIERS[model_type](variables)
 
 
 def unflatten_variables(flat: Mapping[str, np.ndarray]) -> Dict:
