@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (tiseg_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--patch-batch 100] [--hover-patch-batch 32]
+    python3 chip_smoke.py [--seed 0] [--patch-batch 100] [--hover-patch-batch 32] [--cd-patch-batch 64]
 
 1. Prints the card (nvidia-smi name, power limit), torch and CUDA versions,
    and builds every CUDA kernel from the sources in this checkout (one nvcc
@@ -13,6 +13,10 @@
    ccl_filter_sweep's size filter (B4, min_size 10, both connectivities),
    fill_holes_sweep (B3), and the watershed (B5) in its bounded (4, 64) and
    fixpoint modes on (dist, markers, foreground) from the HoVer pipeline.
+   On seven-class planes with seed planes (hand-made hard cases at 64^2 and
+   256^2, 16 x 256^2 at CoNIC density, one 1000^2 plane) the same for the
+   class-vectorized instance_postprocess_sweep (B7, radius 3) and
+   mt_instance_postprocess_sweep (B6).
 3. Drives the UNet eval path once through its entry points at the full
    width of the reference UNet recipe (VGG16-BN + UNetHead, 2 classes,
    float32, seeded weights): one 1000^2 image, split 256/40 windows x 8
@@ -26,6 +30,18 @@
    first-view HV maps, and the HoVer post-processing through B2-B5, whose
    launch counts are read from that run alone. The instances are checked bit for bit against the same
    post-processing with the plain versions on the same fused maps.
+
+5. Drives the CDNet eval path once through InferenceRunner at the full
+   width of the CoNIC recipe (VGG16-BN + CDHead, 7 classes + boundary,
+   float32, seeded weights): 16 images of 256^2, 8 views, per-view DDM, DDM
+   enhancement, boundary strip and the B7 kernel, whose launch count is read
+   from that run alone; instances checked bit for bit against the plain
+   version on the same semantic plane.
+6. The same for MultiTaskCDNet (tc/sem/dir/point heads, B6), and two images
+   each through MultiTaskUNet and MultiTaskCUNet (B6; checked, not timed).
+   The classifiers of these nets are rescaled on view 0 of the images so
+   that every class occurs, and their background biases bisected so that
+   about 40% of the fused map is foreground and 10% seeds.
 
 TF32 is off for convolutions and matrix products in every comparison.
 Prints, before its last two lines, one JSON object with each kernel's
@@ -48,9 +64,15 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 UNET_CONFIG = 'configs/unet/unet_vgg16_adam-lr1e-4_bs8_256x256_300e_monuseg.py'
 HOVER_CONFIG = 'configs/hovernet/hovernet_adam-lr0.0001_bs8_256x256_100e_conic.py'
+CDNET_CONFIG = 'configs/cdnet/cdnet_adam-lr0.0005_bs16_256x256_100e_conic.py'
+MT_CDNET_CONFIG = 'configs/multi_task_cdnet/multi_task_cdnet_adam-lr0.0005_bs16_256x256_100e_conic.py'
+MT_UNET_CONFIG = 'configs/multi_task_unet/multi_task_unet_adam-lr0.0001_bs8_256x256_100e_conic.py'
+MT_CUNET_CONFIG = 'configs/multi_task_cunet/multi_task_cunet_adam-lr0.0005_bs16_256x256_100e_conic.py'
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores (data sheet, float32)
 DIAMOND_MIN_SIZE = 10  # HoVer-Net's size filter (ops/hover.py)
+CONIC_CLASSES, CONIC_RADIUS, ALIGN_TIME = 7, 3, 20  # the CoNIC recipes' post-processing settings
+CONIC_BATCH, CONIC_HW = 16, 256  # images per timed CDNet / MultiTaskCDNet batch, and their size
 
 
 def card_line() -> str:
@@ -102,6 +124,11 @@ def bound(kernel: str, x: torch.Tensor, waves: int = 0):
     px = x.numel()
     if kernel == 'instance_postprocess_sweep':  # int32 in, uint8 + int32 out
         byte_ms, op_ms = bytes_ms(9 * px), 0.0
+    elif kernel == 'instance_postprocess_vectorized':  # the same planes; one compare per disk cell and pixel
+        from tiseg_tpu_torch.ops.instance_pp import disk_offsets
+        byte_ms, op_ms = bytes_ms(9 * px), ops_ms(px * len(disk_offsets(CONIC_RADIUS)))
+    elif kernel == 'mt_instance_postprocess_sweep':  # 2 int32 in, uint8 + int32 out; 8 neighbours per pixel and wave
+        byte_ms, op_ms = bytes_ms(13 * px), ops_ms(8 * px * waves)
     elif kernel == 'ccl_sweep':  # int32 mask in, int32 labels out
         byte_ms, op_ms = bytes_ms(8 * px), 0.0
     elif kernel == 'size_filter':  # int32 labels in and out; one compare per diamond cell and set pixel
@@ -154,15 +181,35 @@ def kernel_cases(x: torch.Tensor, ws_in):
     return cases
 
 
-def check_kernels(plane_sets, seed: int):
-    """Each kernel bit-exact against its plain version on every plane set;
-    prints kernel ms, plain ms and bound. Returns each kernel's largest
-    |kernel - plain|."""
+def growth_waves(seed: torch.Tensor, canvas: torch.Tensor) -> int:
+    """The growth waves that change a pixel on these planes (at most ALIGN_TIME - 1)."""
+    from tiseg_tpu_torch.ops.flood import ccl_plain
+    from tiseg_tpu_torch.ops.mt_instance_pp import align_foreground_plain
+    return align_foreground_plain(ccl_plain(seed > 0, 1), canvas > 0, ALIGN_TIME)[1]
+
+
+def multiclass_kernel_cases(x: torch.Tensor, seed: torch.Tensor):
+    """The same for the seven-class planes ``x`` and their seed planes."""
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep, instance_postprocess_vectorized_plain
+    from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_plain, mt_instance_postprocess_sweep
+    return {
+        'instance_postprocess_vectorized': (
+            lambda: instance_postprocess_sweep(x, radius=CONIC_RADIUS, num_classes=CONIC_CLASSES),
+            lambda: instance_postprocess_vectorized_plain(x, CONIC_RADIUS, 5, CONIC_CLASSES), x),
+        'mt_instance_postprocess_sweep': (
+            lambda: mt_instance_postprocess_sweep(x, seed, num_classes=CONIC_CLASSES, align_time=ALIGN_TIME),
+            lambda: mt_instance_postprocess_plain(x, seed, CONIC_CLASSES, 5, ALIGN_TIME), x),
+    }
+
+
+def check_kernels(case_sets):
+    """Each kernel bit-exact against its plain version on every plane set
+    (``case_sets``: set name -> (planes, cases)); prints kernel ms, plain ms
+    and bound. Returns each kernel's largest |kernel - plain|."""
     from tiseg_tpu_torch.ops.watershed import watershed
     max_err = {}
-    for set_name, (sem, inst) in plane_sets.items():
-        x = torch.from_numpy(sem).cuda()
-        for name, (kernel, plain, bound_in) in kernel_cases(x, hover_inputs(inst, seed)).items():
+    for set_name, (x, seed, cases) in case_sets.items():
+        for name, (kernel, plain, bound_in) in cases.items():
             got = kernel()
             torch.cuda.synchronize()
             want = plain()
@@ -173,11 +220,16 @@ def check_kernels(plane_sets, seed: int):
                                          f'{int((g != w).sum())} pixels')
                 err = int((g.long() - w.long()).abs().max())
                 max_err[name.split()[0]] = max(max_err.get(name.split()[0], 0), err)
-            waves = watershed.last_waves[1] if name.startswith('watershed') else 0
+            waves, extra = 0, ''
+            if name.startswith('watershed'):
+                waves = watershed.last_waves[1]
+                extra = f', {watershed.last_waves[0]} waves launched ({waves} needed)'
+            elif name.startswith('mt_'):
+                waves = growth_waves(seed, want[0])
+                extra = f', {ALIGN_TIME - 1} waves launched ({waves} change a pixel)'
             k_ms = cuda_ms(kernel, reps=25)
             p_ms = cuda_ms(plain, reps=3, warmup=1)
             b_ms, b_by = bound(name.split()[0], bound_in, waves)
-            extra = f', {watershed.last_waves[0]} waves launched ({waves} needed)' if waves else ''
             print(f'{name} {set_name} {tuple(x.shape)}: bit-exact vs plain, kernel {k_ms:.4f} ms, plain {p_ms:.2f} '
                   f'ms, bound {b_ms * 1e3:.2f} us ({b_by}){extra}', flush=True)
     return max_err
@@ -414,8 +466,221 @@ def hover_main_path(args):
     return stats
 
 
+# -- phases 5 and 6: the CDNet and the multi-task eval paths ---------------------------
+@torch.no_grad()
+def standardize_classifier_(seg, imgs, head: str, conv: torch.nn.Conv2d, shifts, scale: float = 2.0) -> None:
+    """Rescale and shift a 1x1 classifier so that, on view 0 of ``imgs``,
+    channel ``c`` of ``head`` has mean ``shifts[c]`` and std ``scale``. The
+    seeded trunk's logits have per-channel offsets that swamp their
+    variation, so one class would take every pixel. A head that gates
+    others (point -> dir -> tc/sem) goes first."""
+    logit = seg.forward_heads(imgs)[head].reshape(-1, len(shifts))
+    gain = scale / logit.std(0)
+    conv.weight.mul_(gain[:, None, None, None])
+    conv.bias.copy_((conv.bias - logit.mean(0)) * gain + torch.tensor(shifts, device=gain.device))
+
+
+@torch.no_grad()
+def background_bias_(seg, imgs, head: str, conv: torch.nn.Conv2d, hit, share: float, steps: int = 8) -> None:
+    """Bisect the background bias of the ``head`` classifier until ``share``
+    of the first two images' pixels are ``hit(fused[head])`` in the
+    TTA-fused map of ``seg.inference``. The views of a seeded net disagree
+    about the classes but not about the background, so a share set on view 0
+    alone shrinks to a few percent in the mean over the views."""
+    start, lo, hi = float(conv.bias[0]), -16.0, 16.0
+    for step in range(steps + 1):
+        conv.bias[0] = start + (lo + hi) / 2
+        if step < steps:
+            if float(hit(seg.inference(imgs[:2])[head]).float().mean()) > share:
+                lo = (lo + hi) / 2
+            else:
+                hi = (lo + hi) / 2
+
+
+def foreground(sem_map: torch.Tensor) -> torch.Tensor:
+    """Pixels whose fused argmax over the classes (a boundary channel aside) is not the background."""
+    return sem_map[..., :CONIC_CLASSES].argmax(-1) > 0
+
+
+def drive_once(runner, seg, hook: str, imgs, hw: int, counters):
+    """Warm up, then one run of the main path with the launch counts at 0.
+    ``hook`` names the segmentor's post-processing method, whose arguments
+    are captured. Returns (outputs, captured arguments, launches, peak GiB)."""
+    captured = {}
+    method = getattr(seg, hook)
+
+    def capturing(*call_args):
+        captured['args'] = call_args
+        return method(*call_args)
+
+    setattr(seg, hook, capturing)
+    try:
+        runner.dispatch(imgs, (hw, hw))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        out = runner.dispatch(imgs, (hw, hw))
+        torch.cuda.synchronize()
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    finally:
+        delattr(seg, hook)
+    for name, n in launches.items():
+        if n != 1:
+            raise AssertionError(f'{name}: {n} launches on the {type(seg).__name__} main path, expected 1')
+    return out, captured['args'], launches, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_instances(name, out, want, n_img, hw, min_inst):
+    """Shapes and types, bit-equality with the plain version's ``want``, and
+    a plane that is not degenerate."""
+    sem_out, inst_out = out['sem_pred'], out['inst_pred']
+    if not (sem_out.shape == inst_out.shape == (n_img, hw, hw) and sem_out.dtype == torch.uint8
+            and inst_out.dtype == torch.int32 and inst_out.is_cuda):
+        raise AssertionError(f'{name}: bad outputs {sem_out.shape} {sem_out.dtype} {inst_out.shape} {inst_out.dtype}')
+    if not (torch.equal(sem_out, want[0]) and torch.equal(inst_out, want[1])):
+        raise AssertionError(f'{name}: main-path instances differ from the plain post-processing: '
+                             f'{int((inst_out != want[1]).sum())} pixels')
+    classes = torch.unique(sem_out).tolist()
+    n_inst = sum(len(torch.unique(inst_out[b])) - 1 for b in range(n_img))
+    fg = float((sem_out > 0).float().mean())
+    if not (len(classes) > 2 and n_inst > min_inst and 0.05 <= fg <= 0.8):
+        raise AssertionError(f'{name}: degenerate output: classes {classes}, {n_inst} instances, foreground {fg:.3f}')
+    return classes, n_inst, fg
+
+
+def conic_images(seed: int, n_img: int, hw: int = 256) -> np.ndarray:
+    from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, make_nuclei
+    return np.stack([make_nuclei(seed + i, hw, CONIC_NUCLEI_PER_PATCH)[0] for i in range(n_img)])
+
+
+def time_path(name, runner, seg, imgs, hw, pp, patch_batch):
+    """Prints e2e, forward and post-processing ms per image (host clock, median of 5)."""
+    n_img = len(imgs)
+    img_t = torch.from_numpy(imgs).cuda()
+    e2e_ms = wall_ms(lambda: runner.dispatch(imgs, (hw, hw)), reps=5) / n_img
+    fwd_ms = wall_ms(lambda: seg.inference(img_t), reps=5) / n_img
+    pp_ms = wall_ms(pp, reps=5) / n_img
+    print(f'{name} e2e {e2e_ms:.2f} ms per {hw}^2 image (median of 5 batches of {n_img}, patch_batch {patch_batch}); '
+          f'forward + TTA fuse {fwd_ms:.2f} ms ({fwd_ms / e2e_ms:.1%}), argmax + instance pp {pp_ms:.3f} ms '
+          f'({pp_ms / e2e_ms:.2%})', flush=True)
+
+
+def cdnet_main_path(args):
+    from tiseg_tpu_torch.apis import InferenceRunner
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep, instance_postprocess_vectorized_plain
+    from tiseg_tpu_torch.utils import Config
+
+    n_img, hw = CONIC_BATCH, CONIC_HW
+    cfg = Config.fromfile(os.path.join(ROOT, CDNET_CONFIG))
+    cfg.model.test_cfg = dict(cfg.model.test_cfg, device_postprocess=True, patch_batch=args.cd_patch_batch)
+    print(f'CDNet model: {CDNET_CONFIG}, test_cfg {cfg.model.test_cfg}', flush=True)
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+    imgs = conic_images(args.seed + 11000, n_img, hw)
+    img_t = torch.from_numpy(imgs).cuda()
+    dgm = seg.net.head.postprocess
+    standardize_classifier_(seg, img_t, 'point', dgm.point_conv, [0.3], scale=0.5)
+    # the background direction 9 above the others, or every pixel is a DDM boundary
+    standardize_classifier_(seg, img_t, 'dir', dgm.dir_conv, [9.0] + [0.0] * 8, scale=3.0)
+    standardize_classifier_(seg, img_t, 'sem', dgm.mask_conv, [0.0] * CONIC_CLASSES + [-1.0])
+    background_bias_(seg, img_t, 'sem', dgm.mask_conv, foreground, share=0.4)
+    runner = InferenceRunner(seg)
+    counters = {'instance_postprocess_vectorized': (instance_postprocess_sweep, 'vectorized_launches')}
+    out, (sem_pred,), launches, peak_gib = drive_once(runner, seg, '_device_instance_pp', imgs, hw, counters)
+
+    want = instance_postprocess_vectorized_plain(sem_pred, CONIC_RADIUS, 5, CONIC_CLASSES)
+    classes, n_inst, fg = check_instances('CDNet', out, want, n_img, hw, min_inst=100)
+    fused = seg.inference(img_t)
+    boundary = float((fused['sem'].argmax(-1) == CONIC_CLASSES).float().mean())
+    if not (fused['sem'].shape == (n_img, hw, hw, CONIC_CLASSES + 1) and torch.isfinite(fused['sem']).all()
+            and fused['dir_map'].shape == (n_img, hw, hw) and boundary > 0
+            and len(torch.unique(fused['dir_map'])) >= 5):
+        raise AssertionError(f'CDNet fused maps: shape {tuple(fused["sem"].shape)}, boundary share {boundary:.4f}, '
+                             f'directions {torch.unique(fused["dir_map"]).tolist()}')
+    print(f'CDNet main path: launches {launches}, classes {classes}, foreground {fg:.4f}, boundary class on '
+          f'{boundary:.4f} of the fused argmax, {n_inst} instances in {n_img} images, equal to the plain '
+          f'post-processing; peak memory {peak_gib:.3f} GiB', flush=True)
+
+    device_pp = seg._device_instance_pp
+    time_path('CDNet', runner, seg, imgs, hw, lambda: device_pp(seg._device_sem_pred(fused)), args.cd_patch_batch)
+    name = 'instance_postprocess_vectorized'
+    k_ms = cuda_ms(lambda: device_pp(sem_pred), reps=25)
+    p_ms = cuda_ms(lambda: instance_postprocess_vectorized_plain(sem_pred, CONIC_RADIUS, 5, CONIC_CLASSES), reps=3,
+                   warmup=1)
+    b_ms, b_by = bound(name, sem_pred)
+    print(f'CDNet main-path kernel {name} {tuple(sem_pred.shape)}: {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound '
+          f'{b_ms * 1e3:.2f} us ({b_by})', flush=True)
+    return {name: dict(launches=launches[name], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)}
+
+
+def multi_task_path(args, config: str, n_img: int, timed: bool):
+    """One multi-task segmentor (MultiTaskCDNet, MultiTaskUNet or
+    MultiTaskCUNet) through InferenceRunner; returns the B6 numbers when
+    ``timed``."""
+    from tiseg_tpu_torch.apis import InferenceRunner
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_plain, mt_instance_postprocess_sweep
+    from tiseg_tpu_torch.utils import Config
+
+    hw = CONIC_HW
+    cfg = Config.fromfile(os.path.join(ROOT, config))
+    cfg.model.test_cfg = dict(cfg.model.test_cfg, device_postprocess=True, patch_batch=args.cd_patch_batch)
+    model = cfg.model.type
+    print(f'{model} model: {config}, test_cfg {cfg.model.test_cfg}', flush=True)
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+    imgs = conic_images(args.seed + 13000, n_img, hw)
+    img_t = torch.from_numpy(imgs).cuda()
+    branches = seg.net.head.postprocess
+    if model == 'MultiTaskCDNet':
+        seed_head, seed_conv = 'tc', branches.tc_mask_conv
+        standardize_classifier_(seg, img_t, 'point', branches.point_conv, [0.3], scale=0.5)
+        standardize_classifier_(seg, img_t, 'dir', branches.dir_conv, [9.0] + [0.0] * 8, scale=3.0)
+    else:
+        seed_head, seed_conv = 'aux', branches.aux_mask_conv
+    standardize_classifier_(seg, img_t, seed_head, seed_conv, [0.0, 0.0] if model == 'MultiTaskUNet' else [0.0, 0.0, 1.5])
+    background_bias_(seg, img_t, seed_head, seed_conv, lambda p: p.argmax(-1) == 1, share=0.1)
+    standardize_classifier_(seg, img_t, 'sem', branches.mask_conv, [0.0] * CONIC_CLASSES)
+    background_bias_(seg, img_t, 'sem', branches.mask_conv, foreground, share=0.4)
+    runner = InferenceRunner(seg)
+    counters = {'mt_instance_postprocess_sweep': (mt_instance_postprocess_sweep, 'launches')}
+    out, (sem_pred, seed), launches, peak_gib = drive_once(runner, seg, '_device_mt_instance_pp', imgs, hw, counters)
+
+    want = mt_instance_postprocess_plain(sem_pred, seed, CONIC_CLASSES, 5, ALIGN_TIME)
+    classes, n_inst, fg = check_instances(model, out, want, n_img, hw, min_inst=100 if timed else 10)
+    grown = int(((out['inst_pred'] > 0) & (seed == 0)).sum())
+    seeds_inside = float((out['sem_pred'] > 0)[seed > 0].float().mean())
+    fused = seg.inference(img_t)
+    boundary = float((fused[seed_head].argmax(-1) == 2).float().mean())
+    if grown < 1 or (model != 'MultiTaskUNet' and boundary == 0):
+        raise AssertionError(f'{model}: growth claimed {grown} pixels, boundary class on {boundary:.4f}')
+    print(f'{model} main path: launches {launches}, classes {classes}, canvas {fg:.4f}, seeds on '
+          f'{float((seed > 0).float().mean()):.4f} of the pixels ({seeds_inside:.3f} of them inside the canvas), '
+          f'boundary class on {boundary:.4f}, growth claimed {grown} pixels in '
+          f'{growth_waves(seed, out["sem_pred"])} waves, {n_inst} instances in {n_img} images, equal to the plain '
+          f'post-processing; peak memory {peak_gib:.3f} GiB', flush=True)
+    if not timed:
+        return {}
+
+    def pp():
+        sem = torch.argmax(fused['sem'], dim=-1).to(torch.int32)
+        return seg._device_mt_instance_pp(sem, seg._device_seed_pred(fused))
+
+    time_path(model, runner, seg, imgs, hw, pp, args.cd_patch_batch)
+    name = 'mt_instance_postprocess_sweep'
+    k_ms = cuda_ms(lambda: seg._device_mt_instance_pp(sem_pred, seed), reps=25)
+    p_ms = cuda_ms(lambda: mt_instance_postprocess_plain(sem_pred, seed, CONIC_CLASSES, 5, ALIGN_TIME), reps=3,
+                   warmup=1)
+    b_ms, b_by = bound(name, sem_pred, growth_waves(seed, out['sem_pred']))
+    print(f'{model} main-path kernel {name} {tuple(sem_pred.shape)}: {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound '
+          f'{b_ms * 1e3:.2f} us ({b_by})', flush=True)
+    return {name: dict(launches=launches[name], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)}
+
+
 SOURCES = {
     'instance_postprocess_sweep': ('tiseg_tpu_torch/csrc/instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:478'),
+    'instance_postprocess_vectorized': ('tiseg_tpu_torch/csrc/instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:353'),
+    'mt_instance_postprocess_sweep': ('tiseg_tpu_torch/csrc/mt_instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:561'),
     'ccl_sweep': ('tiseg_tpu_torch/csrc/flood.cu', 'tiseg_tpu/ops/pallas_sweep.py:619'),
     'size_filter': ('tiseg_tpu_torch/csrc/flood.cu', 'tiseg_tpu/ops/pallas_sweep.py:597'),
     'fill_holes_sweep': ('tiseg_tpu_torch/csrc/flood.cu', 'tiseg_tpu/ops/pallas_sweep.py:641'),
@@ -428,12 +693,15 @@ def main(argv=None) -> int:
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--patch-batch', type=int, default=100, help='UNet patches per network forward')
     p.add_argument('--hover-patch-batch', type=int, default=32, help='HoVer-Net patches per network forward')
+    p.add_argument('--cd-patch-batch', type=int, default=64,
+                   help='CDNet and multi-task patches per network forward')
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, hard_planes, make_nuclei
+    from tiseg_tpu_torch.datasets.synthetic import (CONIC_NUCLEI_PER_PATCH, hard_planes, hard_planes_multiclass,
+                                                    make_nuclei, multiclass_nuclei)
     from tiseg_tpu_torch.ops import _build
     from tiseg_tpu_torch.ops.flood import ccl_plain
 
@@ -457,10 +725,23 @@ def main(argv=None) -> int:
                          for i in range(n)])
         return (inst > 0).astype(np.int32), inst
 
-    plane_sets = {'hard64': hard(64), 'hard256': hard(256), 'conic16x256': nuclei(16, 256, args.seed),
-                  'conic1000': nuclei(1, 1000, args.seed + 7000)}
+    def multiclass(n, hw, seed):
+        planes = [multiclass_nuclei(seed + i, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2) for i in range(n)]
+        return np.stack([p[0] for p in planes]), np.stack([p[1] for p in planes])
+
     t0 = time.perf_counter()
-    max_err = check_kernels(plane_sets, args.seed)
+    case_sets = {}
+    for set_name, (sem, inst) in {'hard64': hard(64), 'hard256': hard(256), 'conic16x256': nuclei(16, 256, args.seed),
+                                  'conic1000': nuclei(1, 1000, args.seed + 7000)}.items():
+        x = torch.from_numpy(sem).cuda()
+        case_sets[set_name] = (x, None, kernel_cases(x, hover_inputs(inst, args.seed)))
+    for set_name, (sem, seed) in {'7class-hard64': hard_planes_multiclass(64),
+                                  '7class-hard256': hard_planes_multiclass(256),
+                                  '7class-conic16x256': multiclass(16, 256, args.seed),
+                                  '7class-conic1000': multiclass(1, 1000, args.seed + 7000)}.items():
+        x, seed = torch.from_numpy(sem).cuda(), torch.from_numpy(seed).cuda()
+        case_sets[set_name] = (x, seed, multiclass_kernel_cases(x, seed))
+    max_err = check_kernels(case_sets)
     print(f'kernel phase: {time.perf_counter() - t0:.1f} s', flush=True)
 
     # -- phases 3 and 4 ------------------------------------------------------------
@@ -470,6 +751,21 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     stats.update(hover_main_path(args))
     print(f'HoVer-Net phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+
+    # -- phases 5 and 6 ------------------------------------------------------------
+    t0 = time.perf_counter()
+    stats.update(cdnet_main_path(args))
+    print(f'CDNet phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats.update(multi_task_path(args, MT_CDNET_CONFIG, n_img=CONIC_BATCH, timed=True))
+    print(f'MultiTaskCDNet phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for config in (MT_UNET_CONFIG, MT_CUNET_CONFIG):
+        multi_task_path(args, config, n_img=2, timed=False)
+    print(f'MultiTaskUNet and MultiTaskCUNet phase: {time.perf_counter() - t0:.1f} s', flush=True)
 
     kernels = [dict(name=name, route='cuda', source=src, replaces=rep, launches=stats[name]['launches'],
                     max_abs_err=max_err[name], ms=stats[name]['ms'], plain_ms=stats[name]['plain_ms'],

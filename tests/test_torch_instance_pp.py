@@ -86,8 +86,16 @@ def test_per_class_loop_matches_jax():
 
 
 def test_vectorized_multiclass_not_ported():
-    with pytest.raises(NotImplementedError, match='B7'):
-        instance_postprocess_sweep(torch.zeros((8, 8), dtype=torch.int32), num_classes=3)
+    """The name dates from when num_classes > 2 with the JAX default
+    ``multiclass_vectorized=True`` raised in the port: now it runs the
+    class-vectorized pipeline (held against JAX in
+    test_torch_instance_pp_multiclass.py) and no longer raises."""
+    planes = np.where(blob_planes(6, 1, 64) > 0, 2, blob_planes(5, 1, 64)).astype(np.int32)
+    want_s, want_i = _jax(planes, num_classes=3)
+    got_s, got_i = instance_postprocess_sweep(torch.from_numpy(planes), num_classes=3)
+    np.testing.assert_array_equal(got_s.numpy(), want_s)
+    np.testing.assert_array_equal(got_i.numpy(), want_i)
+    assert set(np.unique(want_s)) == {0, 1, 2}
 
 
 def test_rejects_int32_overflow():

@@ -1,0 +1,149 @@
+"""The ported CDNet eval slice vs tiseg_tpu: VGG16-BN + CDHead (DGM), split
+64/16 sliding windows x 4 dihedral TTA views, softmax mean of ``sem``, raw
+mean of ``point``, per-view gated direction argmax -> DDM, DDM enhancement
+of the boundary channel, boundary strip, and the class-vectorized instance
+post-processing (7 classes, radius 3), on two 96^2 images with the same
+numpy weights on both sides.
+
+Tolerances: the fused ``sem`` map (DDM-enhanced boundary included) within
+1e-4 (float32 convolutions summed in different orders); ``dir_map`` of the
+first view equal; ``sem_pred`` equal; ``inst_pred`` bit-exact against
+tiseg_tpu's CDNet.inference_and_postprocess (its Pallas kernel in interpret
+mode).
+
+A near-tie of a view's gated direction probabilities can flip a direction
+class and with it DDM pixels (0.125 to 0.25 of the boundary channel at 4
+views), so the classifiers are standardized on the images (per-channel std 3
+for ``dir`` with the background channel 9 above the others, or every pixel
+is a DDM boundary; std 2 for ``sem``) and the test bounds the near-tie share: top-2
+margin <= 1e-4 on under 0.2% of the pixel-views for ``dir``, class margin
+<= 1e-3 on under 2% of the pixels for ``sem``; it still asks for equality.
+Reached on this seed: fused ``sem`` within 2.7e-6, ``dir`` near-ties on
+0.02-0.06% of a view's pixels, ``sem`` near-ties on 0.9%."""
+import os.path as osp
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tiseg_tpu.models import build_segmentor as build_jax_segmentor
+from tiseg_tpu_torch.apis import InferenceRunner
+from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
+from tiseg_tpu_torch.models import build_segmentor
+from tiseg_tpu_torch.ops.sliding import reverse_tta_transform, tta_forward_views, tta_views
+from tiseg_tpu_torch.utils.weights import state_dict_from_flax
+from torch_port_utils import flatten_variables, random_variables, standardize_head
+
+HW = 96
+NUM_CLASSES = 7
+TEST_CFG = dict(mode='split', radius=3, crop_size=(64, 64), overlap_size=(16, 16), rotate_degrees=[0, 90],
+                flip_directions=['none', 'horizontal'], if_ddm=True, device_postprocess=True, patch_batch=8)
+MODEL = dict(type='CDNet', num_classes=NUM_CLASSES)
+SEED = 3
+
+
+def _variables(img):
+    v = random_variables('CDNet', NUM_CLASSES, seed=SEED)
+    dgm = ('head', 'dgm')
+    v = standardize_head(MODEL, v, img, 'point', dgm + ('point_conv',), [0.3], scale=0.5)
+    v = standardize_head(MODEL, v, img, 'dir', dgm + ('dir_conv',), [9.0] + [0.0] * 8, scale=3.0)
+    return standardize_head(MODEL, v, img, 'sem', dgm + ('mask_conv',), [0.5] + [0.0] * 6 + [-1.0], scale=2.0)
+
+
+@pytest.fixture(scope='module')
+def slice_run():
+    img = np.stack([make_nuclei(21 + i, HW, nuclei_density(HW))[0] for i in range(2)])
+    variables = _variables(img)
+
+    port = build_segmentor(dict(MODEL, test_cfg=TEST_CFG), device='cpu')
+    port.net.load_state_dict(state_dict_from_flax('CDNet', variables))
+    port_fused = {k: v.numpy() for k, v in port.inference(torch.from_numpy(img)).items()}
+    port_out = InferenceRunner(port)(img, (HW, HW))
+
+    jseg = build_jax_segmentor(dict(MODEL, train_cfg=dict(), test_cfg=TEST_CFG))
+    jvars = jax.tree_util.tree_map(jnp.asarray, variables)
+
+    def both(v, im):
+        return jseg.inference(v, im), jseg.inference_and_postprocess(v, im)
+
+    jax_fused, jax_out = jax.tree_util.tree_map(np.asarray, jax.jit(both)(jvars, jnp.asarray(img)))
+    return port, img, port_fused, port_out, jax_fused, jax_out
+
+
+def test_fused_maps_match(slice_run):
+    _, _, port_fused, _, jax_fused, _ = slice_run
+    assert set(port_fused) == set(jax_fused) == {'sem', 'dir_map'}
+    assert port_fused['sem'].shape == jax_fused['sem'].shape == (2, HW, HW, NUM_CLASSES + 1)
+    assert np.abs(port_fused['sem'] - jax_fused['sem']).max() <= 1e-4
+    np.testing.assert_array_equal(port_fused['dir_map'], jax_fused['dir_map'])
+    assert len(np.unique(port_fused['dir_map'])) == 9
+    # the enhancement moved the boundary channel: the map no longer sums to one everywhere
+    assert np.abs(port_fused['sem'].sum(-1) - 1).max() > 0.1
+
+
+def test_near_ties_are_rare(slice_run):
+    port, img, port_fused, _, _, _ = slice_run
+    views = tta_views(TEST_CFG)
+    outs = tta_forward_views(port.forward_heads, torch.from_numpy(img), views, 'split', 64, 16, chunk=8)
+    sem_bg = torch.stack([torch.softmax(reverse_tta_transform(o['sem'], r, f), -1)[..., :1]
+                          for (r, f), o in zip(views, outs)]).mean(0)
+    near = []
+    for (rot, flip), out in zip(views, outs):
+        dp = torch.softmax(reverse_tta_transform(out['dir'], rot, flip), -1)
+        dp = torch.cat([dp[..., :1] * sem_bg, dp[..., 1:]], -1)
+        top2 = torch.topk(dp, 2, dim=-1).values
+        near.append(((top2[..., 0] - top2[..., 1]) <= 1e-4).float().mean().item())
+    assert max(near) < 0.002
+    top2 = np.sort(port_fused['sem'], -1)[..., -2:]
+    assert ((top2[..., 1] - top2[..., 0]) <= 1e-3).mean() < 0.02
+
+
+def test_sem_pred_matches_and_is_not_degenerate(slice_run):
+    _, _, port_fused, port_out, _, jax_out = slice_run
+    np.testing.assert_array_equal(port_out['sem_pred'], jax_out['sem_pred'])
+    assert port_out['sem_pred'].dtype == np.uint8
+    assert (port_fused['sem'].argmax(-1) == NUM_CLASSES).any()        # the boundary class occurs and is stripped
+    assert port_out['sem_pred'].max() < NUM_CLASSES
+    assert len(np.unique(port_out['sem_pred'])) >= 4
+    assert 0.1 <= (port_out['sem_pred'] > 0).mean() <= 0.7
+
+
+def test_inst_pred_bit_exact(slice_run):
+    _, _, _, port_out, _, jax_out = slice_run
+    assert port_out['inst_pred'].dtype == np.int32
+    np.testing.assert_array_equal(port_out['inst_pred'], jax_out['inst_pred'])
+    assert len(np.unique(port_out['inst_pred'])) > 10
+
+
+def test_host_route_gives_the_same_partition_per_class(slice_run):
+    """``postprocess`` (scipy, per-class loop) on the same fused maps: the
+    direction panel's keys, and a semantic map that differs from the
+    device's only where the vectorized pipeline's unrestricted dilation or
+    its fill order does (under 5% of the pixels)."""
+    port, _, port_fused, port_out, _, _ = slice_run
+    host = port.postprocess({k: v[0] for k, v in port_fused.items()})
+    assert set(host) == {'sem_pred', 'inst_pred', 'dir_pred', 'dir_num_angles'}
+    assert host['dir_num_angles'] == 8 and host['dir_pred'].dtype == np.int32
+    assert (host['sem_pred'] != port_out['sem_pred'][0]).mean() < 0.05
+
+
+def test_inference_cli_runs_the_conic_config_on_cpu(tmp_path, capsys):
+    """python -m tiseg_tpu_torch.tools.inference on the CoNIC config with
+    flattened flax weights from an .npz, host and device post-processing;
+    a model type without a carrier is refused by name."""
+    from tiseg_tpu_torch.tools.inference import main
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    cfg = osp.join(root, 'configs/cdnet/cdnet_adam-lr0.0005_bs16_256x256_100e_conic.py')
+    img = (make_nuclei(12, 48, nuclei_density(48))[0] * 255).astype(np.uint8)
+    np.savez(tmp_path / 'vars.npz', **flatten_variables(random_variables('CDNet', NUM_CLASSES, seed=6)))
+    np.save(tmp_path / 'img.npy', img)
+    args = [cfg, str(tmp_path / 'img.npy'), '--weights', str(tmp_path / 'vars.npz'), '--device', 'cpu']
+    n_host = main(args)
+    n_dev = main(args + ['--device-postprocess'])
+    out = capsys.readouterr().out
+    assert f'instances: {n_host}' in out and f'instances: {n_dev}' in out
+    with pytest.raises(NotImplementedError, match='MultiTaskCDNet'):
+        main([osp.join(root, 'configs/dcan/dcan_adam-lr0.0001_bs4_256x256_300e_monuseg.py'),
+              str(tmp_path / 'img.npy'), '--device', 'cpu'])

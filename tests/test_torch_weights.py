@@ -1,17 +1,18 @@
 """The port's weight carriers (tiseg_tpu_torch/utils/weights.py) against the
 JAX package's reference-checkpoint importer (tiseg_tpu/utils/torch_import.py):
 flax variables -> port state dict -> importer -> the same flax variables,
-exactly, for UNet and HoVer-Net."""
+exactly, for UNet, HoVer-Net, CDNet and the multi-task nets."""
 import jax
 import numpy as np
 import pytest
 import torch
 
-from tiseg_tpu.utils.torch_import import _Mapper, map_hover_branch, map_resnet, map_unet_head, map_vgg_backbone
-from tiseg_tpu_torch.models import HoverNetNet, UNetNet
+from tiseg_tpu.utils.torch_import import (_Mapper, import_reference_checkpoint, map_hover_branch, map_resnet,
+                                          map_unet_head, map_vgg_backbone)
+from tiseg_tpu_torch.models import HoverNetNet, UNetNet, build_segmentor
 from tiseg_tpu_torch.utils.weights import (hovernet_state_dict_from_flax, state_dict_from_flax,
                                            unet_state_dict_from_flax, unflatten_variables)
-from torch_port_utils import random_hovernet_variables, random_unet_variables
+from torch_port_utils import random_hovernet_variables, random_unet_variables, random_variables
 
 
 @pytest.fixture(scope='module')
@@ -113,5 +114,44 @@ def test_carrier_table_dispatches_on_model_type(variables, hover_variables):
     assert set(state_dict_from_flax('UNet', variables)) == set(unet_state_dict_from_flax(variables))
     assert set(state_dict_from_flax('HoverNet', hover_variables)) == set(hovernet_state_dict_from_flax(
         hover_variables))
-    with pytest.raises(NotImplementedError, match='CDNet'):
-        state_dict_from_flax('CDNet', variables)
+    with pytest.raises(NotImplementedError, match='DCAN'):
+        state_dict_from_flax('DCAN', variables)
+
+
+# model type, train_cfg (the flags that choose MultiTaskCDNet's wiring)
+VGG_DECODER_CASES = {
+    'CDNet': ('CDNet', {}),
+    'MultiTaskUNet': ('MultiTaskUNet', {}),
+    'MultiTaskCUNet': ('MultiTaskCUNet', {}),
+    'MultiTaskCUNetDebug': ('MultiTaskCUNetDebug', {}),
+    'MultiTaskCDNet': ('MultiTaskCDNet', {}),
+    'MultiTaskCDNetDebug-noau-parallel': ('MultiTaskCDNetDebug', dict(noau=True, parallel=True)),
+    'MultiTaskCDNet-twobranch': ('MultiTaskCDNet', dict(use_twobranch=True)),
+    'MultiTaskCDNet-twobranch-noau-regression': ('MultiTaskCDNet', dict(use_twobranch=True, noau=True,
+                                                                        use_regression=True)),
+}
+
+
+@pytest.mark.parametrize('case', sorted(VGG_DECODER_CASES))
+def test_vgg_decoder_carriers_fill_every_parameter_and_round_trip(case):
+    """The carrier's keys are exactly the port net's (every parameter and
+    buffer filled, none left over, shapes equal), and the JAX package's
+    reference importer reads the state dict back to the same variables."""
+    model_type, train_cfg = VGG_DECODER_CASES[case]
+    variables = random_variables(model_type, 5, seed=3, train_cfg=train_cfg)
+    port = build_segmentor(dict(type=model_type, num_classes=5, train_cfg=train_cfg), device='cpu').net.state_dict()
+    sd = state_dict_from_flax(model_type, variables)
+    assert set(sd) == set(port)
+    assert all(sd[k].shape == port[k].shape for k in port)
+    back = import_reference_checkpoint(model_type, variables, sd)
+    flat_a = jax.tree_util.tree_leaves_with_path(variables)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, a in flat_a:
+        np.testing.assert_array_equal(np.asarray(flat_b[path]), a, err_msg=jax.tree_util.keystr(path))
+    attn = [k for k in sd if '_attn.' in k]
+    assert all(k.endswith('.conv.0.weight') for k in attn)             # attention convs carry no bias
+    assert len(attn) == (0 if train_cfg.get('noau') or 'UNet' in model_type else
+                         3 if train_cfg.get('use_twobranch') else 2)
+    assert 'head.postprocess.mask_conv.bias' in sd
+    assert any(k.endswith('identity_ops.0.conv.bias') for k in sd)

@@ -28,10 +28,31 @@ def _random_tree(shapes, seed: int):
     return {'params': dict(tree['params']), 'batch_stats': dict(tree['batch_stats'])}
 
 
-def _shapes(model_type: str, num_classes: int):
+def _shapes(model_type: str, num_classes: int, train_cfg=None):
     from tiseg_tpu.models import build_segmentor
-    seg = build_segmentor(dict(type=model_type, num_classes=num_classes, train_cfg=dict(), test_cfg=dict()))
+    seg = build_segmentor(dict(type=model_type, num_classes=num_classes, train_cfg=dict(train_cfg or {}),
+                               test_cfg=dict()))
     return jax.eval_shape(lambda: seg.init_variables(jax.random.PRNGKey(0), hw=(32, 32)))
+
+
+def random_variables(model_type: str, num_classes: int, seed: int = 0, train_cfg=None):
+    """Seeded flax variables (numpy) of any segmentor type of the JAX package."""
+    return _random_tree(_shapes(model_type, num_classes, train_cfg), seed)
+
+
+def set_leaf(tree, path, value):
+    """A copy of ``tree`` (nested dicts) with the leaf at ``path`` replaced."""
+    out = dict(tree)
+    out[path[0]] = np.asarray(value, np.float32) if len(path) == 1 else set_leaf(tree[path[0]], path[1:], value)
+    return out
+
+
+def flatten_variables(variables):
+    """``{'params/...': array, 'batch_stats/...': array}``: the layout of a
+    flattened flax variables ``.npz``."""
+    return {f'{col}/' + '/'.join(p.key for p in path): leaf
+            for col in ('params', 'batch_stats')
+            for path, leaf in jax.tree_util.tree_leaves_with_path(variables[col])}
 
 
 def random_unet_variables(seed: int = 0, num_classes: int = 2, cls_bias=None):
@@ -53,3 +74,28 @@ def random_hovernet_variables(seed: int = 0, num_classes: int = 7, fore_bias=Non
         tree['params']['np']['u0_cls'] = dict(tree['params']['np']['u0_cls'],
                                               bias=np.asarray(fore_bias, np.float32))
     return tree
+
+
+def standardize_head(model_cfg, variables, img, head, conv_path, shifts, scale=2.0):
+    """A copy of ``variables`` whose 1x1 classifier at ``conv_path`` (a path
+    into ``params``) is rescaled and shifted so that, on ``img`` (NHWC),
+    channel ``c`` of ``head`` has mean ``shifts[c]`` and std ``scale``.
+    ``model_cfg``: dict(type, num_classes[, train_cfg]). Seeded random
+    trunks give logits whose per-channel offsets swamp their variation; this
+    makes every class occur. Standardize a head that gates others (point ->
+    dir -> sem/tc) before those."""
+    import torch
+
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.utils.weights import state_dict_from_flax
+    seg = build_segmentor(dict(model_cfg), device='cpu')
+    seg.net.load_state_dict(state_dict_from_flax(model_cfg['type'], variables))
+    logit = seg.forward_heads(torch.from_numpy(img))[head].numpy().reshape(-1, len(shifts))
+    gain = (scale / logit.std(0)).astype(np.float32)
+    node = variables['params']
+    for key in conv_path:
+        node = node[key]
+    params = set_leaf(variables['params'], tuple(conv_path) + ('kernel',), node['kernel'] * gain)
+    params = set_leaf(params, tuple(conv_path) + ('bias',),
+                      (node['bias'] - logit.mean(0)) * gain + np.asarray(shifts, np.float32))
+    return dict(variables, params=params)

@@ -143,3 +143,95 @@ def blob_planes(seed: int, batch: int, hw: int, n: int = 25, rmax: int = 7) -> n
             r = rng.integers(2, rmax)
             out[b][(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 1
     return out
+
+
+def _ring(plane, cy, cx, r_out, r_in, value, half=None):
+    """Annulus r_in < r <= r_out around (cy, cx); ``half`` keeps its left
+    ('l', x < cx) or right ('r', x >= cx) part only."""
+    yy, xx = np.ogrid[:plane.shape[0], :plane.shape[1]]
+    d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+    m = (d2 <= r_out * r_out) & (d2 > r_in * r_in)
+    if half is not None:
+        m = m & ((xx < cx) if half == 'l' else (xx >= cx))
+    plane[m] = value
+
+
+def hard_plane_multiclass(hw: int = 64):
+    """One (hw, hw) int32 seven-class semantic plane and its seed plane
+    (hw >= 64) with the cases the multi-class and the multi-task (seed +
+    canvas) post-processors get wrong first:
+
+    - a class-2 blob inside a closed class-5 ring (the ring's fill takes it);
+    - a class-2 ring around a closed curve that is half class 5 and half
+      class 6 with background inside: no single class encloses the inside,
+      so class 2's fill reaches it but is cut off from the ring (the
+      class-vectorized and the per-class pipelines label it differently);
+    - a one-pixel seed in a canvas bar 59 px wide (19 growth waves end
+      before the bar does);
+    - two one-pixel seeds whose waves meet in the middle of a bar (the
+      larger label wins the tie);
+    - a seed outside the canvas; a canvas block on the plane edge with a
+      hole that is open to the edge;
+    - lines of 4 px (dropped) and 5 px (kept), each with a seed;
+    - 3x3 blocks linked only diagonally, of one class and of two classes,
+      and a diagonal chain of one-pixel seeds;
+    - a blob with a hole that holds a 2 px speck of its own class;
+    - four pixels around an empty centre: four 1 px objects for a size
+      filter that runs before the hole fill, one 5 px plus after it."""
+    p = np.zeros((hw, hw), np.int32)
+    s = np.zeros((hw, hw), np.int32)
+    _ring(p, 12, 12, 9, 6, 5)
+    _disk(p, 12, 12, 2, 2)
+    s[12, 12] = 1
+    _ring(p, 13, 38, 11, 9, 2)
+    _ring(p, 13, 38, 6.5, 4.5, 5, half='l')
+    _ring(p, 13, 38, 6.5, 4.5, 6, half='r')
+    s[13, 38] = 1
+    s[4, 38] = 1
+    p[28:39, 2:61] = 1                       # wide bar, one-pixel seed at its left end
+    s[33, 4] = 1
+    p[42:49, 2:31] = 3                       # two seeds, waves meet at column 16
+    s[45, 4] = s[45, 28] = 1
+    s[52:54, 4:6] = 1                        # seed outside the canvas
+    p[56:64, 0:11] = 4                       # canvas on the plane edge
+    p[60:64, 4:6] = 0                        # hole open to the edge
+    s[58, 8] = 1
+    p[52, 20:24] = 1                         # 4 px: dropped
+    p[54, 20:25] = 1                         # 5 px: kept
+    s[52, 21] = s[54, 21] = 1
+    p[42:45, 36:39] = 6
+    p[45:48, 39:42] = 6                      # one class, 8-linked only
+    p[48:51, 50:53] = 1
+    p[51:54, 53:56] = 2                      # two classes, diagonal neighbours
+    s[50, 40] = s[51, 41] = s[52, 42] = 1    # diagonal chain of seeds: three labels
+    s[43, 37] = s[49, 51] = s[52, 54] = 1
+    _disk(p, 57, 30, 5, 3)
+    _disk(p, 57, 30, 2, 0)
+    p[57, 30:32] = 3                         # speck in the hole
+    s[53, 30] = 1
+    p[58, 44] = p[60, 44] = p[59, 43] = p[59, 45] = 1
+    return p, s
+
+
+def hard_planes_multiclass(hw: int = 64):
+    """(sem, seed), each (4, hw, hw) int32: the hard multi-class plane, its
+    transpose, an empty plane (with seeds) and a plane full of class 3 (with
+    every pixel a seed)."""
+    p, s = hard_plane_multiclass(hw)
+    sem = np.stack([p, p.T.copy(), np.zeros_like(p), np.full_like(p, 3)])
+    seed = np.stack([s, s.T.copy(), s, np.ones_like(s)])
+    return sem, seed
+
+
+def multiclass_nuclei(seed: int, hw: int = 256, n_inst: int = CONIC_NUCLEI_PER_PATCH, num_classes: int = 7):
+    """Semantic and seed planes of :func:`make_nuclei` instances: nucleus
+    ``k`` has class ``k % (num_classes - 1) + 1``; a seed pixel is a nucleus
+    pixel whose 4 neighbours belong to the same nucleus (the inner map the
+    multi-task heads predict). Returns int32 (sem, seed), each (hw, hw)."""
+    inst = make_nuclei(seed, hw, n_inst)[2]
+    sem = np.where(inst > 0, inst % (num_classes - 1) + 1, 0).astype(np.int32)
+    pad = np.pad(inst, 1)
+    inner = inst > 0
+    for dy, dx in ((0, 1), (2, 1), (1, 0), (1, 2)):
+        inner &= pad[dy:dy + hw, dx:dx + hw] == inst
+    return sem, inner.astype(np.int32)

@@ -12,16 +12,23 @@ from torch import nn
 
 
 class ConvModule(nn.Module):
-    """conv -> BN -> ReLU, with the reference's ``.conv``/``.bn`` names."""
+    """conv -> BN -> ReLU, with the reference's ``.conv``/``.bn`` names.
+    ``norm=False`` drops the BN and gives the conv a bias; ``act=False``
+    drops the ReLU."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, device=None):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, norm: bool = True,
+                 act: bool = True, device=None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, padding=kernel_size // 2, bias=False,
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, padding=kernel_size // 2, bias=not norm,
                               device=device)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1, device=device)
+        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1, device=device) if norm else None
+        self.act = act
 
     def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return F.relu(x) if self.act else x
 
 
 def transposed_conv_module(in_channels: int, out_channels: int, device=None) -> nn.Sequential:

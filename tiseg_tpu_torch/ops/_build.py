@@ -20,7 +20,8 @@ CSRC = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), 'csrc')
 BUILD_DIR = osp.join(osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__)))), 'build', 'kernels')
 
 # library name -> source file under csrc/
-SOURCES = {'tiseg_pp': 'instance_pp.cu', 'tiseg_flood': 'flood.cu', 'tiseg_ws': 'watershed.cu'}
+SOURCES = {'tiseg_pp': 'instance_pp.cu', 'tiseg_mt_pp': 'mt_instance_pp.cu', 'tiseg_flood': 'flood.cu',
+           'tiseg_ws': 'watershed.cu'}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

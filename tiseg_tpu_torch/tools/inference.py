@@ -7,10 +7,10 @@ Usage::
 
 ``--weights`` is an ``.npz`` of the JAX package's flattened variables
 (``params/...`` and ``batch_stats/...`` keys) of the config's model type,
-carried over by ``utils.weights.state_dict_from_flax``. Without it the net
-has seeded random weights. ``--device-postprocess`` sets
-``test_cfg.device_postprocess`` (HoVer-Net recovers instances on the device
-only). Prints the instance count; ``--out`` also writes the instance map as
+carried over by ``utils.weights.state_dict_from_flax`` (``--help`` lists
+the model types it carries). Without it the net has seeded random weights.
+``--device-postprocess`` sets ``test_cfg.device_postprocess`` (HoVer-Net
+recovers instances on the device only). Prints the instance count; ``--out`` also writes the instance map as
 a PNG.
 """
 from __future__ import annotations
@@ -21,8 +21,10 @@ import numpy as np
 
 
 def main(argv=None):
+    from ..utils.weights import CARRIERS, state_dict_from_flax, unflatten_variables
+
     p = argparse.ArgumentParser('Single-image inference (PyTorch port)')
-    p.add_argument('config')
+    p.add_argument('config', help=f'config whose model.type is one of {sorted(CARRIERS)}')
     p.add_argument('image')
     p.add_argument('--weights', default=None, help='.npz of flattened flax variables of the model')
     p.add_argument('--device', default=None, help="torch device (default: cuda)")
@@ -36,9 +38,10 @@ def main(argv=None):
     from ..datasets.transforms import Normalize, read_image
     from ..models import build_segmentor
     from ..utils import Config
-    from ..utils.weights import state_dict_from_flax, unflatten_variables
 
     cfg = Config.fromfile(args.config)
+    if cfg.model.type not in CARRIERS:
+        raise NotImplementedError(f'model type {cfg.model.type!r} is not ported (ported: {sorted(CARRIERS)})')
     if args.device_postprocess:
         cfg.model.test_cfg = dict(cfg.model.get('test_cfg', {}), device_postprocess=True)
     seg = build_segmentor(cfg.model, device=args.device, seed=args.seed)

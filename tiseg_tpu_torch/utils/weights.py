@@ -51,34 +51,95 @@ def _bn(sd, prefix, params, stats):
     sd[f'{prefix}.num_batches_tracked'] = torch.tensor(0)
 
 
-def unet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """State dict of ``tiseg_tpu_torch``'s ``UNetNet`` from the flax
-    ``{'params', 'batch_stats'}`` tree of ``tiseg_tpu``'s ``UNetNet``."""
-    params, stats = variables['params'], variables['batch_stats']
-    sd = OrderedDict()
-    bp, bs = params['backbone'], stats['backbone']
+def _vgg16(sd, params, stats):
+    """VGG16-BN trunk under ``backbone.stages`` (conv biases zero)."""
     for s, n_convs in enumerate(_VGG16_STAGE_CONVS):
         base = 0 if s == 0 else 1
         for c in range(n_convs):
             seq = base + 3 * c
             name = f'stage{s}_conv{c}'
-            kernel = np.asarray(bp[name]['Conv_0']['kernel'])
+            kernel = np.asarray(params[name]['Conv_0']['kernel'])
             sd[f'backbone.stages.{s}.{seq}.weight'] = _conv(kernel)
             sd[f'backbone.stages.{s}.{seq}.bias'] = torch.zeros(kernel.shape[-1])
-            _bn(sd, f'backbone.stages.{s}.{seq + 1}', bp[name]['BatchNorm_0'], bs[name]['BatchNorm_0'])
-    hp, hs = params['head'], stats['head']
+            _bn(sd, f'backbone.stages.{s}.{seq + 1}', params[name]['BatchNorm_0'], stats[name]['BatchNorm_0'])
+
+
+def _conv_module(sd, prefix, params, stats):
+    sd[f'{prefix}.conv.weight'] = _conv(params['Conv_0']['kernel'])
+    _bn(sd, f'{prefix}.bn', params['BatchNorm_0'], stats['BatchNorm_0'])
+
+
+def _decode_stack(sd, params, stats):
+    """The five UNet decode layers under ``head.decode_layers``, from the
+    flax tree that holds ``decode0..decode4``."""
     for j in range(_NUM_DECODE):
         name = f'decode{_NUM_DECODE - 1 - j}'
         pre = f'head.decode_layers.{j}'
-        up_p, up_s = hp[name]['TransposedConvModule_0'], hs[name]['TransposedConvModule_0']
+        up_p, up_s = params[name]['TransposedConvModule_0'], stats[name]['TransposedConvModule_0']
         sd[f'{pre}.up_conv.0.weight'] = _tconv(up_p['ConvTranspose_0']['kernel'])
         _bn(sd, f'{pre}.up_conv.1', up_p['BatchNorm_0'], up_s['BatchNorm_0'])
-        cm_p, cm_s = hp[name]['ConvModule_0'], hs[name]['ConvModule_0']
-        sd[f'{pre}.convs.0.conv.weight'] = _conv(cm_p['Conv_0']['kernel'])
-        _bn(sd, f'{pre}.convs.0.bn', cm_p['BatchNorm_0'], cm_s['BatchNorm_0'])
-    sd['head.postprocess.weight'] = _conv(hp['cls']['kernel'])
-    sd['head.postprocess.bias'] = _t(hp['cls']['bias'])
+        _conv_module(sd, f'{pre}.convs.0', params[name]['ConvModule_0'], stats[name]['ConvModule_0'])
+
+
+def _biased_conv(sd, prefix, params):
+    sd[f'{prefix}.weight'] = _conv(params['kernel'])
+    sd[f'{prefix}.bias'] = _t(params['bias'])
+
+
+def unet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of ``tiseg_tpu_torch``'s ``UNetNet`` from the flax
+    ``{'params', 'batch_stats'}`` tree of ``tiseg_tpu``'s ``UNetNet``."""
+    params, stats = variables['params'], variables['batch_stats']
+    sd = OrderedDict()
+    _vgg16(sd, params['backbone'], stats['backbone'])
+    _decode_stack(sd, params['head'], stats['head'])
+    _biased_conv(sd, 'head.postprocess', params['head']['cls'])
     return sd
+
+
+def _branch_module(sd, params, stats):
+    """The branch module in the classifier's place (``head.postprocess``):
+    every residual unit (``res1``/``res2``/``ide``), attention unit
+    (``attn``, no bias) and 1x1 classifier that the flax tree holds."""
+    for name, p in params.items():
+        pre = f'head.postprocess.{name}'
+        if 'res1' in p:
+            _conv_module(sd, f'{pre}.residual_ops.0', p['res1'], stats[name]['res1'])
+            _conv_module(sd, f'{pre}.residual_ops.2', p['res2'], stats[name]['res2'])
+            _biased_conv(sd, f'{pre}.identity_ops.0.conv', p['ide'])
+        elif 'attn' in p:
+            sd[f'{pre}.conv.0.weight'] = _conv(p['attn']['kernel'])
+        else:
+            _biased_conv(sd, pre, p)
+
+
+def _vgg_decoder_branches(variables: Mapping, branches: str) -> Dict[str, torch.Tensor]:
+    """VGG16-BN + decode stack under ``head/decoder`` + the branch module
+    under ``head/<branches>``."""
+    params, stats = variables['params'], variables['batch_stats']
+    sd = OrderedDict()
+    _vgg16(sd, params['backbone'], stats['backbone'])
+    _decode_stack(sd, params['head']['decoder'], stats['head']['decoder'])
+    _branch_module(sd, params['head'][branches], stats['head'][branches])
+    return sd
+
+
+def cdnet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``CDNetNet`` from the flax tree of
+    ``tiseg_tpu``'s ``CDNetNet``."""
+    return _vgg_decoder_branches(variables, 'dgm')
+
+
+def mt_unet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``MTUNetNet`` from the flax tree of
+    ``tiseg_tpu``'s ``MTUNetNet`` (MultiTaskUNet, MultiTaskCUNet)."""
+    return _vgg_decoder_branches(variables, 'branches')
+
+
+def mt_cdnet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``MTCDNetNet`` from the flax tree of
+    ``tiseg_tpu``'s ``MTCDNetNet``, whichever wiring flags built it."""
+    return _vgg_decoder_branches(variables, 'dgm')
 
 
 def _resnet50(sd, prefix, params, stats):
@@ -130,6 +191,12 @@ def hovernet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]
 CARRIERS: Dict[str, Callable[[Mapping], Dict[str, torch.Tensor]]] = {
     'UNet': unet_state_dict_from_flax,
     'HoverNet': hovernet_state_dict_from_flax,
+    'CDNet': cdnet_state_dict_from_flax,
+    'MultiTaskUNet': mt_unet_state_dict_from_flax,
+    'MultiTaskCUNet': mt_unet_state_dict_from_flax,
+    'MultiTaskCUNetDebug': mt_unet_state_dict_from_flax,
+    'MultiTaskCDNet': mt_cdnet_state_dict_from_flax,
+    'MultiTaskCDNetDebug': mt_cdnet_state_dict_from_flax,
 }
 
 
