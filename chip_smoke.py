@@ -16,13 +16,25 @@
    On seven-class planes with seed planes (hand-made hard cases at 64^2 and
    256^2, 16 x 256^2 at CoNIC density, one 1000^2 plane) the same for the
    class-vectorized instance_postprocess_sweep (B7, radius 3) and
-   mt_instance_postprocess_sweep (B6).
-3. Drives the UNet eval path once through its entry points at the full
-   width of the reference UNet recipe (VGG16-BN + UNetHead, 2 classes,
-   float32, seeded weights): one 1000^2 image, split 256/40 windows x 8
-   dihedral TTA views (200 patches), softmax mean, argmax and the B1 kernel.
-   B1's launch count is read from that run alone. The result is checked
-   against the plain post-processor and the host scipy pipeline.
+   mt_instance_postprocess_sweep (B6). On the binary planes also the
+   round-bounded ccl_rounds (B8a, both connectivities, 64 and 128 rounds) and
+   fill_holes_rounds (B8b, H + W and 16 rounds), whose un-converged results
+   on the spiral planes must equal the plain versions' too, and the 3x3
+   neighbourhood max/min (B9, int32 and float32 planes with negative values).
+   fused_decode0_cls (B10) is held against its plain version at the full
+   width of a 256^2 patch (B 8, G 128) and on a ragged grid, with two and
+   three classes, in float32 (1e-4 of the largest logit: sums in another
+   order) and bfloat16 (four bf16 steps of the largest logit, at least 0.15).
+3. Drives the UNet eval path through its entry points at the full width of
+   the reference UNet recipe (VGG16-BN + UNetHead, 2 classes, float32, seeded
+   weights): one 1000^2 image, split 256/40 windows x 8 dihedral TTA views
+   (200 patches), softmax mean, argmax and the B1 kernel. Three times: the
+   unfolded net (fast_eval=False), the BN-folded phase-space executor (the
+   default), and the executor with TISEG_FUSED_TAIL=1 (B10, one launch per
+   network forward). Launch counts are read from each run alone. The three
+   fused maps must agree within 1e-4 and the predictions outside near-ties;
+   each result is checked against the plain post-processor, the default
+   route's also against the host scipy pipeline.
 4. Drives the HoVer-Net eval path once through InferenceRunner at the full
    width of the CoNIC recipe (ResNetExt50 + three dense decoders, 7 classes,
    float32, seeded weights and BN statistics): 16 images of 256^2 at CoNIC
@@ -42,6 +54,12 @@
    The classifiers of these nets are rescaled on view 0 of the images so
    that every class occurs, and their background biases bisected so that
    about 40% of the fused map is foreground and 10% seeds.
+7. UNet.postprocess on 16 images of 256^2 under device_postprocess True (B1),
+   'xla' (B3 once and B2 twice per image) and 'pallas-rounds' (B8b once and
+   B8a twice per image): each bit-exact against its plain version, all three
+   equal, post-processing ms per image printed.
+8. Two images through CUNet (executor on, boundary class stripped, radius 3,
+   B1), checked against the unfolded net and the plain post-processor.
 
 TF32 is off for convolutions and matrix products in every comparison.
 Prints, before its last two lines, one JSON object with each kernel's
@@ -67,6 +85,7 @@ HOVER_CONFIG = 'configs/hovernet/hovernet_adam-lr0.0001_bs8_256x256_100e_conic.p
 CDNET_CONFIG = 'configs/cdnet/cdnet_adam-lr0.0005_bs16_256x256_100e_conic.py'
 MT_CDNET_CONFIG = 'configs/multi_task_cdnet/multi_task_cdnet_adam-lr0.0005_bs16_256x256_100e_conic.py'
 MT_UNET_CONFIG = 'configs/multi_task_unet/multi_task_unet_adam-lr0.0001_bs8_256x256_100e_conic.py'
+CUNET_CONFIG = 'configs/cunet/cunet_adam-lr0.0005_bs16_256x256_300e_monuseg.py'
 MT_CUNET_CONFIG = 'configs/multi_task_cunet/multi_task_cunet_adam-lr0.0005_bs16_256x256_100e_conic.py'
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores (data sheet, float32)
@@ -117,10 +136,11 @@ def ops_ms(n_ops: float) -> float:
     return n_ops / OPS_PER_S * 1e3
 
 
-def bound(kernel: str, x: torch.Tensor, waves: int = 0):
+def bound(kernel: str, x: torch.Tensor, waves: int = 0, neigh: int = 4):
     """(bound ms, 'bytes' or 'operations') of ``kernel`` on input ``x``:
     each input read once and each output written once, or the operations
-    these inputs need, whichever takes longer."""
+    these inputs need, whichever takes longer. ``waves``: the waves or rounds
+    that change a pixel on these inputs; ``neigh``: neighbours per pixel."""
     px = x.numel()
     if kernel == 'instance_postprocess_sweep':  # int32 in, uint8 + int32 out
         byte_ms, op_ms = bytes_ms(9 * px), 0.0
@@ -136,6 +156,12 @@ def bound(kernel: str, x: torch.Tensor, waves: int = 0):
         byte_ms, op_ms = bytes_ms(8 * px), ops_ms(int((x > 0).sum()) * (2 * r * r + 2 * r + 1))
     elif kernel == 'fill_holes_sweep':  # int32 mask in, bool out
         byte_ms, op_ms = bytes_ms(5 * px), 0.0
+    elif kernel == 'ccl_rounds':  # int32 mask in, int32 labels out; one compare per neighbour, pixel and round
+        byte_ms, op_ms = bytes_ms(8 * px), ops_ms(neigh * px * waves)
+    elif kernel == 'fill_holes_rounds':  # int32 mask in, bool out; 4 compares per pixel and round
+        byte_ms, op_ms = bytes_ms(5 * px), ops_ms(4 * px * waves)
+    elif kernel == 'neighborhood_3x3':  # the plane in and out (4-byte elements); 8 compares per pixel
+        byte_ms, op_ms = bytes_ms(8 * px), ops_ms(8 * px)
     else:  # watershed: f32 image, int32 markers and mask in, int32 out; 4 neighbours per pixel and wave
         byte_ms, op_ms = bytes_ms(16 * px), ops_ms(4 * px * waves)
     return (byte_ms, 'bytes') if byte_ms >= op_ms else (op_ms, 'operations')
@@ -178,7 +204,56 @@ def kernel_cases(x: torch.Tensor, ws_in):
         cases[f'watershed {mode}'] = (
             lambda r=rounds, c=cleanup: watershed(dist, markers, blb, rounds_per_level=r, cleanup_rounds=c),
             lambda r=rounds, c=cleanup: watershed_plain(dist, markers, blb, 1, 64, r, c), dist)
+    cases.update(round_and_stencil_cases(x))
     return cases
+
+
+def round_and_stencil_cases(x: torch.Tensor):
+    """The same for the round-bounded propagation kernels and the 3x3
+    stencil. A fourth entry gives (rounds that change a pixel, neighbours)."""
+    from tiseg_tpu_torch.ops.flood import ccl_plain
+    from tiseg_tpu_torch.ops.rounds import (ccl_rounds, ccl_rounds_needed, ccl_rounds_plain, fill_holes_rounds,
+                                            fill_holes_rounds_needed, fill_holes_rounds_plain)
+    from tiseg_tpu_torch.ops.stencil import neighborhood_3x3, neighborhood_3x3_plain
+    cases = {}
+    for conn in (1, 2):
+        for rounds in (64, 128):
+            cases[f'ccl_rounds conn{conn} r{rounds}'] = (
+                lambda c=conn, r=rounds: ccl_rounds(x, r, c), lambda c=conn, r=rounds: ccl_rounds_plain(x > 0, r, c),
+                x, lambda c=conn, r=rounds: (ccl_rounds_needed(x > 0, r, c), 4 * c))
+    for rounds in (None, 16):
+        cases[f'fill_holes_rounds {"default" if rounds is None else f"r{rounds}"}'] = (
+            lambda r=rounds: fill_holes_rounds(x, r), lambda r=rounds: fill_holes_rounds_plain(x > 0, r), x,
+            lambda r=rounds: (fill_holes_rounds_needed(x > 0, r), 4))
+    # an int32 label plane and a float32 plane, both with negative values up to the plane edge
+    lab = ccl_plain(x > 0, 2) - 5
+    planes = {'int32': lab, 'float32': lab.float() * 0.37 - 11.5}
+    for dtype, plane in planes.items():
+        for op, minimum in (('max', False), ('min', True)):
+            cases[f'neighborhood_3x3 {op} {dtype}'] = (lambda p=plane, m=minimum: neighborhood_3x3(p, m),
+                                                       lambda p=plane, m=minimum: neighborhood_3x3_plain(p, m), plane)
+    return cases
+
+
+def check_round_budget(case_sets):
+    """The round budget is part of B8a/B8b: on the nuclei planes 128 rounds
+    converge and equal the union-find kernels (B2, B3); on the 256^2 hard
+    planes (spirals) they do not, and the kernels still equal their plain
+    versions (checked by check_kernels)."""
+    from tiseg_tpu_torch.ops.flood import ccl_sweep, fill_holes_sweep
+    from tiseg_tpu_torch.ops.rounds import ccl_rounds, fill_holes_rounds
+    x = case_sets['conic16x256'][0]
+    for conn in (1, 2):
+        if not torch.equal(ccl_rounds(x, 128, conn), ccl_sweep(x, connectivity=conn)):
+            raise AssertionError(f'ccl_rounds(128, conn {conn}) differs from ccl_sweep on the nuclei planes')
+    if not torch.equal(fill_holes_rounds(x), fill_holes_sweep(x)):
+        raise AssertionError('fill_holes_rounds differs from fill_holes_sweep on the nuclei planes')
+    hard = case_sets['hard256'][0]
+    left = int((ccl_rounds(hard, 128, 2) != ccl_sweep(hard, connectivity=2)).sum())
+    if left == 0:
+        raise AssertionError('the 256^2 hard planes converged in 128 rounds: they no longer test the round budget')
+    print(f'round budget: ccl_rounds(128) and fill_holes_rounds equal B2/B3 on conic16x256; on hard256 {left} pixels '
+          f'keep un-converged labels after 128 rounds, as in the plain version', flush=True)
 
 
 def growth_waves(seed: torch.Tensor, canvas: torch.Tensor) -> int:
@@ -205,11 +280,12 @@ def multiclass_kernel_cases(x: torch.Tensor, seed: torch.Tensor):
 def check_kernels(case_sets):
     """Each kernel bit-exact against its plain version on every plane set
     (``case_sets``: set name -> (planes, cases)); prints kernel ms, plain ms
-    and bound. Returns each kernel's largest |kernel - plain|."""
+    and bound. Returns each kernel's largest |kernel - plain| and the
+    timings by (case, set)."""
     from tiseg_tpu_torch.ops.watershed import watershed
-    max_err = {}
+    max_err, timed = {}, {}
     for set_name, (x, seed, cases) in case_sets.items():
-        for name, (kernel, plain, bound_in) in cases.items():
+        for name, (kernel, plain, bound_in, *work) in cases.items():
             got = kernel()
             torch.cuda.synchronize()
             want = plain()
@@ -220,8 +296,11 @@ def check_kernels(case_sets):
                                          f'{int((g != w).sum())} pixels')
                 err = int((g.long() - w.long()).abs().max())
                 max_err[name.split()[0]] = max(max_err.get(name.split()[0], 0), err)
-            waves, extra = 0, ''
-            if name.startswith('watershed'):
+            waves, neigh, extra = 0, 4, ''
+            if work:
+                waves, neigh = work[0]()
+                extra = f', {waves} rounds change a pixel'
+            elif name.startswith('watershed'):
                 waves = watershed.last_waves[1]
                 extra = f', {watershed.last_waves[0]} waves launched ({waves} needed)'
             elif name.startswith('mt_'):
@@ -229,18 +308,115 @@ def check_kernels(case_sets):
                 extra = f', {ALIGN_TIME - 1} waves launched ({waves} change a pixel)'
             k_ms = cuda_ms(kernel, reps=25)
             p_ms = cuda_ms(plain, reps=3, warmup=1)
-            b_ms, b_by = bound(name.split()[0], bound_in, waves)
+            b_ms, b_by = bound(name.split()[0], bound_in, waves, neigh)
             print(f'{name} {set_name} {tuple(x.shape)}: bit-exact vs plain, kernel {k_ms:.4f} ms, plain {p_ms:.2f} '
                   f'ms, bound {b_ms * 1e3:.2f} us ({b_by}){extra}', flush=True)
-    return max_err
+            timed[(name, set_name)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    return max_err, timed
+
+
+# -- phase 2b: the fused last decode stage (B10) against its plain version -------------
+MAP_TOL = 1e-4  # fused softmax maps of two routes of one net: float32 sums in other orders
+BF16_STEPS = 4  # bf16 tolerance, in steps (2^-8 relative) of the largest logit
+
+
+def fused_decode_bound(x: torch.Tensor, z: torch.Tensor, out: torch.Tensor, F_t: int, F_c: int):
+    """Each of x, z and the logits moved once, or the operations of the
+    function itself (4x4/s2 transposed conv, 3x3 conv over its output and
+    the skip, 1x1 classifier: not the 1.78x of the phase form)."""
+    B, G, _, Cx = x.shape
+    C0, nc, px = z.shape[-1] // 4, out.shape[-1], B * (2 * G) ** 2
+    byte_ms = bytes_ms(sum(t.numel() * t.element_size() for t in (x, z, out)))
+    op_ms = ops_ms(2 * px * (4 * Cx * F_t + 9 * (F_t + C0) * F_c + F_c * nc))
+    return (byte_ms, 'bytes') if byte_ms >= op_ms else (op_ms, 'operations')
+
+
+def last_stage(seg):
+    """(HWIO phase weights of the last decode stage + classifier, the stage's
+    executor entry) of a UNet-family segmentor's folded head."""
+    from tiseg_tpu_torch.models.heads.fast_decode import _hwio
+    head = seg.prepare_inference()['head']
+    st = head['stages'][0]
+    weights = (_hwio(st['Wt']), st['bt'], _hwio(st['Wc_t']), _hwio(st['Wc_s_phase']), st['bc'], head['cls_kernel'],
+               head['cls_bias'])
+    return weights, {'stages': {0: st}, 'cls_kernel': head['cls_kernel'], 'cls_bias': head['cls_bias']}
+
+
+def unfused_tail(fp, x, z):
+    """The executor's own last stage on the same inputs: four cuDNN
+    convolutions, a matrix product and the depth-to-space copy."""
+    from tiseg_tpu_torch.models.heads.fast_decode import PhaseSkip, apply_fast_unet_head
+    return apply_fast_unet_head(fp, x, [PhaseSkip(z, z.shape[-1] // 4)])
+
+
+def time_fused_decode(label, x, z, weights, fp, reps=25):
+    """Kernel, plain and unfused-tail ms of B10 on (x, z), with its bound."""
+    from tiseg_tpu_torch.ops.fused_decode import fused_decode0_cls, fused_decode0_cls_plain
+    os.environ.pop('TISEG_FUSED_TAIL', None)  # the yardstick is the unfused tail
+    with torch.inference_mode():
+        out = fused_decode0_cls(x, z, *weights)
+        k_ms = cuda_ms(lambda: fused_decode0_cls(x, z, *weights), reps=reps)
+        p_ms = cuda_ms(lambda: fused_decode0_cls_plain(x, z, *weights), reps=3, warmup=1)
+        lib_ms = cuda_ms(lambda: unfused_tail(fp, x, z), reps=reps)
+    b_ms, b_by = fused_decode_bound(x, z, out, weights[0].shape[-1] // 4, weights[2].shape[-1] // 4)
+    print(f'fused_decode0_cls {label} x {tuple(x.shape)} z {tuple(z.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, '
+          f'unfused tail (4 cuDNN convolutions + matmul + d2s) {lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by})',
+          flush=True)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def check_fused_decode(args):
+    """B10 against its plain version at the full width of a 256^2 patch (B 8,
+    G 128, Cx 32, C0 64, F_t 16, F_c 16), two and three classes, float32 and
+    bfloat16, and on a ragged grid (G 20), with the folded weights of the
+    seeded UNet / CUNet and signed inputs. Returns the largest float32 error."""
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.models.heads.fast_decode import _mask_edges_flat
+    from tiseg_tpu_torch.ops.fused_decode import fused_decode0_cls, fused_decode0_cls_plain
+    gen = torch.Generator().manual_seed(args.seed + 21)
+    worst = 0.0
+    for model, nc in (('UNet', 2), ('CUNet', 3)):
+        seg = build_segmentor(dict(type=model, num_classes=2, test_cfg=dict()), device='cuda', seed=args.seed)
+        randomize_bn_(seg.net, torch.Generator().manual_seed(args.seed + 2))
+        weights, fp = last_stage(seg)
+        for B, G in ((8, 128), (2, 20)):
+            x = torch.randn((B, G, G, 32), generator=gen).cuda()
+            z = _mask_edges_flat(torch.randn((B, G + 1, G + 1, 256), generator=gen).cuda(), 64)
+            for dtype in (torch.float32, torch.bfloat16):
+                with torch.inference_mode():
+                    got = fused_decode0_cls(x, z, *weights, dtype=dtype)
+                    torch.cuda.synchronize()
+                    want = fused_decode0_cls_plain(x, z, *weights, dtype=dtype)
+                top = float(want.float().abs().max())
+                err = float((got.float() - want.float()).abs().max())
+                tol = 1e-4 * top if dtype == torch.float32 else max(0.15, BF16_STEPS * 2.0 ** -8 * top)
+                if not (got.shape == (B, 2 * G, 2 * G, nc) and got.dtype == dtype and err <= tol and top > 0.5):
+                    raise AssertionError(f'fused_decode0_cls {model} B {B} G {G} {dtype}: max |kernel - plain| {err:.3e} '
+                                         f'> {tol:.3e} (largest logit {top:.3f}, shape {tuple(got.shape)})')
+                if dtype == torch.float32:
+                    worst, want32 = max(worst, err), want
+                print(f'fused_decode0_cls {model} ({nc} classes) B {B} G {G} {str(dtype).split(".")[-1]}: max |kernel - '
+                      f'plain| {err:.3e} (tolerance {tol:.3e}, largest logit {top:.3f})', flush=True)
+            if G == 128:
+                unf = unfused_tail(fp, x, z)
+                if float((unf - want32).abs().max()) > 1e-4 * float(want32.abs().max()):
+                    raise AssertionError('the unfused tail differs from the float32 plain version')
+                time_fused_decode(f'{model} kernel phase', x, z, weights, fp)
+        del seg
+    return worst
 
 
 # -- phase 3: the UNet eval path -------------------------------------------------------
 def unet_main_path(args):
+    """The UNet path three times: the unfolded net (``fast_eval=False``),
+    the BN-folded phase-space executor (the default), and the executor with
+    the fused last stage (``TISEG_FUSED_TAIL=1``, B10)."""
     from tiseg_tpu_torch.apis import InferenceRunner
     from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
     from tiseg_tpu_torch.models import build_segmentor
     from tiseg_tpu_torch.models.segmentors.unet import instance_postprocess
+    from tiseg_tpu_torch.ops import fused_decode
+    from tiseg_tpu_torch.ops.fused_decode import fused_decode0_cls
     from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain, instance_postprocess_sweep
     from tiseg_tpu_torch.utils import Config
 
@@ -250,69 +426,122 @@ def unet_main_path(args):
     print(f'UNet model: {UNET_CONFIG}, test_cfg {cfg.model.test_cfg}', flush=True)
     seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
     img = make_nuclei(args.seed + 9000, hw, nuclei_density(hw))[0][None]
+    img_t = torch.from_numpy(img).cuda()
     # classifier bias: ~40% of view 0's pixels on the foreground side, so that
     # the random-weight net gives the post-processor a plane with objects
-    logit = seg.forward_heads(torch.from_numpy(img).cuda())['sem']
+    logit = seg.forward_heads(img_t)['sem']
     bias = -float(torch.quantile((logit[..., 1] - logit[..., 0]).flatten()[::7], 0.6))
     with torch.no_grad():
         seg.net.head.postprocess.bias.copy_(torch.tensor([0.0, bias]))
     del logit
     runner = InferenceRunner(seg)
-    captured = {}
     device_pp = seg._device_instance_pp
+    captured = {}
 
     def capturing_pp(sem_pred):
         captured['sem_pred'] = sem_pred
         return device_pp(sem_pred)
 
-    seg._device_instance_pp = capturing_pp
-    runner.dispatch(img, (hw, hw))  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    instance_postprocess_sweep.launches = 0
-    out = runner.dispatch(img, (hw, hw))
-    torch.cuda.synchronize()
-    launches = {'instance_postprocess_sweep': instance_postprocess_sweep.launches}
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    seg._device_instance_pp = device_pp
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f'{name} was not launched on the UNet main path')
+    runs = {}
+    for name, fast_eval, fused_tail in (('unfolded net', False, False), ('executor', True, False),
+                                        ('executor + fused tail', True, True)):
+        seg.test_cfg['fast_eval'] = fast_eval
+        os.environ['TISEG_FUSED_TAIL'] = '1' if fused_tail else '0'
+        seg._device_instance_pp = capturing_pp
+        try:
+            runner.dispatch(img, (hw, hw))  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            instance_postprocess_sweep.launches = fused_decode0_cls.launches = 0
+            out = runner.dispatch(img, (hw, hw))
+            torch.cuda.synchronize()
+            launches = {'instance_postprocess_sweep': instance_postprocess_sweep.launches,
+                        'fused_decode0_cls': fused_decode0_cls.launches}
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            seg._device_instance_pp = device_pp
+        n_forwards = -(-200 // args.patch_batch)  # 25 windows x 8 views, in chunks of patch_batch
+        if launches != {'instance_postprocess_sweep': 1, 'fused_decode0_cls': n_forwards if fused_tail else 0}:
+            raise AssertionError(f'UNet {name}: launches {launches}, expected 1 of B1 and '
+                                 f'{n_forwards if fused_tail else 0} of B10')
+        sem_pred, sem_out, inst_out = captured['sem_pred'], out['sem_pred'], out['inst_pred']
+        if not (sem_out.shape == inst_out.shape == (1, hw, hw) and sem_out.dtype == torch.uint8
+                and inst_out.dtype == torch.int32 and sem_out.is_cuda):
+            raise AssertionError(f'bad outputs {sem_out.shape} {sem_out.dtype} {inst_out.shape} {inst_out.dtype}')
+        fg = float((sem_pred > 0).float().mean())
+        n_inst = len(torch.unique(inst_out)) - 1
+        if not (0.1 <= fg <= 0.5 and n_inst > 0):
+            raise AssertionError(f'degenerate plane: foreground {fg:.3f}, {n_inst} instances')
+        ps, pi = instance_postprocess_plain(sem_pred)
+        if not (torch.equal(sem_out, ps) and torch.equal(inst_out, pi)):
+            raise AssertionError(f'UNet {name}: main-path instances differ from the plain post-processor')
+        fused = seg.inference(img_t)['sem']
+        if not (fused.shape == (1, hw, hw, 2) and torch.isfinite(fused).all()
+                and torch.allclose(fused.sum(-1), torch.ones((), device='cuda'), atol=1e-5)):
+            raise AssertionError('fused maps are not finite probabilities of the expected shape')
+        e2e_ms = wall_ms(lambda: runner.dispatch(img, (hw, hw)), reps=5)
+        fwd_ms = wall_ms(lambda: seg.inference(img_t), reps=5)
+        pp_ms = wall_ms(lambda: device_pp(seg._device_sem_pred({'sem': fused})), reps=20)
+        print(f'UNet {name}: launches {launches}, foreground {fg:.4f}, {n_inst} instances, equal to the plain '
+              f'post-processor; e2e {e2e_ms:.2f} ms per {hw}^2 image (median of 5, patch_batch {args.patch_batch}), '
+              f'forward + TTA fuse {fwd_ms:.2f} ms ({fwd_ms / e2e_ms:.1%}), argmax + instance pp {pp_ms:.3f} ms '
+              f'({pp_ms / e2e_ms:.2%}); peak memory {peak_gib:.3f} GiB', flush=True)
+        runs[name] = dict(fused=fused, sem_pred=sem_pred, sem_out=sem_out, inst_out=inst_out, launches=launches)
+    del seg.test_cfg['fast_eval']
 
-    sem_pred = captured['sem_pred']
-    sem_out, inst_out = out['sem_pred'], out['inst_pred']
-    if not (sem_out.shape == inst_out.shape == (1, hw, hw) and sem_out.dtype == torch.uint8
-            and inst_out.dtype == torch.int32 and sem_out.is_cuda):
-        raise AssertionError(f'bad outputs {sem_out.shape} {sem_out.dtype} {inst_out.shape} {inst_out.dtype}')
-    fg = float((sem_pred > 0).float().mean())
-    n_inst = len(torch.unique(inst_out)) - 1
-    if not (0.1 <= fg <= 0.5 and n_inst > 0):
-        raise AssertionError(f'degenerate plane: foreground {fg:.3f}, {n_inst} instances')
-    ps, pi = instance_postprocess_plain(sem_pred)
-    if not (torch.equal(sem_out, ps) and torch.equal(inst_out, pi)):
-        raise AssertionError('main-path instances differ from the plain post-processor')
-    host_s, host_i = instance_postprocess(sem_pred[0].cpu().numpy().astype(np.uint8), radius=1)
-    if not (np.array_equal(host_s, sem_out[0].cpu().numpy())
-            and partition_bijective(host_i, inst_out[0].cpu().numpy())):
+    # one more forward with the fused tail, to keep the first launch's inputs: a full patch batch
+    launch_fused = fused_decode._launch_cuda
+
+    def capturing_launch(*call_args):
+        captured.setdefault('fused_args', call_args)
+        return launch_fused(*call_args)
+
+    fused_decode._launch_cuda = capturing_launch
+    try:
+        seg.inference(img_t)
+    finally:
+        fused_decode._launch_cuda = launch_fused
+        os.environ.pop('TISEG_FUSED_TAIL', None)
+
+    # the three forwards agree: maps within MAP_TOL; where two such maps can disagree on the
+    # argmax the class margin is at most 2 * MAP_TOL, and those near-ties are rare
+    for a, b in (('executor', 'unfolded net'), ('executor + fused tail', 'executor')):
+        fa, fb = runs[a]['fused'], runs[b]['fused']
+        diff = float((fa - fb).abs().max())
+        near_tie = (fb[..., 1] - fb[..., 0]).abs() <= 2 * MAP_TOL
+        differs = runs[a]['sem_pred'] != runs[b]['sem_pred']
+        if not (diff <= MAP_TOL and float(near_tie.float().mean()) < 0.01 and not bool((differs & ~near_tie).any())):
+            raise AssertionError(f'UNet {a} vs {b}: fused maps differ by {diff:.3e}, near-ties on '
+                                 f'{float(near_tie.float().mean()):.4f}, {int((differs & ~near_tie).sum())} '
+                                 f'predictions differ outside them')
+        print(f'UNet {a} vs {b}: fused maps within {diff:.3e} (bound {MAP_TOL}), class margin <= {2 * MAP_TOL} on '
+              f'{float(near_tie.float().mean()):.4%} of the pixels (bound 1%), sem_pred differs on {int(differs.sum())} pixels, '
+              f'all near-ties', flush=True)
+    main = runs['executor']
+    host_s, host_i = instance_postprocess(main['sem_pred'][0].cpu().numpy().astype(np.uint8), radius=1)
+    if not (np.array_equal(host_s, main['sem_out'][0].cpu().numpy())
+            and partition_bijective(host_i, main['inst_out'][0].cpu().numpy())):
         raise AssertionError('main-path instances differ from the host scipy pipeline')
-    fused = seg.inference(torch.from_numpy(img).cuda())['sem']
-    if not (fused.shape == (1, hw, hw, 2) and torch.isfinite(fused).all()
-            and torch.allclose(fused.sum(-1), torch.ones((), device='cuda'), atol=1e-5)):
-        raise AssertionError('fused maps are not finite probabilities of the expected shape')
-    print(f'UNet main path: launches {launches}, foreground {fg:.4f}, {n_inst} instances, equal to the plain '
-          f'post-processor and to the host pipeline\'s partition; peak memory {peak_gib:.3f} GiB', flush=True)
+    print("UNet executor: instances equal to the host pipeline's partition", flush=True)
 
-    e2e_ms = wall_ms(lambda: runner.dispatch(img, (hw, hw)), reps=5)
-    fwd_ms = wall_ms(lambda: seg.inference(torch.from_numpy(img).cuda()), reps=5)
-    pp_ms = wall_ms(lambda: device_pp(seg._device_sem_pred({'sem': fused})), reps=20)
-    print(f'UNet e2e {e2e_ms:.2f} ms per {hw}^2 image (median of 5, patch_batch {args.patch_batch}); '
-          f'forward + TTA fuse {fwd_ms:.2f} ms ({fwd_ms / e2e_ms:.1%}), argmax + instance pp '
-          f'{pp_ms:.3f} ms ({pp_ms / e2e_ms:.2%})', flush=True)
+    sem_pred = main['sem_pred']
     k_ms = cuda_ms(lambda: instance_postprocess_sweep(sem_pred), reps=50)
     p_ms = cuda_ms(lambda: instance_postprocess_plain(sem_pred), reps=3, warmup=1)
     b_ms, b_by = bound('instance_postprocess_sweep', sem_pred)
-    return {'instance_postprocess_sweep': dict(launches=launches['instance_postprocess_sweep'], ms=k_ms,
-                                               plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)}
+    stats = {'instance_postprocess_sweep': dict(launches=main['launches']['instance_postprocess_sweep'], ms=k_ms,
+                                                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)}
+    # B10 on the first patch batch the main path gave it
+    x, z, *weights, _ = captured.pop('fused_args')
+    _, fp = last_stage(seg)
+    with torch.inference_mode():
+        got, want = fused_decode0_cls(x, z, *weights), unfused_tail(fp, x, z)
+    err = float((got - want).abs().max())
+    if err > 1e-4 * float(want.abs().max()):
+        raise AssertionError(f'fused_decode0_cls differs from the unfused tail on the main-path batch by {err:.3e}')
+    del got, want
+    stats['fused_decode0_cls'] = dict(launches=runs['executor + fused tail']['launches']['fused_decode0_cls'],
+                                      **time_fused_decode('UNet main path', x, z, weights, fp, reps=10))
+    return stats
 
 
 # -- phase 4: the HoVer-Net eval path --------------------------------------------------
@@ -677,6 +906,129 @@ def multi_task_path(args, config: str, n_img: int, timed: bool):
     return {name: dict(launches=launches[name], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)}
 
 
+# -- phase 7: UNet.postprocess under the three device routes ---------------------------
+def unet_postprocess_routes(args):
+    """16 images of 256^2 at CoNIC density through ``seg.inference`` once,
+    then ``seg.postprocess`` per image with device_postprocess True (B1),
+    'xla' (B3 + B2 twice) and 'pallas-rounds' (B8b + B8a twice)."""
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.ops.flood import ccl_sweep, fill_holes_sweep
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain, instance_postprocess_sweep
+    from tiseg_tpu_torch.ops.rounds import (ccl_rounds, ccl_rounds_needed, ccl_rounds_plain, fill_holes_rounds,
+                                            fill_holes_rounds_needed, fill_holes_rounds_plain,
+                                            instance_postprocess_rounds_plain)
+    from tiseg_tpu_torch.utils import Config
+
+    n_img, hw = CONIC_BATCH, CONIC_HW
+    cfg = Config.fromfile(os.path.join(ROOT, UNET_CONFIG))
+    cfg.model.test_cfg = dict(cfg.model.test_cfg, patch_batch=args.patch_batch)
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+    imgs = conic_images(args.seed + 15000, n_img, hw)
+    img_t = torch.from_numpy(imgs).cuda()
+    logit = seg.forward_heads(img_t)['sem']
+    bias = -float(torch.quantile((logit[..., 1] - logit[..., 0]).flatten()[::7], 0.6))
+    with torch.no_grad():
+        seg.net.head.postprocess.bias.copy_(torch.tensor([0.0, bias]))
+    fused = seg.inference(img_t)['sem'].cpu().numpy()
+    sem_pred = torch.from_numpy(fused.argmax(-1).astype(np.int32)).cuda()
+    want = instance_postprocess_plain(sem_pred)  # the exact per-class function, plain
+    routes = {True: {'instance_postprocess_sweep': (instance_postprocess_sweep, 1)},
+              'xla': {'fill_holes_sweep': (fill_holes_sweep, 1), 'ccl_sweep': (ccl_sweep, 2)},
+              'pallas-rounds': {'fill_holes_rounds': (fill_holes_rounds, 1), 'ccl_rounds': (ccl_rounds, 2)}}
+    launches, n_inst = {}, 0
+    for mode, counters in routes.items():
+        seg.test_cfg['device_postprocess'] = mode
+        seg.postprocess({'sem': fused[0]})  # warm-up
+        for fn, _ in counters.values():
+            fn.launches = 0
+        outs = [seg.postprocess({'sem': fused[i]}) for i in range(n_img)]
+        torch.cuda.synchronize()
+        for name, (fn, per_image) in counters.items():
+            if fn.launches != per_image * n_img:
+                raise AssertionError(f'device_postprocess={mode!r}: {fn.launches} launches of {name} for {n_img} '
+                                     f'images, expected {per_image} per image')
+            launches[name] = fn.launches
+        for i, out in enumerate(outs):
+            ref = want if mode != 'pallas-rounds' else [t[None] for t in instance_postprocess_rounds_plain(sem_pred[i])]
+            j = i if mode != 'pallas-rounds' else 0
+            if not (out['sem_pred'].dtype == np.uint8 and out['inst_pred'].dtype == np.int32
+                    and np.array_equal(out['sem_pred'], ref[0][j].cpu().numpy())
+                    and np.array_equal(out['inst_pred'], ref[1][j].cpu().numpy())):
+                raise AssertionError(f'device_postprocess={mode!r}: image {i} differs from the plain version')
+            if not np.array_equal(out['inst_pred'], want[1][i].cpu().numpy()):
+                raise AssertionError(f'device_postprocess={mode!r}: image {i} differs from the exact instances')
+        n_inst = sum(len(np.unique(o['inst_pred'])) - 1 for o in outs)
+        ms = statistics.median(wall_ms(lambda i=i: seg.postprocess({'sem': fused[i]}), reps=3) for i in range(n_img))
+        print(f'UNet.postprocess device_postprocess={mode!r}: {ms:.3f} ms per {hw}^2 image (host argmax and copies '
+              f'included; median over {n_img} images of the median of 3), launches '
+              f'{ {k: launches[k] for k in counters} } for {n_img} images, equal to the plain version', flush=True)
+    fg = float((sem_pred > 0).float().mean())
+    if not (0.1 <= fg <= 0.6 and n_inst > n_img):
+        raise AssertionError(f'degenerate planes: foreground {fg:.3f}, {n_inst} instances')
+    print(f'UNet.postprocess routes: foreground {fg:.4f}, {n_inst} instances in {n_img} images, the three device '
+          f'routes equal', flush=True)
+
+    # the two round kernels on the planes the route gave them for the first image
+    mask = (sem_pred[:1] == 1).to(torch.int32)
+    filled = fill_holes_rounds(mask).to(torch.int32)
+    stats = {}
+    for name, kernel, plain, x, neigh, work in (
+            ('fill_holes_rounds', lambda: fill_holes_rounds(mask), lambda: fill_holes_rounds_plain(mask > 0), mask, 4,
+             lambda: fill_holes_rounds_needed(mask > 0)),
+            ('ccl_rounds', lambda: ccl_rounds(filled, 128, 1), lambda: ccl_rounds_plain(filled > 0, 128, 1), filled, 4,
+             lambda: ccl_rounds_needed(filled > 0, 128, 1))):
+        k_ms, p_ms = cuda_ms(kernel, reps=25), cuda_ms(plain, reps=3, warmup=1)
+        waves = work()
+        b_ms, b_by = bound(name, x, waves, neigh)
+        print(f'UNet.postprocess kernel {name} {tuple(x.shape)}: {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound '
+              f'{b_ms * 1e3:.2f} us ({b_by}), {waves} rounds change a pixel', flush=True)
+        stats[name] = dict(launches=launches[name], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    return stats
+
+
+# -- phase 8: CUNet through the executor -------------------------------------------------
+def cunet_path(args):
+    """Two images through InferenceRunner: executor on, boundary class
+    stripped, radius 3, B1. Checked against the unfolded net and the plain
+    post-processor; not timed."""
+    from tiseg_tpu_torch.apis import InferenceRunner
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain, instance_postprocess_sweep
+    from tiseg_tpu_torch.utils import Config
+
+    n_img, hw = 2, CONIC_HW
+    cfg = Config.fromfile(os.path.join(ROOT, CUNET_CONFIG))
+    cfg.model.test_cfg = dict(cfg.model.test_cfg, device_postprocess=True, patch_batch=args.cd_patch_batch)
+    print(f'CUNet model: {CUNET_CONFIG}, test_cfg {cfg.model.test_cfg}', flush=True)
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+    nc = seg.num_classes
+    imgs = conic_images(args.seed + 17000, n_img, hw)
+    img_t = torch.from_numpy(imgs).cuda()
+    cls = seg.net.head.postprocess
+    standardize_classifier_(seg, img_t, 'sem', cls, [0.0] * nc + [-1.0])  # the boundary class 1 below, as CDNet's
+    background_bias_(seg, img_t, 'sem', cls, lambda p: (p.argmax(-1) > 0) & (p.argmax(-1) < nc), share=0.3)
+    counters = {'instance_postprocess_sweep': (instance_postprocess_sweep, 'launches')}
+    out, (sem_pred,), launches, peak_gib = drive_once(InferenceRunner(seg), seg, '_device_instance_pp', imgs, hw,
+                                                      counters)
+    want = instance_postprocess_plain(sem_pred, radius=3, num_classes=nc)
+    if not (torch.equal(out['sem_pred'], want[0]) and torch.equal(out['inst_pred'], want[1])
+            and out['inst_pred'].shape == (n_img, hw, hw)):
+        raise AssertionError('CUNet: main-path instances differ from the plain post-processor')
+    fused = seg.inference(img_t)['sem']
+    seg.test_cfg['fast_eval'] = False
+    unfolded = seg.inference(img_t)['sem']
+    diff = float((fused - unfolded).abs().max())
+    boundary = float((fused.argmax(-1) == nc).float().mean())
+    n_inst = sum(len(torch.unique(out['inst_pred'][b])) - 1 for b in range(n_img))
+    if not (fused.shape == (n_img, hw, hw, nc + 1) and diff <= 1e-4 and boundary > 0 and n_inst > n_img
+            and int(out['sem_pred'].max()) < nc):
+        raise AssertionError(f'CUNet: executor vs unfolded net {diff:.3e}, boundary class on {boundary:.4f}, '
+                             f'{n_inst} instances, sem_pred up to {int(out["sem_pred"].max())}')
+    print(f'CUNet main path: launches {launches}, executor within {diff:.3e} of the unfolded net (bound 1e-4), '
+          f'boundary class on {boundary:.4f} of the fused argmax and stripped, {n_inst} instances in {n_img} images, '
+          f'equal to the plain post-processor; peak memory {peak_gib:.3f} GiB', flush=True)
+
+
 SOURCES = {
     'instance_postprocess_sweep': ('tiseg_tpu_torch/csrc/instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:478'),
     'instance_postprocess_vectorized': ('tiseg_tpu_torch/csrc/instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:353'),
@@ -685,6 +1037,10 @@ SOURCES = {
     'size_filter': ('tiseg_tpu_torch/csrc/flood.cu', 'tiseg_tpu/ops/pallas_sweep.py:597'),
     'fill_holes_sweep': ('tiseg_tpu_torch/csrc/flood.cu', 'tiseg_tpu/ops/pallas_sweep.py:641'),
     'watershed': ('tiseg_tpu_torch/csrc/watershed.cu', 'tiseg_tpu/ops/pallas_postproc.py:173'),
+    'ccl_rounds': ('tiseg_tpu_torch/csrc/rounds.cu', 'tiseg_tpu/ops/pallas_postproc.py:66'),
+    'fill_holes_rounds': ('tiseg_tpu_torch/csrc/rounds.cu', 'tiseg_tpu/ops/pallas_postproc.py:107'),
+    'neighborhood_3x3': ('tiseg_tpu_torch/csrc/stencil.cu', 'tiseg_tpu/ops/pallas_kernels.py:43'),
+    'fused_decode0_cls': ('tiseg_tpu_torch/csrc/fused_decode.cu', 'tiseg_tpu/attic/pallas_decode.py:146'),
 }
 
 
@@ -741,7 +1097,9 @@ def main(argv=None) -> int:
                                   '7class-conic1000': multiclass(1, 1000, args.seed + 7000)}.items():
         x, seed = torch.from_numpy(sem).cuda(), torch.from_numpy(seed).cuda()
         case_sets[set_name] = (x, seed, multiclass_kernel_cases(x, seed))
-    max_err = check_kernels(case_sets)
+    max_err, timed = check_kernels(case_sets)
+    check_round_budget(case_sets)
+    max_err['fused_decode0_cls'] = check_fused_decode(args)
     print(f'kernel phase: {time.perf_counter() - t0:.1f} s', flush=True)
 
     # -- phases 3 and 4 ------------------------------------------------------------
@@ -766,10 +1124,25 @@ def main(argv=None) -> int:
     for config in (MT_UNET_CONFIG, MT_CUNET_CONFIG):
         multi_task_path(args, config, n_img=2, timed=False)
     print(f'MultiTaskUNet and MultiTaskCUNet phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+
+    # -- phases 7 and 8 ------------------------------------------------------------
+    t0 = time.perf_counter()
+    stats.update(unet_postprocess_routes(args))
+    cunet_path(args)
+    print(f'UNet.postprocess routes and CUNet phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    # B9: no segmentor calls it (in the JAX package neither); its numbers are the kernel phase's
+    plane = case_sets['conic16x256'][0].float()
+    stats['neighborhood_3x3'] = dict(
+        timed[('neighborhood_3x3 max int32', 'conic16x256')], launches=0,
+        library_ms=cuda_ms(lambda: torch.nn.functional.max_pool2d(plane[:, None], 3, 1, 1), reps=25))
+    print(f'neighborhood_3x3: no caller on any path (launches 0); F.max_pool2d(3, 1, 1) on the float32 16 x 256^2 '
+          f'plane {stats["neighborhood_3x3"]["library_ms"]:.4f} ms', flush=True)
 
     kernels = [dict(name=name, route='cuda', source=src, replaces=rep, launches=stats[name]['launches'],
                     max_abs_err=max_err[name], ms=stats[name]['ms'], plain_ms=stats[name]['plain_ms'],
-                    bound_ms=stats[name]['bound_ms'], bound_by=stats[name]['bound_by'], library_ms=None)
+                    bound_ms=stats[name]['bound_ms'], bound_by=stats[name]['bound_by'],
+                    library_ms=stats[name].get('library_ms'))
                for name, (src, rep) in SOURCES.items()]
     print(json.dumps({'kernels': kernels}))
     print(card)

@@ -1,7 +1,8 @@
 """The whole ported eval slice vs tiseg_tpu: UNet (VGG16-BN + UNetHead) with
 split 64/16 sliding windows x 4 dihedral TTA views, softmax mean, argmax and
 device instance post-processing, on one 96^2 image with the same numpy
-weights on both sides.
+weights on both sides. The port runs with its BN-folded executor on (the
+default of both packages) and off; the JAX side keeps its default.
 
 Tolerances: fused softmax maps within 1e-4 (float32 convolutions summed in
 different orders); sem_pred equal; inst_pred bit-exact against tiseg_tpu's
@@ -48,19 +49,26 @@ def _fg_variables(seed, img, quantile=0.65):
 
 
 @pytest.fixture(scope='module')
-def slice_run():
+def jax_run():
+    """(image, variables, JAX fused maps, JAX outputs): the JAX side at its
+    defaults, which evaluates through the BN-folded fast_eval executor."""
     img = make_nuclei(11, HW, nuclei_density(HW))[0][None]
     variables = _fg_variables(4, img)
-
-    port = _port(variables)
-    port_fused = port.inference(torch.from_numpy(img))['sem'].numpy()
-    port_out = InferenceRunner(port)(img, (HW, HW))
-
     jseg = build_jax_segmentor(dict(type='UNet', num_classes=2, train_cfg=dict(), test_cfg=TEST_CFG))
     jvars = jax.tree_util.tree_map(jnp.asarray, variables)
     jax_fused = np.asarray(jax.jit(jseg.inference)(jvars, jnp.asarray(img))['sem'])
     jax_out = jax.jit(jseg.inference_and_postprocess)(jvars, jnp.asarray(img))
-    jax_out = {k: np.asarray(v) for k, v in jax_out.items()}
+    return img, variables, jax_fused, {k: np.asarray(v) for k, v in jax_out.items()}
+
+
+@pytest.fixture(scope='module', params=[True, False], ids=['fast_eval', 'unfolded'])
+def slice_run(request, jax_run):
+    """The port with its executor on (the default) and off, against the same JAX run."""
+    img, variables, jax_fused, jax_out = jax_run
+    port = _port(variables)
+    port.test_cfg['fast_eval'] = request.param
+    port_fused = port.inference(torch.from_numpy(img))['sem'].numpy()
+    port_out = InferenceRunner(port)(img, (HW, HW))
     return port_fused, port_out, jax_fused, jax_out
 
 

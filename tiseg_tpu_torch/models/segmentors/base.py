@@ -34,7 +34,13 @@ class BaseSegmentor:
         self.net = None  # set by subclass
 
     # -- forward ------------------------------------------------------------
-    def forward_heads(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def prepare_inference(self):
+        """Optional precomputation shared by the eval forwards of one
+        ``inference`` call (e.g. folded weights), handed back to
+        ``forward_heads`` as ``prep``."""
+        return None
+
+    def forward_heads(self, img: torch.Tensor, prep=None) -> Dict[str, torch.Tensor]:
         """Eval forward of an NHWC batch."""
         self.net.eval()
         with torch.inference_mode():
@@ -60,8 +66,9 @@ class BaseSegmentor:
         ws = self.test_cfg.get('crop_size', (0,))[0]
         os_ = self.test_cfg.get('overlap_size', (0,))[0]
         img = torch.as_tensor(img, device=self.device)
+        prep = self.prepare_inference()  # built anew per call, so that it follows the net's weights
         with torch.inference_mode():
-            outs = tta_forward_views(self.forward_heads, img, views, mode, ws, os_,
+            outs = tta_forward_views(lambda patch: self.forward_heads(patch, prep=prep), img, views, mode, ws, os_,
                                      chunk=self.test_cfg.get('patch_batch', 8))
             accum, first = None, None
             for (rot, flip), out in zip(views, outs):

@@ -1,0 +1,45 @@
+"""CUNet, evaluation path: UNet trained on the three-class boundary-aware
+target (port of tiseg_tpu/models/segmentors/cunet.py; reference
+tiseg/models/segmentors/cunet.py:16-113).
+
+The head predicts ``num_classes + 1`` channels (the last is the boundary);
+at eval the boundary class is stripped before the per-class CCL + dilation.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..builder import SEGMENTORS
+from ..nn import he_init_
+from .base import BaseSegmentor
+from .unet import FastVGGUNetEval, UNetNet, instance_postprocess
+
+
+class CUNetNet(UNetNet):
+    """VGG16-BN + UNetHead with ``num_classes + 1`` output channels."""
+
+    def __init__(self, num_classes: int, device=None):
+        super().__init__(num_classes + 1, device=device)
+
+
+@SEGMENTORS.register_module()
+class CUNet(FastVGGUNetEval, BaseSegmentor):
+    """``seed`` draws the initial weights; load trained ones with
+    ``net.load_state_dict``."""
+
+    device_pp_supported = True
+    device_pp_strip_boundary = True
+    device_pp_default_radius = 3
+
+    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device)
+        self.net = CUNetNet(num_classes, device=self.device)
+        he_init_(self.net, torch.Generator().manual_seed(seed))
+        self.net.to(memory_format=torch.channels_last).eval()
+
+    def postprocess(self, fused):
+        pred = np.argmax(np.asarray(fused['sem']), axis=-1).astype(np.uint8)
+        pred[pred == self.num_classes] = 0  # strip the boundary class
+        sem, inst = instance_postprocess(pred, radius=self.test_cfg.get('radius', 3))
+        return {'sem_pred': sem, 'inst_pred': inst}

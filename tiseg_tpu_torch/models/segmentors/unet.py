@@ -3,7 +3,9 @@ tiseg_tpu/models/segmentors/unet.py; reference tiseg/models/segmentors/unet.py).
 
 VGG16-BN encoder + UNet decoder; instances recovered at eval by per-class
 fill-holes -> remove-small -> CCL -> disk dilation, on the device
-(``device_postprocess``) or on the host.
+(``device_postprocess``) or on the host. The eval forward runs through the
+BN-folded phase-space executor (``heads/fast_decode.py``) unless
+``test_cfg['fast_eval']`` is False.
 """
 from __future__ import annotations
 
@@ -57,8 +59,44 @@ def instance_postprocess(sem_pred: np.ndarray, radius: int = 1, min_size: int = 
     return out_sem, inst_pred
 
 
+class FastVGGUNetEval:
+    """Mixin: the phase-space eval forward for VGG16BN + UNetHead nets
+    (``heads/fast_decode.py``), an exact rewrite of the net's eval forward
+    with BN folded. Used when ``test_cfg['fast_eval']`` (default on) and the
+    input's height and width divide by 4; otherwise the unfolded net runs."""
+
+    def _fast_eval_ok(self, hw) -> bool:
+        return hw[0] % 4 == 0 and hw[1] % 4 == 0
+
+    def _fast_eval_enabled(self) -> bool:
+        return self.test_cfg.get('fast_eval', True)
+
+    def prepare_inference(self):
+        """Fold BN and build the phase-space weights from the net's present
+        weights: once per ``inference`` call, not once per patch chunk."""
+        if self.test_cfg.get('int8_eval', False):
+            raise NotImplementedError('int8_eval is not ported (ROADMAP queue A item 5)')
+        if not self._fast_eval_enabled():
+            return None
+        from ..heads.fast_decode import build_fast_unet_head_params, build_fast_vgg16_params
+        return {'vgg': build_fast_vgg16_params(self.net.backbone), 'head': build_fast_unet_head_params(self.net.head)}
+
+    def calibrate_int8(self, calib_img, margin: float = 1.0):
+        raise NotImplementedError('the int8 eval path is not ported (ROADMAP queue A item 5)')
+
+    def forward_heads(self, img, prep=None):
+        if not self._fast_eval_enabled() or not self._fast_eval_ok(img.shape[1:3]):
+            return super().forward_heads(img)
+        from ..heads.fast_decode import apply_fast_unet_head, apply_fast_vgg16
+        with torch.inference_mode():
+            if prep is None:
+                prep = self.prepare_inference()
+            feats = apply_fast_vgg16(prep['vgg'], img)
+            return {'sem': apply_fast_unet_head(prep['head'], feats[-1], feats[:-1])}
+
+
 @SEGMENTORS.register_module()
-class UNet(BaseSegmentor):
+class UNet(FastVGGUNetEval, BaseSegmentor):
     """``seed`` draws the initial weights (He-normal, ``nn.he_init_``);
     load trained ones with ``net.load_state_dict``."""
 
@@ -74,10 +112,21 @@ class UNet(BaseSegmentor):
         sem_pred = np.argmax(np.asarray(fused['sem']), axis=-1)
         radius = self.test_cfg.get('radius', 1)
         mode = self.test_cfg.get('device_postprocess', False)
-        if mode in ('xla', 'pallas-rounds'):
-            raise NotImplementedError(f"device_postprocess={mode!r} is not ported (ROADMAP queue B)")
         if mode:
-            sem, inst = self._device_instance_pp(torch.as_tensor(sem_pred.astype(np.int32), device=self.device))
+            # 'xla' selects the exact route of ops/ccl.py, 'pallas-rounds' the
+            # round-bounded propagation kernels of ops/rounds.py; any other
+            # truthy value the fused kernel of ops/instance_pp.py
+            sem_t = torch.as_tensor(sem_pred.astype(np.int32), device=self.device)
+            if mode == 'xla':
+                from ...ops.ccl import instance_postprocess_device
+                sem, inst = instance_postprocess_device(sem_t, radius=radius, num_classes=self.num_classes,
+                                                        rounds=self.test_cfg.get('pp_rounds'))
+            elif mode == 'pallas-rounds':
+                from ...ops.rounds import instance_postprocess_rounds
+                sem, inst = instance_postprocess_rounds(sem_t, radius=radius, num_classes=self.num_classes,
+                                                        rounds=self.test_cfg.get('pp_rounds', 128) or 128)
+            else:
+                sem, inst = self._device_instance_pp(sem_t)
             return {'sem_pred': sem.cpu().numpy(), 'inst_pred': inst.cpu().numpy()}
         sem, inst = instance_postprocess(sem_pred.astype(np.uint8), radius=radius)
         return {'sem_pred': sem, 'inst_pred': inst}

@@ -21,7 +21,8 @@ BUILD_DIR = osp.join(osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__)))
 
 # library name -> source file under csrc/
 SOURCES = {'tiseg_pp': 'instance_pp.cu', 'tiseg_mt_pp': 'mt_instance_pp.cu', 'tiseg_flood': 'flood.cu',
-           'tiseg_ws': 'watershed.cu'}
+           'tiseg_ws': 'watershed.cu', 'tiseg_rounds': 'rounds.cu', 'tiseg_stencil': 'stencil.cu',
+           'tiseg_fused_decode': 'fused_decode.cu'}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

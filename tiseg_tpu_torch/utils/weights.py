@@ -190,6 +190,7 @@ def hovernet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]
 # cfg.model.type -> carrier
 CARRIERS: Dict[str, Callable[[Mapping], Dict[str, torch.Tensor]]] = {
     'UNet': unet_state_dict_from_flax,
+    'CUNet': unet_state_dict_from_flax,  # the same tree; the classifier has num_classes + 1 channels
     'HoverNet': hovernet_state_dict_from_flax,
     'CDNet': cdnet_state_dict_from_flax,
     'MultiTaskUNet': mt_unet_state_dict_from_flax,
