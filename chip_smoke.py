@@ -20,7 +20,8 @@
    round-bounded ccl_rounds (B8a, both connectivities, 64 and 128 rounds) and
    fill_holes_rounds (B8b, H + W and 16 rounds), whose un-converged results
    on the spiral planes must equal the plain versions' too, and the 3x3
-   neighbourhood max/min (B9, int32 and float32 planes with negative values).
+   neighbourhood max/min (B9, int32 and float32 planes with negative values,
+   and the same planes cut to a width that is not a multiple of 4).
    fused_decode0_cls (B10) is held against its plain version at the full
    width of a 256^2 patch (B 8, G 128) and on a ragged grid, with two and
    three classes, in float32 (1e-4 of the largest logit: sums in another
@@ -60,6 +61,11 @@
    equal, post-processing ms per image printed.
 8. Two images through CUNet (executor on, boundary class stripped, radius 3,
    B1), checked against the unfolded net and the plain post-processor.
+9. B9 (no caller on any path) against F.max_pool2d(3, 1, 1) on the same
+   float32 16 x 256^2 plane, each timed per call (ms, host time included)
+   and per launch with L2 flushed and the host's enqueue hidden (device_ms),
+   beside a copy of the plane; and the host time of its wrapper alone, with
+   the call path that set up the entry point on every call beside it.
 
 TF32 is off for convolutions and matrix products in every comparison.
 Prints, before its last two lines, one JSON object with each kernel's
@@ -89,6 +95,9 @@ CUNET_CONFIG = 'configs/cunet/cunet_adam-lr0.0005_bs16_256x256_300e_monuseg.py'
 MT_CUNET_CONFIG = 'configs/multi_task_cunet/multi_task_cunet_adam-lr0.0005_bs16_256x256_100e_conic.py'
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside the tensor cores (data sheet, float32)
+TF32_OPS_PER_S = 495e12  # H100 SXM tensor cores, TF32, dense (data sheet)
+BF16_OPS_PER_S = 989e12  # H100 SXM tensor cores, bf16, dense (data sheet)
+FLUSH_BYTES = 256 * 2 ** 20  # written before each device_ms launch: over five times the 50 MB L2
 DIAMOND_MIN_SIZE = 10  # HoVer-Net's size filter (ops/hover.py)
 CONIC_CLASSES, CONIC_RADIUS, ALIGN_TIME = 7, 3, 20  # the CoNIC recipes' post-processing settings
 CONIC_BATCH, CONIC_HW = 16, 256  # images per timed CDNet / MultiTaskCDNet batch, and their size
@@ -113,6 +122,52 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    """Median over ``reps`` launches of device time alone: before each start
+    event the card writes FLUSH_BYTES to a scratch buffer, which evicts the
+    inputs from L2 and keeps the device busy while the host enqueues ``fn``,
+    so the events bracket device work only."""
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device='cuda')
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        scratch.fill_(1.0)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host time of one call in microseconds: ``calls`` calls, one synchronize at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def ptxas_report(out: str):
+    """(kernel entry, registers, spill line) for each entry of an nvcc
+    -Xptxas=-v output."""
+    rows, entry, spills = [], None, ''
+    for line in out.splitlines():
+        if 'Compiling entry function' in line:
+            entry = line.split("'")[1]
+        elif 'spill stores' in line:
+            spills = line.strip()
+        elif entry and 'registers' in line:
+            rows.append((entry, line.split('Used ')[1].split(' registers')[0], spills))
+            entry = None
+    return rows
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -228,6 +283,7 @@ def round_and_stencil_cases(x: torch.Tensor):
     # an int32 label plane and a float32 plane, both with negative values up to the plane edge
     lab = ccl_plain(x > 0, 2) - 5
     planes = {'int32': lab, 'float32': lab.float() * 0.37 - 11.5}
+    planes.update({f'{k} ragged': p[..., :-3].contiguous() for k, p in planes.items()})  # W % 4 == 1
     for dtype, plane in planes.items():
         for op, minimum in (('max', False), ('min', True)):
             cases[f'neighborhood_3x3 {op} {dtype}'] = (lambda p=plane, m=minimum: neighborhood_3x3(p, m),
@@ -323,12 +379,18 @@ BF16_STEPS = 4  # bf16 tolerance, in steps (2^-8 relative) of the largest logit
 def fused_decode_bound(x: torch.Tensor, z: torch.Tensor, out: torch.Tensor, F_t: int, F_c: int):
     """Each of x, z and the logits moved once, or the operations of the
     function itself (4x4/s2 transposed conv, 3x3 conv over its output and
-    the skip, 1x1 classifier: not the 1.78x of the phase form)."""
+    the skip, 1x1 classifier: not the 1.78x of the phase form) at the rate
+    of the units the kernel uses: three times over at the TF32 rate for
+    float32 (its hi/lo split), once at the bf16 rate for bfloat16. Also
+    returns the bound at the float32 rate outside the tensor cores, which
+    the kernel was held to when it ran on the FMA units."""
     B, G, _, Cx = x.shape
     C0, nc, px = z.shape[-1] // 4, out.shape[-1], B * (2 * G) ** 2
     byte_ms = bytes_ms(sum(t.numel() * t.element_size() for t in (x, z, out)))
-    op_ms = ops_ms(2 * px * (4 * Cx * F_t + 9 * (F_t + C0) * F_c + F_c * nc))
-    return (byte_ms, 'bytes') if byte_ms >= op_ms else (op_ms, 'operations')
+    n_ops = 2 * px * (4 * Cx * F_t + 9 * (F_t + C0) * F_c + F_c * nc)
+    op_ms = (3 * n_ops / TF32_OPS_PER_S if out.dtype == torch.float32 else n_ops / BF16_OPS_PER_S) * 1e3
+    b_ms, b_by = (byte_ms, 'bytes') if byte_ms >= op_ms else (op_ms, 'operations')
+    return b_ms, b_by, max(byte_ms, ops_ms(n_ops))
 
 
 def last_stage(seg):
@@ -358,11 +420,11 @@ def time_fused_decode(label, x, z, weights, fp, reps=25):
         k_ms = cuda_ms(lambda: fused_decode0_cls(x, z, *weights), reps=reps)
         p_ms = cuda_ms(lambda: fused_decode0_cls_plain(x, z, *weights), reps=3, warmup=1)
         lib_ms = cuda_ms(lambda: unfused_tail(fp, x, z), reps=reps)
-    b_ms, b_by = fused_decode_bound(x, z, out, weights[0].shape[-1] // 4, weights[2].shape[-1] // 4)
+    b_ms, b_by, fma_ms = fused_decode_bound(x, z, out, weights[0].shape[-1] // 4, weights[2].shape[-1] // 4)
     print(f'fused_decode0_cls {label} x {tuple(x.shape)} z {tuple(z.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, '
-          f'unfused tail (4 cuDNN convolutions + matmul + d2s) {lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by})',
-          flush=True)
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+          f'unfused tail (4 cuDNN convolutions + matmul + d2s) {lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}; '
+          f'{fma_ms * 1e3:.2f} us at the 67 TFLOP/s float32 rate)', flush=True)
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bound_ms_f32_fma=fma_ms)
 
 
 def check_fused_decode(args):
@@ -1029,6 +1091,56 @@ def cunet_path(args):
           f'equal to the plain post-processor; peak memory {peak_gib:.3f} GiB', flush=True)
 
 
+# -- phase 9: B9 against its library call, and its wrapper's host time ------------------
+def stencil_call_unbound(x: torch.Tensor) -> torch.Tensor:
+    """B9's call path before the bind-once helper, kept to time the
+    wrapper against: argument types set, a device guard entered and a
+    Stream object built on every call."""
+    import ctypes
+    from tiseg_tpu_torch.ops import _build
+    if x.dim() not in (2, 3) or x.dtype not in (torch.int32, torch.float32) or x.numel() > 2 ** 31 - 1:
+        raise ValueError('stencil_call_unbound: bad plane')
+    x = x.contiguous()
+    H, W = x.shape[-2:]
+    lib = _build.load('tiseg_stencil')
+    lib.tiseg_neighborhood_3x3.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tiseg_neighborhood_3x3.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        out = torch.empty_like(x)
+        err = lib.tiseg_neighborhood_3x3(x.data_ptr(), out.data_ptr(), x.numel() // max(H * W, 1), H, W,
+                                         int(x.dtype == torch.float32), 0,
+                                         torch.cuda.current_stream(x.device).cuda_stream)
+    _build.raise_on_error(lib, err, 'neighborhood_3x3')
+    return out
+
+
+def stencil_yardstick(case_sets, timed):
+    """B9 (max) and F.max_pool2d(3, 1, 1) on the same float32 16 x 256^2
+    plane with negative values: ms per call (host time included), device_ms
+    per launch, beside a copy of the plane (the same bytes read and written:
+    what a launch of this size costs at the least); the wrapper's host time
+    now and with the call path before the bind-once helper. B9 has no
+    caller on any path: launches 0."""
+    from tiseg_tpu_torch.ops.stencil import neighborhood_3x3
+    plane = case_sets['conic16x256'][2]['neighborhood_3x3 max float32'][2]
+    pool = lambda: torch.nn.functional.max_pool2d(plane[:, None], 3, 1, 1)  # noqa: E731
+    kern = lambda: neighborhood_3x3(plane)  # noqa: E731
+    if not torch.equal(pool()[:, 0], kern()):
+        raise AssertionError('neighborhood_3x3 differs from F.max_pool2d(3, 1, 1) on the float32 plane')
+    out = dict(timed[('neighborhood_3x3 max float32', 'conic16x256')], launches=0,
+               ms_int32=timed[('neighborhood_3x3 max int32', 'conic16x256')]['ms'])
+    out.update(ms=cuda_ms(kern, reps=25), library_ms=cuda_ms(pool, reps=25), device_ms=device_ms(kern),
+               library_device_ms=device_ms(pool), copy_device_ms=device_ms(plane.clone), host_us=host_us(kern),
+               host_us_unbound=host_us(lambda: stencil_call_unbound(plane)))
+    print(f'neighborhood_3x3 max on the float32 16 x 256^2 plane (no caller on any path, launches 0): {out["ms"]:.4f} ms '
+          f'per call, {out["device_ms"] * 1e3:.2f} us per launch (L2 flushed), bound {out["bound_ms"] * 1e3:.2f} us; '
+          f'F.max_pool2d(3, 1, 1) {out["library_ms"]:.4f} ms, {out["library_device_ms"] * 1e3:.2f} us; a copy of the '
+          f'plane (the same bytes moved) {out["copy_device_ms"] * 1e3:.2f} us per launch; int32 plane '
+          f'{out["ms_int32"]:.4f} ms; wrapper host time {out["host_us"]:.2f} us per call ({out["host_us_unbound"]:.2f} us '
+          f'with the entry point set up on every call; 1000 calls, one synchronize)', flush=True)
+    return out
+
+
 SOURCES = {
     'instance_postprocess_sweep': ('tiseg_tpu_torch/csrc/instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:478'),
     'instance_postprocess_vectorized': ('tiseg_tpu_torch/csrc/instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:353'),
@@ -1068,8 +1180,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print('TF32 off: torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False')
     t0 = time.perf_counter()
-    _build.build()
+    reports = _build.build(verbose=True)
     print(f'built {sorted(_build.SOURCES.values())} in {time.perf_counter() - t0:.2f} s', flush=True)
+    for name, kernel in (('tiseg_fused_decode', 'k_fused_decode'), ('tiseg_stencil', 'k_neighborhood')):
+        for entry, regs, spills in ptxas_report(reports.get(name, '')):
+            if kernel in entry:
+                print(f'ptxas {_build.SOURCES[name]} {entry}: {regs} registers, {spills}', flush=True)
 
     # -- phase 2 ---------------------------------------------------------------
     def hard(hw):
@@ -1131,18 +1247,12 @@ def main(argv=None) -> int:
     stats.update(unet_postprocess_routes(args))
     cunet_path(args)
     print(f'UNet.postprocess routes and CUNet phase: {time.perf_counter() - t0:.1f} s', flush=True)
-    # B9: no segmentor calls it (in the JAX package neither); its numbers are the kernel phase's
-    plane = case_sets['conic16x256'][0].float()
-    stats['neighborhood_3x3'] = dict(
-        timed[('neighborhood_3x3 max int32', 'conic16x256')], launches=0,
-        library_ms=cuda_ms(lambda: torch.nn.functional.max_pool2d(plane[:, None], 3, 1, 1), reps=25))
-    print(f'neighborhood_3x3: no caller on any path (launches 0); F.max_pool2d(3, 1, 1) on the float32 16 x 256^2 '
-          f'plane {stats["neighborhood_3x3"]["library_ms"]:.4f} ms', flush=True)
+    stats['neighborhood_3x3'] = stencil_yardstick(case_sets, timed)
 
-    kernels = [dict(name=name, route='cuda', source=src, replaces=rep, launches=stats[name]['launches'],
-                    max_abs_err=max_err[name], ms=stats[name]['ms'], plain_ms=stats[name]['plain_ms'],
-                    bound_ms=stats[name]['bound_ms'], bound_by=stats[name]['bound_by'],
-                    library_ms=stats[name].get('library_ms'))
+    keys = ('launches', 'ms', 'plain_ms', 'bound_ms', 'bound_by')
+    kernels = [dict(name=name, route='cuda', source=src, replaces=rep, max_abs_err=max_err[name],
+                    **{k: stats[name][k] for k in keys}, library_ms=stats[name].get('library_ms'),
+                    **{k: v for k, v in stats[name].items() if k not in keys and k != 'library_ms'})
                for name, (src, rep) in SOURCES.items()]
     print(json.dumps({'kernels': kernels}))
     print(card)

@@ -8,7 +8,13 @@ unit-scale inputs (three roundings to 8 bits of mantissa: a sum that lands
 on the other side of a rounding boundary moves a value by one bf16 step,
 2^-8 relative, and the decode conv sums ~1300 such terms). Inputs are
 signed, so that a wrong edge mask shows. On CPU tensors the wrapper runs its
-plain version; the CUDA kernel is held to it on the card (chip_smoke.py)."""
+plain version; the CUDA kernel is held to it on the card (chip_smoke.py).
+
+The kernel's host side is tested here too: the packer drops only blocks of
+the phase weights that are zero by construction and unpacks to the weights
+exactly, the TF32 split the kernel makes keeps each float32 weight to 2^-20,
+and a torch emulation of the kernel's three-pass TF32 products at full
+width stays within 1e-4 of the largest logit of the plain version."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +23,9 @@ import torch
 from tiseg_tpu.attic.pallas_decode import fused_decode0_cls as jax_fused_decode0_cls
 from tiseg_tpu.models.heads import fast_decode as jfd
 from tiseg_tpu_torch.models.heads import fast_decode as fd
-from tiseg_tpu_torch.ops.fused_decode import fused_decode0_cls, fused_decode0_cls_plain
+from tiseg_tpu_torch.models import build_segmentor
+from tiseg_tpu_torch.ops.fused_decode import (_pack_index, fused_decode0_cls, fused_decode0_cls_plain, live_taps,
+                                              pack_fused_decode_weights)
 
 CX, C0, F_T, F_C = 8, 16, 8, 16
 
@@ -107,17 +115,145 @@ def test_rejects_inconsistent_shapes_and_types():
         fused_decode0_cls(*args)
 
 
+def _dead_blocks(W, width):
+    """The blocks W[wy, wx, (p, .), (q, .)] outside live_taps(p, q)."""
+    return [W[wy, wx, p * width:(p + 1) * width, q * 16:(q + 1) * 16] for p in range(4) for q in range(4)
+            for wy in range(2) for wx in range(2) if (wy, wx) not in live_taps(p, q)]
+
+
+@pytest.fixture(scope='module')
+def folded_stages():
+    """HWIO (Wt, Wc_t, Wc_s_phase) of the last decode stage of the seeded UNet and CUNet, BN folded."""
+    out = {}
+    for model in ('UNet', 'CUNet'):
+        seg = build_segmentor(dict(type=model, num_classes=2, test_cfg=dict()), device='cpu', seed=0)
+        head = seg.prepare_inference()['head']
+        st = head['stages'][0]
+        out[model] = ([fd._hwio(st[k]) for k in ('Wt', 'Wc_t', 'Wc_s_phase')] + [st['bt'], st['bc']],
+                      head['cls_kernel'], head['cls_bias'])
+    return out
+
+
+def test_dropped_blocks_are_zero(folded_stages):
+    assert all(sum(len(live_taps(p, q)) for p in range(4)) == 9 for q in range(4))
+    Wc = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 3, 16, 16)).astype(np.float32))
+    W, _ = fd.phase_conv3x3_weights(Wc, torch.zeros(16))
+    Wj, _ = jfd.phase_conv3x3_weights(jnp.asarray(Wc.numpy()), jnp.zeros(16))
+    dead = _dead_blocks(W, 16)
+    assert len(dead) == 7 * 64 // 16 and all(not b.any() for b in dead)
+    assert all(not b.any() for b in _dead_blocks(torch.from_numpy(np.array(Wj)), 16))
+    assert all(b.abs().min() > 0 for b in [W[wy, wx, p * 16:(p + 1) * 16, q * 16:(q + 1) * 16]
+                                          for p in range(4) for q in range(4) for wy, wx in live_taps(p, q)])
+    for model, ((_, Wc_t, Wc_s, *_), _, _) in folded_stages.items():
+        assert all(not b.any() for b in _dead_blocks(Wc_t, 16)), model
+        assert all(not b.any() for b in _dead_blocks(Wc_s, Wc_s.shape[2] // 4)), model
+
+
+def tf32_split(v):
+    """(hi, lo) of float32 values as csrc/fused_decode.cu splits its operands:
+    hi is v with the low 13 bits of its mantissa cleared (TF32), lo = v - hi,
+    exact. The tensor cores read the top 19 bits of each."""
+    hi = (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, v - hi
+
+
+def unpack_fused_decode_weights(packed, Cx: int, C0: int):
+    """The inverse of pack_fused_decode_weights: (Wt, Wc_t, Wc_s_phase) with
+    zeros in the dropped blocks."""
+    idx = _pack_index(Cx, C0, 16)
+    shapes = [(2, 2, Cx, 64), (2, 2, 64, 64), (2, 2, 4 * C0, 64)]
+    sizes = [int(np.prod(s)) for s in shapes]
+    flat = packed.new_zeros(sum(sizes))
+    flat[idx.reshape(-1)] = packed
+    return tuple(t.reshape(s) for t, s in zip(torch.split(flat, sizes), shapes))
+
+
+def test_unpacking_gives_the_weights_back(folded_stages):
+    (Wt, Wc_t, Wc_s, _, _), _, _ = folded_stages['CUNet']
+    Cx, C0 = Wt.shape[2], Wc_s.shape[2] // 4
+    packed = pack_fused_decode_weights(Wt, Wc_t, Wc_s)
+    assert packed.numel() == Wt.numel() + (Wc_t.numel() + Wc_s.numel()) * 9 // 16  # 9 of 16 blocks
+    for w, u in zip((Wt, Wc_t, Wc_s), unpack_fused_decode_weights(packed, Cx, C0)):
+        assert torch.equal(u, w)
+    for w, u in zip((Wt, Wc_t, Wc_s), unpack_fused_decode_weights(
+            pack_fused_decode_weights(Wt, Wc_t, Wc_s, torch.bfloat16), Cx, C0)):
+        assert torch.equal(u, w.to(torch.bfloat16).float())
+
+
+def test_tf32_split_reconstructs_the_weights(folded_stages):
+    """hi + lo is each weight exactly; what the tensor cores read of the two
+    parts (their top 19 bits) is within 2^-20 of it, and hi alone is not."""
+    for w in folded_stages['UNet'][0][:3]:
+        hi, lo = tf32_split(w)
+        assert torch.equal(hi + lo, w) and torch.equal(tf32_split(hi)[0], hi)
+        assert ((hi + tf32_split(lo)[0] - w).abs() <= 2.0 ** -20 * w.abs()).all()
+        assert ((hi - w).abs() > 2.0 ** -20 * w.abs()).any()
+
+
+def _tf32_emulation(x, z, Wt, bt, Wc_t, Wc_s, bc, cls_kernel, cls_bias, passes):
+    """fused_decode0_cls_plain (float32) with each product of the kernel's
+    tensor cores taken from the TF32 parts of its operands as the kernel
+    splits them (tf32_split, of which the tensor cores read the top 19 bits):
+    hi*hi, plus lo*hi + hi*lo for 3 passes. The parts' products are exact in
+    float32, the sums float32."""
+    def mm(a, b):
+        (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+        return ah @ bh if passes == 1 else tf32_split(al)[0] @ bh + ah @ tf32_split(bl)[0] + ah @ bh
+
+    B, G = x.shape[:2]
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    t = sum(mm(xp[:, a:a + G + 1, b:b + G + 1], Wt[a, b]) for a in range(2) for b in range(2)) + bt
+    t = torch.relu(t).reshape(B, G + 1, G + 1, 2, 2, -1).clone()
+    t[:, 0, :, 0] = t[:, G, :, 1] = t[:, :, 0, :, 0] = t[:, :, G, :, 1] = 0
+    t = t.reshape(B, G + 1, G + 1, -1)
+    y = sum(mm(t[:, a:a + G, b:b + G], Wc_t[a, b]) + mm(z[:, a:a + G, b:b + G], Wc_s[a, b])
+            for a in range(2) for b in range(2)) + bc
+    logits = torch.relu(y).reshape(B, G, G, 4, -1) @ cls_kernel[0, 0] + cls_bias
+    return fd.d2s(logits.reshape(B, G, G, -1), cls_kernel.shape[-1])
+
+
+def test_three_pass_tf32_holds_the_float32_tolerance(folded_stages):
+    """Full width of a 256^2 patch (G 128, Cx 32, C0 64), B 1, the seeded
+    UNet's folded weights, signed inputs; one pass is printed for the record."""
+    (Wt, Wc_t, Wc_s, bt, bc), cls_kernel, cls_bias = folded_stages['UNet']
+    rng = np.random.default_rng(7)
+    G = 128
+    x = torch.from_numpy(rng.standard_normal((1, G, G, 32)).astype(np.float32))
+    z = fd._mask_edges_flat(torch.from_numpy(rng.standard_normal((1, G + 1, G + 1, 256)).astype(np.float32)), 64)
+    args = (x, z, Wt, bt, Wc_t, Wc_s, bc, cls_kernel, cls_bias)
+    with torch.inference_mode():
+        want = fused_decode0_cls_plain(*args)
+        top = float(want.abs().max())
+        err3 = float((_tf32_emulation(*args, passes=3) - want).abs().max())
+        err1 = float((_tf32_emulation(*args, passes=1) - want).abs().max())
+    print(f'largest logit {top:.4f}; max |emulation - plain|: 3 passes {err3:.3e} ({err3 / top:.2e} of it), '
+          f'1 pass {err1:.3e} ({err1 / top:.2e})')
+    assert top > 0.5 and err3 <= 1e-4 * top and err1 > err3
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain():
+    """Ragged grids (G 20, 33), two and three classes, float32 (1e-4 of the
+    largest logit) and bfloat16 (max(0.15, four bf16 steps of it), as in
+    chip_smoke.py), one launch counted per call."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
     rng = np.random.default_rng(0)
-    G, B, Cx, Cs4, nc = 20, 2, 32, 256, 3  # the kernel's fixed widths: 4*F_t = 4*F_c = 64
+    Cx, Cs4 = 32, 256  # the kernel's fixed widths: 4*F_t = 4*F_c = 64
 
     def r(*shape, scale=0.1):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
 
-    args = (r(B, G, G, Cx, scale=1.0), r(B, G + 1, G + 1, Cs4, scale=1.0), r(2, 2, Cx, 64), r(64), r(2, 2, 64, 64),
-            r(2, 2, Cs4, 64), r(64), r(1, 1, 16, nc), r(nc))
-    got, want = fused_decode0_cls(*args), fused_decode0_cls_plain(*args)
-    assert (got - want).abs().max() < 1e-4 * max(float(want.abs().max()), 1.0)
+    for G, B, nc in ((20, 2, 3), (33, 1, 2)):
+        Wc_t = fd.block_conv_t_weights(r(3, 3, 16, 16), 16)
+        Wc_s = fd.block_conv_t_weights(r(3, 3, Cs4 // 4, 16), Cs4 // 4)
+        z = fd._mask_edges_flat(r(B, G + 1, G + 1, Cs4, scale=1.0), Cs4 // 4)
+        args = (r(B, G, G, Cx, scale=1.0), z, r(2, 2, Cx, 64), r(64), Wc_t, Wc_s, r(64), r(1, 1, 16, nc), r(nc))
+        for dtype in (torch.float32, torch.bfloat16):
+            before = fused_decode0_cls.launches
+            got = fused_decode0_cls(*args, dtype=dtype)
+            want = fused_decode0_cls_plain(*args, dtype=dtype)
+            top = max(float(want.float().abs().max()), 1.0)
+            tol = 1e-4 * top if dtype == torch.float32 else max(0.15, 4 * 2.0 ** -8 * top)
+            assert fused_decode0_cls.launches == before + 1 and got.dtype == dtype
+            assert got.shape == (B, 2 * G, 2 * G, nc) and (got.float() - want.float()).abs().max() <= tol

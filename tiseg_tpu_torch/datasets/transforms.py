@@ -9,13 +9,15 @@ import numpy as np
 
 
 def read_image(path: str) -> np.ndarray:
-    """npy via numpy, everything else via PIL as RGB (what the reference's
-    tif-through-cv2 BGR->RGB path gives)."""
-    if osp.splitext(path)[1] == '.npy':
+    """tif as 3-channel RGB (what the reference's cv2.imread + BGR->RGB
+    gives), npy via numpy, everything else via PIL as stored: a palette
+    label PNG gives its class ids, a single-channel BMP an (H, W) array."""
+    suffix = osp.splitext(path)[1]
+    if suffix == '.npy':
         return np.load(path)
     from PIL import Image
     with Image.open(path) as im:
-        return np.array(im.convert('RGB'))
+        return np.array(im.convert('RGB') if suffix == '.tif' else im)
 
 
 class Normalize:

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..builder import BACKBONES
+from ..nn import BatchNorm2d
 
 DEPTH_PLAN = {
     18: ('basic', (2, 2, 2, 2)),
@@ -26,7 +27,7 @@ STAGE_WIDTHS = (64, 128, 256, 512)
 
 
 def _bn(ch, device):
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1, device=device)
+    return BatchNorm2d(ch, eps=1e-5, momentum=0.1, device=device)
 
 
 def _downsample(in_ch, out_ch, stride, device):

@@ -12,6 +12,7 @@ from __future__ import annotations
 from torch import nn
 
 from ..builder import BACKBONES
+from ..nn import BatchNorm2d
 
 # convs per stage (stages 1..4 start with a pool; stage 5 is pool only)
 VGG_STAGE_CONVS = {
@@ -32,7 +33,7 @@ class VGG(nn.Module):
             for _ in range(n_convs):
                 out_ch = VGG_STAGE_CHANNELS[s]
                 layers += [nn.Conv2d(in_ch, out_ch, 3, padding=1, device=device),
-                           nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1, device=device),
+                           BatchNorm2d(out_ch, eps=1e-5, momentum=0.1, device=device),
                            nn.ReLU()]
                 in_ch = out_ch
             stages.append(nn.Sequential(*layers))

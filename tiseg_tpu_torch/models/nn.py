@@ -2,13 +2,32 @@
 
 Modules take and return NCHW tensors; the segmentor's public functions
 convert from and to the JAX package's NHWC. BatchNorm uses eps 1e-5 and
-momentum 0.1 (flax's 0.9 counted the other way).
+momentum 0.1 (flax's 0.9 counted the other way) and updates its running
+variance with the biased batch variance, as flax does (:class:`BatchNorm2d`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode step updates ``running_var`` with
+    the biased batch variance, as flax ``nn.BatchNorm`` does (torch's own
+    takes the unbiased one). Normalisation uses the batch statistics in
+    train mode; eval mode is ``nn.BatchNorm2d``. State-dict keys and
+    ``isinstance`` checks are those of ``nn.BatchNorm2d``."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, [0] + list(range(2, x.dim())), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
 
 class ConvModule(nn.Module):
@@ -21,7 +40,7 @@ class ConvModule(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, padding=kernel_size // 2, bias=not norm,
                               device=device)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1, device=device) if norm else None
+        self.bn = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1, device=device) if norm else None
         self.act = act
 
     def forward(self, x):
@@ -37,7 +56,7 @@ def transposed_conv_module(in_channels: int, out_channels: int, device=None) -> 
     flipped spatially (see utils/weights.py)."""
     return nn.Sequential(
         nn.ConvTranspose2d(in_channels, out_channels, 4, stride=2, padding=1, bias=False, device=device),
-        nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1, device=device),
+        BatchNorm2d(out_channels, eps=1e-5, momentum=0.1, device=device),
         nn.ReLU())
 
 

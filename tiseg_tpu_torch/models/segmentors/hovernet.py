@@ -19,12 +19,12 @@ from torch import nn
 from ...ops.hover import hover_post_proc_device
 from ..backbones.resnet import ResNetExt
 from ..builder import SEGMENTORS
-from ..nn import he_init_, upsample_2x_nearest
+from ..nn import BatchNorm2d, he_init_, upsample_2x_nearest
 from .base import BaseSegmentor
 
 
 def _bn(ch, device):
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1, device=device)
+    return BatchNorm2d(ch, eps=1e-5, momentum=0.1, device=device)
 
 
 def _conv(in_ch, out_ch, k, device, groups=1, bias=False):

@@ -8,9 +8,12 @@ plane edge, so negative inputs are right at the edges. It equals
 ``morph.grey_dilation`` / ``grey_erosion`` with ``square_offsets(3)``.
 
 The wrapper runs the CUDA kernel (``csrc/stencil.cu``) on a CUDA tensor, or
-raises, and the plain PyTorch version on a CPU tensor. The kernel is one
-thread per pixel and is bound by bytes: one read and one write of the plane.
-No segmentor calls these functions, in the JAX package or here.
+raises, and the plain PyTorch version on a CPU tensor. The kernel stages
+8 x 256 tiles with their halo in shared memory and is bound by bytes: one
+read and one write of the plane. The call binds the entry point once
+(``_build.bind``) and switches the device only when it must, so its host
+work is an allocation and one ctypes call. No segmentor calls these
+functions, in the JAX package or here.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import ctypes
 
 import torch
 
-from ._build import raise_on_error
+from ._build import bind, device_guard, raise_on_error, raw_stream
 from .morph import grey_dilation, grey_erosion, square_offsets
 
 _INT32_MAX = 2 ** 31 - 1
@@ -30,12 +33,7 @@ def neighborhood_3x3_plain(x: torch.Tensor, minimum: bool = False) -> torch.Tens
     return (grey_erosion if minimum else grey_dilation)(x, square_offsets(3))
 
 
-def _lib():
-    from ._build import load
-    lib = load('tiseg_stencil')
-    lib.tiseg_neighborhood_3x3.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.tiseg_neighborhood_3x3.restype = ctypes.c_int
-    return lib
+_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def neighborhood_3x3(x: torch.Tensor, minimum: bool = False) -> torch.Tensor:
@@ -54,13 +52,12 @@ def neighborhood_3x3(x: torch.Tensor, minimum: bool = False) -> torch.Tensor:
         raise ValueError(f'neighborhood_3x3: {tuple(x.shape)} planes overflow int32 indices')
     x = x.contiguous()
     H, W = x.shape[-2:]
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        out = torch.empty_like(x)
-        err = lib.tiseg_neighborhood_3x3(x.data_ptr(), out.data_ptr(), x.numel() // max(H * W, 1), H, W,
-                                         int(x.dtype == torch.float32), int(minimum),
-                                         torch.cuda.current_stream(x.device).cuda_stream)
-    raise_on_error(lib, err, 'neighborhood_3x3')
+    entry = bind('tiseg_stencil', 'tiseg_neighborhood_3x3', _ARGTYPES)
+    out = torch.empty_like(x)
+    with device_guard(x.device):
+        err = entry(x.data_ptr(), out.data_ptr(), x.numel() // max(H * W, 1), H, W, int(x.dtype == torch.float32),
+                    int(minimum), raw_stream(x.device))
+    raise_on_error('tiseg_stencil', err, 'neighborhood_3x3')
     neighborhood_3x3.launches += 1
     return out
 
