@@ -12,11 +12,20 @@
    instance_postprocess_sweep (B1), ccl_sweep (B2, 4- and 8-connected),
    ccl_filter_sweep's size filter (B4, min_size 10, both connectivities),
    fill_holes_sweep (B3), and the watershed (B5) in its bounded (4, 64) and
-   fixpoint modes on (dist, markers, foreground) from the HoVer pipeline.
+   fixpoint modes, 4- and 8-connected, on (dist, markers, foreground) from
+   the HoVer pipeline.
    On seven-class planes with seed planes (hand-made hard cases at 64^2 and
    256^2, 16 x 256^2 at CoNIC density, one 1000^2 plane) the same for the
    class-vectorized instance_postprocess_sweep (B7, radius 3) and
-   mt_instance_postprocess_sweep (B6). On the binary planes also the
+   mt_instance_postprocess_sweep (B6; 7 and 2 classes, align_time 1, 2 and
+   20). B5 and B6 take the cluster route (one launch per batch, one cluster
+   of 8 blocks per plane) on every set but the 1000^2 one, which takes the
+   global chain, and two ragged sets (17 x 101 x 77, 1 x 251 x 243) check
+   the cluster route alone; each call's route, cluster size, shared bytes
+   per block (held against ops/_cluster.py:cluster_route), resident
+   clusters and waves are printed. Their timed cases on the cluster route
+   are timed in turns against the earlier global chain on the same inputs.
+   On the binary planes also the
    round-bounded ccl_rounds (B8a, both connectivities, 64 and 128 rounds) and
    fill_holes_rounds (B8b, H + W and 16 rounds), whose un-converged results
    on the spiral planes must equal the plain versions' too, and the 3x3
@@ -41,8 +50,11 @@
    float32, seeded weights and BN statistics): 16 images of 256^2 at CoNIC
    density, 8 dihedral views (128 patches), softmax mean of sem/fore,
    first-view HV maps, and the HoVer post-processing through B2-B5, whose
-   launch counts are read from that run alone. The instances are checked bit for bit against the same
-   post-processing with the plain versions on the same fused maps.
+   launch counts are read from that run alone (B5: one cluster-route
+   launch, no global one). The instances are checked bit for bit against
+   the same post-processing with the plain versions on the same fused maps.
+   B5 is timed on the main path's inputs in turns: cluster route, the
+   earlier chain of one launch per wave, cluster route again.
 
 5. Drives the CDNet eval path once through InferenceRunner at the full
    width of the CoNIC recipe (VGG16-BN + CDHead, 7 classes + boundary,
@@ -50,8 +62,10 @@
    enhancement, boundary strip and the B7 kernel, whose launch count is read
    from that run alone; instances checked bit for bit against the plain
    version on the same semantic plane.
-6. The same for MultiTaskCDNet (tc/sem/dir/point heads, B6), and two images
-   each through MultiTaskUNet and MultiTaskCUNet (B6; checked, not timed).
+6. The same for MultiTaskCDNet (tc/sem/dir/point heads, B6, one
+   cluster-route launch, timed in turns against the earlier chain as B5),
+   and two images each through MultiTaskUNet and MultiTaskCUNet (B6;
+   checked, not timed).
    The classifiers of these nets are rescaled on view 0 of the images so
    that every class occurs, and their background biases bisected so that
    about 40% of the fused map is foreground and 10% seeds.
@@ -254,12 +268,24 @@ def kernel_cases(x: torch.Tensor, ws_in):
         cases[f'size_filter conn{conn}'] = (lambda lab=lab: size_filter(lab, DIAMOND_MIN_SIZE),
                                             lambda lab=lab: size_filter_plain(lab, DIAMOND_MIN_SIZE), lab)
     cases['fill_holes_sweep'] = (lambda: fill_holes_sweep(x), lambda: fill_holes_plain(x > 0), x)
-    dist, markers, blb = ws_in
-    for mode, (rounds, cleanup) in (('bounded', (4, 64)), ('fixpoint', (None, None))):
-        cases[f'watershed {mode}'] = (
-            lambda r=rounds, c=cleanup: watershed(dist, markers, blb, rounds_per_level=r, cleanup_rounds=c),
-            lambda r=rounds, c=cleanup: watershed_plain(dist, markers, blb, 1, 64, r, c), dist)
+    cases.update(watershed_cases(ws_in))
     cases.update(round_and_stencil_cases(x))
+    return cases
+
+
+def watershed_cases(ws_in):
+    """B5 in its bounded (4, 64) and fixpoint modes, 4- and 8-connected; the
+    8-connected cases are checked, not timed (no input for the bound)."""
+    from tiseg_tpu_torch.ops.watershed import watershed, watershed_plain
+    dist, markers, blb = ws_in
+    cases = {}
+    for conn in (1, 2):
+        for mode, (rounds, cleanup) in (('bounded', (4, 64)), ('fixpoint', (None, None))):
+            cases[f'watershed {mode}' + (' conn2' if conn == 2 else '')] = (
+                lambda r=rounds, c=cleanup, k=conn: watershed(dist, markers, blb, connectivity=k, rounds_per_level=r,
+                                                              cleanup_rounds=c),
+                lambda r=rounds, c=cleanup, k=conn: watershed_plain(dist, markers, blb, k, 64, r, c),
+                dist if conn == 1 else None)
     return cases
 
 
@@ -322,23 +348,49 @@ def growth_waves(seed: torch.Tensor, canvas: torch.Tensor) -> int:
 def multiclass_kernel_cases(x: torch.Tensor, seed: torch.Tensor):
     """The same for the seven-class planes ``x`` and their seed planes."""
     from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep, instance_postprocess_vectorized_plain
-    from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_plain, mt_instance_postprocess_sweep
     return {
         'instance_postprocess_vectorized': (
             lambda: instance_postprocess_sweep(x, radius=CONIC_RADIUS, num_classes=CONIC_CLASSES),
             lambda: instance_postprocess_vectorized_plain(x, CONIC_RADIUS, 5, CONIC_CLASSES), x),
-        'mt_instance_postprocess_sweep': (
-            lambda: mt_instance_postprocess_sweep(x, seed, num_classes=CONIC_CLASSES, align_time=ALIGN_TIME),
-            lambda: mt_instance_postprocess_plain(x, seed, CONIC_CLASSES, 5, ALIGN_TIME), x),
-    }
+        **mt_cases(x, seed)}
+
+
+def mt_cases(x: torch.Tensor, seed: torch.Tensor):
+    """B6 with 7 classes and align_time 20 (timed), and with 7 and 2 classes
+    at align_time 1, 2 and 20 (checked, not timed)."""
+    from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_plain, mt_instance_postprocess_sweep
+    cases = {}
+    for nc, at in ((CONIC_CLASSES, ALIGN_TIME), (CONIC_CLASSES, 1), (CONIC_CLASSES, 2), (2, 1), (2, 2),
+                   (2, ALIGN_TIME)):
+        name = 'mt_instance_postprocess_sweep' + ('' if (nc, at) == (CONIC_CLASSES, ALIGN_TIME) else f' c{nc} a{at}')
+        cases[name] = (lambda nc=nc, at=at: mt_instance_postprocess_sweep(x, seed, num_classes=nc, align_time=at),
+                       lambda nc=nc, at=at: mt_instance_postprocess_plain(x, seed, nc, 5, at),
+                       x if (nc, at) == (CONIC_CLASSES, ALIGN_TIME) else None)
+    return cases
+
+
+def cluster_kernels():
+    """name -> wrapper of the kernels with a cluster route (B5, B6)."""
+    from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_sweep
+    from tiseg_tpu_torch.ops.watershed import watershed
+    return {'watershed': watershed, 'mt_instance_postprocess_sweep': mt_instance_postprocess_sweep}
+
+
+def expected_route(set_name: str) -> str:
+    """The route B5 and B6 must take on a plane set: the 1000^2 planes
+    exceed a cluster's shared memory, every other set fits it."""
+    return 'global' if set_name.endswith('1000') else 'cluster'
 
 
 def check_kernels(case_sets):
     """Each kernel bit-exact against its plain version on every plane set
-    (``case_sets``: set name -> (planes, cases)); prints kernel ms, plain ms
-    and bound. Returns each kernel's largest |kernel - plain| and the
-    timings by (case, set)."""
-    from tiseg_tpu_torch.ops.watershed import watershed
+    (``case_sets``: set name -> (planes, seeds, cases)); B5 and B6 also on
+    the route the set selects. Prints kernel ms, plain ms and bound for the
+    cases with an input for the bound (the others are checked only).
+    Returns each kernel's largest |kernel - plain| and the timings by (case,
+    set)."""
+    from tiseg_tpu_torch.ops._cluster import cluster_route
+    routed = cluster_kernels()
     max_err, timed = {}, {}
     for set_name, (x, seed, cases) in case_sets.items():
         for name, (kernel, plain, bound_in, *work) in cases.items():
@@ -353,22 +405,71 @@ def check_kernels(case_sets):
                 err = int((g.long() - w.long()).abs().max())
                 max_err[name.split()[0]] = max(max_err.get(name.split()[0], 0), err)
             waves, neigh, extra = 0, 4, ''
+            fn = routed.get(name.split()[0])
+            if fn is not None:
+                route, cl, smem, active = fn.last_route
+                if route != expected_route(set_name):
+                    raise AssertionError(f'{name} took the {route} route on {set_name}')
+                if route == 'cluster' and (cl, smem) != cluster_route(*got[0].shape)[1:]:
+                    raise AssertionError(f'{name} on {set_name}: the kernel laid out {smem} B per block in '
+                                         f'clusters of {cl}, the route function {cluster_route(*got[0].shape)}')
+                budget, needed, ran = fn.last_waves
+                extra = (f', {route} route' + (f' (cluster {cl}, {smem} B shared per block, {active} clusters '
+                                               f'resident)' if route == 'cluster' else '') +
+                         f', waves: budget {budget}, needed {needed} (mean per plane '
+                         f'{fn.last_waves.mean_needed:.1f}), run {ran}')
             if work:
                 waves, neigh = work[0]()
                 extra = f', {waves} rounds change a pixel'
-            elif name.startswith('watershed'):
-                waves = watershed.last_waves[1]
-                extra = f', {watershed.last_waves[0]} waves launched ({waves} needed)'
-            elif name.startswith('mt_'):
+            elif name.startswith('mt_') and bound_in is not None:
                 waves = growth_waves(seed, want[0])
-                extra = f', {ALIGN_TIME - 1} waves launched ({waves} change a pixel)'
-            k_ms = cuda_ms(kernel, reps=25)
+                extra += f' ({waves} change a pixel)'
+            if bound_in is None:
+                print(f'{name} {set_name} {tuple(x.shape)}: bit-exact vs plain{extra}', flush=True)
+                continue
+            row = {}
+            if fn is not None and route == 'cluster':
+                # the cluster route, the earlier chain on the same inputs, the cluster route again
+                k_ms, row['earlier_ms'], _ = time_in_turns(kernel, lambda: on_chain(kernel))
+                extra += f', earlier chain {row["earlier_ms"]:.4f} ms ({row["earlier_ms"] / k_ms:.2f}x)'
+            else:
+                k_ms = cuda_ms(kernel, reps=25)
+            if name.startswith('watershed'):
+                # the bound's count, as in earlier rows: the waves the chain
+                # needed on the batch (each level until no plane changes)
+                on_chain(kernel)
+                waves = fn.last_waves[1]
+                extra += f', the chain needed {waves}'
             p_ms = cuda_ms(plain, reps=3, warmup=1)
             b_ms, b_by = bound(name.split()[0], bound_in, waves, neigh)
             print(f'{name} {set_name} {tuple(x.shape)}: bit-exact vs plain, kernel {k_ms:.4f} ms, plain {p_ms:.2f} '
                   f'ms, bound {b_ms * 1e3:.2f} us ({b_by}){extra}', flush=True)
-            timed[(name, set_name)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            timed[(name, set_name)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, **row)
     return max_err, timed
+
+
+def on_chain(call):
+    """``call()`` with B5 and B6 routed to their earlier global chains
+    whatever the plane size."""
+    from tiseg_tpu_torch.ops._cluster import Route
+    mods = [sys.modules[f'tiseg_tpu_torch.ops.{m}'] for m in ('watershed', 'mt_instance_pp')]
+    saved = [m.cluster_route for m in mods]
+    for m in mods:
+        m.cluster_route = lambda B, H, W: Route('global', 0, 0)
+    try:
+        return call()
+    finally:
+        for m, f in zip(mods, saved):
+            m.cluster_route = f
+
+
+def time_in_turns(kernel, earlier, reps=25):
+    """(ms, earlier_ms, the two kernel readings): the kernel, the earlier
+    design and the kernel again, each the median of ``reps`` calls."""
+    first = cuda_ms(kernel, reps=reps)
+    earlier_ms = cuda_ms(earlier, reps=reps)
+    again = cuda_ms(kernel, reps=reps)
+    return (first + again) / 2, earlier_ms, [first, again]
 
 
 # -- phase 2b: the fused last decode stage (B10) against its plain version -------------
@@ -649,6 +750,7 @@ def hover_main_path(args):
     from tiseg_tpu_torch.ops.flood import (ccl_plain, ccl_sweep, fill_holes_plain, fill_holes_sweep, size_filter,
                                            size_filter_plain)
     from tiseg_tpu_torch.ops.hover import hover_post_proc_device
+    from tiseg_tpu_torch.ops.watershed import _launch_global as ws_global
     from tiseg_tpu_torch.ops.watershed import watershed, watershed_plain
     from tiseg_tpu_torch.utils import Config
 
@@ -681,14 +783,19 @@ def hover_main_path(args):
                 'watershed': watershed}
     for fn in counters.values():
         fn.launches = 0
+    watershed.cluster_launches = watershed.global_launches = 0
     out = runner.dispatch(imgs, (hw, hw))
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    ws_routes = {'cluster': watershed.cluster_launches, 'global': watershed.global_launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     seg._instances = instances
     for name, n in launches.items():
         if n < 1:
             raise AssertionError(f'{name} was not launched on the HoVer-Net main path')
+    if ws_routes != {'cluster': 1, 'global': 0} or launches['watershed'] != 1:
+        raise AssertionError(f'HoVer-Net main path: watershed launches {launches["watershed"]}, by route {ws_routes}; '
+                             f'expected one cluster-route launch for the batch')
 
     fused = captured['fused']
     sem_out, inst_out = out['sem_pred'], out['inst_pred']
@@ -713,7 +820,8 @@ def hover_main_path(args):
                              f'{int((inst_out != want).sum())} pixels')
     if not torch.equal(sem_out, torch.argmax(fused['sem'], -1).to(torch.uint8)):
         raise AssertionError('HoVer main-path sem_pred is not the argmax of the fused sem map')
-    print(f'HoVer-Net main path: launches {launches}, foreground {fg:.4f}, {n_inst} instances in {n_img} images, '
+    print(f'HoVer-Net main path: launches {launches} (watershed by route {ws_routes}), foreground {fg:.4f}, '
+          f'{n_inst} instances in {n_img} images, '
           f'equal to the plain post-processing; peak memory {peak_gib:.3f} GiB '
           f'(patch_batch {args.hover_patch_batch})', flush=True)
 
@@ -744,14 +852,35 @@ def hover_main_path(args):
     stats = {}
     pp_kernel_ms = 0.0
     for name, (call, plain, x) in calls.items():
-        k_ms = cuda_ms(call, reps=25)
-        waves = watershed.last_waves[1] if name == 'watershed' else 0
+        extra = {}
+        if name == 'watershed':
+            # the cluster route, the earlier chain of one launch per wave, the cluster route again
+            k_ms, extra['earlier_ms'], extra['ms_turns'] = time_in_turns(
+                call, lambda: ws_global(dist, markers, blb_i))
+            # the bound keeps the definition of earlier rows: the waves the
+            # earlier chain needed on the batch (each level until no plane changes)
+            ws_global(dist, markers, blb_i)
+            waves = extra['waves_needed_chain'] = watershed.last_waves[1]
+            call()
+            extra['waves_budget'], extra['waves_needed'], extra['waves_run'] = watershed.last_waves
+            extra['waves_mean'] = watershed.last_waves.mean_needed
+            extra['plane_route'] = list(watershed.last_route)
+        else:
+            k_ms, waves = cuda_ms(call, reps=25), 0
         b_ms, b_by = bound(name, x, waves)
         p_ms = cuda_ms(plain, reps=3, warmup=1)
-        stats[name] = dict(launches=launches[name], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        stats[name] = dict(launches=launches[name], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, **extra)
         pp_kernel_ms += k_ms * launches[name]
         print(f'HoVer main-path kernel {name} {tuple(x.shape)}: {k_ms:.4f} ms per call x {launches[name]} '
               f'launches, plain {p_ms:.2f} ms, bound {b_ms * 1e3:.2f} us ({b_by})', flush=True)
+        if extra:
+            turns = extra['ms_turns']
+            print(f'HoVer main-path watershed: cluster route {turns[0]:.4f} / {turns[1]:.4f} ms, earlier chain '
+                  f'{extra["earlier_ms"]:.4f} ms ({extra["earlier_ms"] / k_ms:.2f}x); route {extra["plane_route"]} '
+                  f'(route, cluster size, shared bytes per block, clusters resident); waves budget '
+                  f'{extra["waves_budget"]}, needed {extra["waves_needed"]} (mean per plane '
+                  f'{extra["waves_mean"]:.2f}), run {extra["waves_run"]}; the earlier chain needed {waves} waves '
+                  f'on the batch (the bound\'s count)', flush=True)
     print(f'HoVer post-processing: kernels {pp_kernel_ms / n_img:.3f} ms of {pp_ms:.3f} ms per image '
           f'(CUDA events x main-path launches / {n_img})', flush=True)
     return stats
@@ -793,10 +922,11 @@ def foreground(sem_map: torch.Tensor) -> torch.Tensor:
     return sem_map[..., :CONIC_CLASSES].argmax(-1) > 0
 
 
-def drive_once(runner, seg, hook: str, imgs, hw: int, counters):
+def drive_once(runner, seg, hook: str, imgs, hw: int, counters, expect=None):
     """Warm up, then one run of the main path with the launch counts at 0.
     ``hook`` names the segmentor's post-processing method, whose arguments
-    are captured. Returns (outputs, captured arguments, launches, peak GiB)."""
+    are captured. Every count must be 1, or what ``expect`` gives for its
+    name. Returns (outputs, captured arguments, launches, peak GiB)."""
     captured = {}
     method = getattr(seg, hook)
 
@@ -817,8 +947,9 @@ def drive_once(runner, seg, hook: str, imgs, hw: int, counters):
     finally:
         delattr(seg, hook)
     for name, n in launches.items():
-        if n != 1:
-            raise AssertionError(f'{name}: {n} launches on the {type(seg).__name__} main path, expected 1')
+        want = (expect or {}).get(name, 1)
+        if n != want:
+            raise AssertionError(f'{name}: {n} launches on the {type(seg).__name__} main path, expected {want}')
     return out, captured['args'], launches, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
@@ -911,6 +1042,7 @@ def multi_task_path(args, config: str, n_img: int, timed: bool):
     ``timed``."""
     from tiseg_tpu_torch.apis import InferenceRunner
     from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.ops.mt_instance_pp import _launch_global as mt_global
     from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_plain, mt_instance_postprocess_sweep
     from tiseg_tpu_torch.utils import Config
 
@@ -934,8 +1066,11 @@ def multi_task_path(args, config: str, n_img: int, timed: bool):
     standardize_classifier_(seg, img_t, 'sem', branches.mask_conv, [0.0] * CONIC_CLASSES)
     background_bias_(seg, img_t, 'sem', branches.mask_conv, foreground, share=0.4)
     runner = InferenceRunner(seg)
-    counters = {'mt_instance_postprocess_sweep': (mt_instance_postprocess_sweep, 'launches')}
-    out, (sem_pred, seed), launches, peak_gib = drive_once(runner, seg, '_device_mt_instance_pp', imgs, hw, counters)
+    counters = {'mt_instance_postprocess_sweep': (mt_instance_postprocess_sweep, 'launches'),
+                'cluster route': (mt_instance_postprocess_sweep, 'cluster_launches'),
+                'global route': (mt_instance_postprocess_sweep, 'global_launches')}
+    out, (sem_pred, seed), launches, peak_gib = drive_once(runner, seg, '_device_mt_instance_pp', imgs, hw, counters,
+                                                           expect={'global route': 0})
 
     want = mt_instance_postprocess_plain(sem_pred, seed, CONIC_CLASSES, 5, ALIGN_TIME)
     classes, n_inst, fg = check_instances(model, out, want, n_img, hw, min_inst=100 if timed else 10)
@@ -959,13 +1094,23 @@ def multi_task_path(args, config: str, n_img: int, timed: bool):
 
     time_path(model, runner, seg, imgs, hw, pp, args.cd_patch_batch)
     name = 'mt_instance_postprocess_sweep'
-    k_ms = cuda_ms(lambda: seg._device_mt_instance_pp(sem_pred, seed), reps=25)
+    # the cluster route, the earlier chain, the cluster route again
+    k_ms, earlier_ms, turns = time_in_turns(lambda: seg._device_mt_instance_pp(sem_pred, seed),
+                                            lambda: mt_global(sem_pred, seed, CONIC_CLASSES, 5, ALIGN_TIME))
+    seg._device_mt_instance_pp(sem_pred, seed)
+    fn = mt_instance_postprocess_sweep
+    budget, needed, ran = fn.last_waves
+    route = list(fn.last_route)
     p_ms = cuda_ms(lambda: mt_instance_postprocess_plain(sem_pred, seed, CONIC_CLASSES, 5, ALIGN_TIME), reps=3,
                    warmup=1)
     b_ms, b_by = bound(name, sem_pred, growth_waves(seed, out['sem_pred']))
-    print(f'{model} main-path kernel {name} {tuple(sem_pred.shape)}: {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound '
-          f'{b_ms * 1e3:.2f} us ({b_by})', flush=True)
-    return {name: dict(launches=launches[name], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)}
+    print(f'{model} main-path kernel {name} {tuple(sem_pred.shape)}: {k_ms:.4f} ms (cluster route {turns[0]:.4f} / '
+          f'{turns[1]:.4f}), earlier chain {earlier_ms:.4f} ms ({earlier_ms / k_ms:.2f}x), plain {p_ms:.2f} ms, bound '
+          f'{b_ms * 1e3:.2f} us ({b_by}); route {route} (route, cluster size, shared bytes per block, clusters '
+          f'resident); growth waves budget {budget}, needed {needed}, run {ran}', flush=True)
+    return {name: dict(launches=launches[name], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                       earlier_ms=earlier_ms, ms_turns=turns, plane_route=route, waves_budget=budget,
+                       waves_needed=needed, waves_run=ran)}
 
 
 # -- phase 7: UNet.postprocess under the three device routes ---------------------------
@@ -1182,7 +1327,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     reports = _build.build(verbose=True)
     print(f'built {sorted(_build.SOURCES.values())} in {time.perf_counter() - t0:.2f} s', flush=True)
-    for name, kernel in (('tiseg_fused_decode', 'k_fused_decode'), ('tiseg_stencil', 'k_neighborhood')):
+    for name, kernel in (('tiseg_fused_decode', 'k_fused_decode'), ('tiseg_stencil', 'k_neighborhood'),
+                         ('tiseg_ws', 'k_ws_cluster'), ('tiseg_mt_pp', 'k_mt_cluster')):
         for entry, regs, spills in ptxas_report(reports.get(name, '')):
             if kernel in entry:
                 print(f'ptxas {_build.SOURCES[name]} {entry}: {regs} registers, {spills}', flush=True)
@@ -1213,6 +1359,17 @@ def main(argv=None) -> int:
                                   '7class-conic1000': multiclass(1, 1000, args.seed + 7000)}.items():
         x, seed = torch.from_numpy(sem).cuda(), torch.from_numpy(seed).cuda()
         case_sets[set_name] = (x, seed, multiclass_kernel_cases(x, seed))
+    # ragged planes for the cluster route: H not a multiple of the cluster size, odd W, B = 17 and B = 1
+    for shape in ((17, 101, 77), (1, 251, 243)):
+        B, h, w = shape
+        _, inst = nuclei(B, 256, args.seed + 9000)
+        inst = np.ascontiguousarray(inst[:, :h, :w])
+        ws_in = hover_inputs(inst, args.seed)
+        case_sets[f'ragged{B}x{h}x{w}'] = (ws_in[0], None, watershed_cases(ws_in))
+        sem, seed = (np.ascontiguousarray(a[:, :h, :w]) for a in multiclass(B, 256, args.seed + 9000))
+        x, seed = torch.from_numpy(sem).cuda(), torch.from_numpy(seed).cuda()
+        checked_only = {k: (f, g, None) for k, (f, g, _) in mt_cases(x, seed).items()}
+        case_sets[f'7class-ragged{B}x{h}x{w}'] = (x, seed, checked_only)
     max_err, timed = check_kernels(case_sets)
     check_round_budget(case_sets)
     max_err['fused_decode0_cls'] = check_fused_decode(args)

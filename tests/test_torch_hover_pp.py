@@ -11,7 +11,8 @@ tiseg_tpu/ops/hover.py on the same numpy maps.
   package takes its Pallas kernels (given rounds=1024: sweeps 64, fill sweeps
   32, enough for these planes), and at 520^2, above its 512*512 switch, where
   it takes its XLA program with the default rounds=None (exact fixpoint CCL,
-  fill capped at 16 scan rounds, fixpoint watershed)."""
+  fill capped at 16 scan rounds, fixpoint watershed); that case is in
+  test_torch_hover_pp_xla.py, a file of its own for ``--dist loadfile``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,7 +79,7 @@ def test_integer_stages_on_jax_floats_bit_exact(maps96):
     assert len(np.unique(want)) > 5
 
 
-@pytest.mark.parametrize('hw,rounds', [(96, 1024), (520, None)], ids=['pallas-route', 'xla-route'])
+@pytest.mark.parametrize('hw,rounds', [(96, 1024)], ids=['pallas-route'])
 def test_hover_post_proc_device_bit_exact(hw, rounds):
     fore, hv = _maps(7, hw)
     want = np.asarray(jh.hover_post_proc_device(jnp.asarray(fore), jnp.asarray(hv), rounds=rounds))

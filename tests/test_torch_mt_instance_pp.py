@@ -8,7 +8,9 @@ must equal the JAX kernel bit for bit (canvas and instances); the JAX sweep
 caps are 64, as in test_torch_instance_pp.py. The CUDA kernel is held to the
 plain version on the card (the ``gpu`` test here and chip_smoke.py). The
 host route (``_mt_postprocess``) is held to the JAX package's with the
-numpy ``align_foreground`` on both sides."""
+numpy ``align_foreground`` on both sides. The seven-class cases are in
+test_torch_mt_instance_pp_seven.py, so that a worker of their own can run
+them."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,20 +43,6 @@ def _port(sem, seed, **kw):
     return s.numpy(), i.numpy()
 
 
-@pytest.fixture(scope='module')
-def seven():
-    sem, seed = _planes()
-    return sem, seed, _port(sem, seed, num_classes=7), _jax(sem, seed, num_classes=7)
-
-
-def test_matches_jax_kernel_bit_exact_seven_classes(seven):
-    _, _, (got_s, got_i), (want_s, want_i) = seven
-    assert got_s.dtype == np.uint8 and got_i.dtype == np.int32
-    np.testing.assert_array_equal(got_s, want_s)
-    np.testing.assert_array_equal(got_i, want_i)
-    assert set(np.unique(want_s)) == set(range(7))
-
-
 @pytest.mark.parametrize('align_time', [1, 2, 20])
 def test_matches_jax_kernel_bit_exact_two_classes(align_time):
     """num_classes=2 sees only class 1 of the planes; align_time 1 is no
@@ -67,32 +55,6 @@ def test_matches_jax_kernel_bit_exact_two_classes(align_time):
     assert set(np.unique(want_s)) == {0, 1}
     grown = ((got_i > 0) & (seed == 0)).sum()
     assert (grown == 0) if align_time == 1 else (grown > 0)
-
-
-def test_hard_plane_semantics(seven):
-    """What each hand-made case must give (plane 0)."""
-    sem, seed, (s, i), _ = seven
-    s, i = s[0], i[0]
-    lab = lambda y, x: y * HW + x + 1
-    # one-pixel seed at (33, 4) in the 59 px bar: 19 waves reach column 23 and stop
-    assert (i[33, 2:24] == lab(33, 4)).all() and not i[28:39, 24:61].any() and (s[28:39, 2:61] == 1).all()
-    # two seeds at columns 4 and 28 meet at column 16: the larger label takes the tie
-    assert (i[45, 2:16] == lab(45, 4)).all() and (i[45, 16:31] == lab(45, 28)).all()
-    # a seed outside the canvas keeps its label and does not grow
-    assert (i[52:54, 4:6] == lab(52, 4)).all() and not s[51:55, 3:7].any() and i[51, 4] == 0
-    # canvas on the plane edge; its hole is open to the edge and stays open
-    assert (s[56:60, 0:11] == 4).all() and not s[60:64, 4:6].any() and i[63, 0] == lab(58, 8)
-    # 4 px object dropped from the canvas (its seed stays, alone), 5 px kept and claimed
-    assert not s[52, 20:24].any() and i[52, 21] == lab(52, 21) and i[52, 20] == 0
-    assert (s[54, 20:25] == 1).all() and (i[54, 20:25] == lab(54, 21)).all()
-    # diagonal chain of seeds: 4-connected labelling gives three labels
-    assert [i[50, 40], i[51, 41], i[52, 42]] == [lab(50, 40), lab(51, 41), lab(52, 42)]
-    # size filter before the hole fill: four 1 px objects vanish, no plus appears
-    assert not s[58:61, 43:46].any()
-    # a class's filled hole overwrites lower classes; the speck in the class-3 hole joins the fill
-    assert sem[0, 12, 12] == 2 and s[12, 12] == 5 and s[57, 30] == 3
-    # growth crosses class borders of the canvas: the seed in the class-2 blob claims class-5 pixels
-    assert i[12, 4] == lab(12, 12)
 
 
 def test_large_plane_takes_the_jax_xla_route():
@@ -141,13 +103,20 @@ def test_host_postprocess_matches_jax(plane, monkeypatch):
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain():
+    """Both routes of the kernel against the plain version: the cluster
+    route that the wrapper takes for these planes, and the global chain."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')
+    from tiseg_tpu_torch.ops.mt_instance_pp import _launch_global
     sem, seed = _planes(256)
     x, d = torch.from_numpy(sem).cuda(), torch.from_numpy(seed).cuda()
-    before = mt_instance_postprocess_sweep.launches
-    s, i = mt_instance_postprocess_sweep(x, d, num_classes=7)
-    torch.cuda.synchronize()
-    assert mt_instance_postprocess_sweep.launches == before + 1
-    ps, pi = mt_instance_postprocess_plain(x, d, 7)
-    assert torch.equal(s, ps) and torch.equal(i, pi)
+    for num_classes, align_time in ((7, 20), (2, 1), (2, 2)):
+        before = (mt_instance_postprocess_sweep.launches, mt_instance_postprocess_sweep.cluster_launches)
+        s, i = mt_instance_postprocess_sweep(x, d, num_classes=num_classes, align_time=align_time)
+        torch.cuda.synchronize()
+        assert (mt_instance_postprocess_sweep.launches, mt_instance_postprocess_sweep.cluster_launches) == \
+            (before[0] + 1, before[1] + 1)
+        gs, gi = _launch_global(x, d, num_classes, 5, align_time)
+        ps, pi = mt_instance_postprocess_plain(x, d, num_classes, 5, align_time)
+        assert torch.equal(s, ps) and torch.equal(i, pi)
+        assert torch.equal(gs, ps) and torch.equal(gi, pi)

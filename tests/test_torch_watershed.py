@@ -8,8 +8,9 @@ watersheds on the same numpy inputs, bit for bit:
 Inputs are the HoVer-Net pipeline's own (dist, markers, foreground) from
 synthetic fore/HV maps, plus two hand-made planes: a long thin basin that
 64 cleanup waves do not finish, and a plane whose scaled value lands
-exactly on .5 (rounded half to even). The CUDA kernel is held to the plain
-version on the card (the ``gpu`` test and chip_smoke.py)."""
+exactly on .5 (rounded half to even). The CUDA kernel's two routes (the
+cluster route and the global chain) are held to the plain version on the
+card (the ``gpu`` test and chip_smoke.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -126,11 +127,21 @@ def test_empty_mask_and_argument_checks():
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain():
+    """Both routes against the plain version, for every case and mode and
+    both connectivities: the cluster route that the wrapper takes for these
+    planes (a ragged set among them: H not a multiple of the cluster size,
+    odd W), and the global chain."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')
-    for image, markers, mask in (hover_inputs(4, 256), long_basin(), half_even_row()):
+    from tiseg_tpu_torch.ops.watershed import _launch_global
+    ragged = tuple(np.ascontiguousarray(a[:, :101, :77]) for a in hover_inputs(3, 128))
+    for image, markers, mask in (hover_inputs(4, 256), ragged, long_basin(), half_even_row()):
         args = [torch.from_numpy(a).cuda() for a in (image, markers, mask)]
-        for rounds, cleanup in MODES.values():
-            got = watershed(*args, rounds_per_level=rounds, cleanup_rounds=cleanup)
-            want = watershed_plain(args[0], args[1], args[2], 1, 64, rounds, cleanup)
-            assert torch.equal(got, want)
+        for connectivity in (1, 2):
+            for rounds, cleanup in MODES.values():
+                before = (watershed.launches, watershed.cluster_launches)
+                got = watershed(*args, connectivity=connectivity, rounds_per_level=rounds, cleanup_rounds=cleanup)
+                assert (watershed.launches, watershed.cluster_launches) == (before[0] + 1, before[1] + 1)
+                chain = _launch_global(args[0], args[1], args[2].to(torch.int32), connectivity, 64, rounds, cleanup)
+                want = watershed_plain(args[0], args[1], args[2], connectivity, 64, rounds, cleanup)
+                assert torch.equal(got, want) and torch.equal(chain, want)

@@ -14,12 +14,17 @@ multi-task segmentors. Per plane:
 - growth: ``align_time - 1`` synchronous waves in which a pixel without a
   label inside the canvas takes the maximum label of its 8 neighbours.
 
-The CUDA kernel (``csrc/mt_instance_pp.cu``) is a chain of union-find and
-wave launches over device memory, one thread per pixel. Its bound is 13
-bytes per pixel (two int32 planes in, a uint8 and an int32 plane out) or 8
-compares per pixel and wave. :func:`mt_instance_postprocess_plain` is the
-same function in plain PyTorch tensor ops; the wrapper uses it only for
-tensors on the CPU.
+A CUDA batch takes one of two routes of ``csrc/mt_instance_pp.cu``
+(:func:`._cluster.cluster_route`): planes whose rows fit the shared memory of
+a cluster of 8 blocks (up to 408^2) run one launch per batch, each
+plane resident in its cluster, with one labelling of the equal-class regions
+for every class (``mt_instance_postprocess_sweep.cluster_launches``); larger
+planes run a chain of union-find and wave launches over device memory, one
+thread per pixel (``.global_launches``). ``.launches`` counts both. The
+bound is 13 bytes per pixel (two int32 planes in, a uint8 and an int32 plane
+out) or 8 compares per pixel and wave. :func:`mt_instance_postprocess_plain`
+is the same function in plain PyTorch tensor ops; the wrapper uses it only
+for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import ctypes
 
 import torch
 
-from ._build import raise_on_error
+from ._build import bind, device_guard, raise_on_error, raw_stream
+from ._cluster import CLUSTER, WaveCounts, cluster_route
 from .instance_pp import _N4, _N8, _component_sizes, _fill_holes, _linear_index, _min_labels, _shift
 
 _INT32_MAX = 2 ** 31 - 1
@@ -66,29 +72,51 @@ def mt_instance_postprocess_plain(sem: torch.Tensor, seed: torch.Tensor, num_cla
     return canvas, inst
 
 
-def _lib():
-    """The built kernel library, with its C signature declared."""
-    from ._build import load
-    lib = load('tiseg_mt_pp')
-    lib.tiseg_mt_instance_pp.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.tiseg_mt_instance_pp.restype = ctypes.c_int
-    return lib
+_ARGS_GLOBAL = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS_CLUSTER = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
 
 
-def _launch_cuda(sem: torch.Tensor, seed: torch.Tensor, num_classes: int, min_size: int, align_time: int):
-    lib = _lib()
+def _launch_global(sem: torch.Tensor, seed: torch.Tensor, num_classes: int = 2, min_size: int = 5,
+                   align_time: int = 20):
+    """The chain of union-find and wave launches over device memory, on any
+    (B, H, W) CUDA batch of int32 planes."""
+    entry = bind('tiseg_mt_pp', 'tiseg_mt_instance_pp', _ARGS_GLOBAL)
     B, H, W = sem.shape
-    with torch.cuda.device(sem.device):
-        sem_out = torch.empty((B, H, W), dtype=torch.uint8, device=sem.device)
-        inst_out = torch.empty((B, H, W), dtype=torch.int32, device=sem.device)
-        par, aux, lab = (torch.empty_like(inst_out) for _ in range(3))
-        m, bg = torch.empty_like(sem_out), torch.empty_like(sem_out)
-        stream = torch.cuda.current_stream(sem.device).cuda_stream
-        err = lib.tiseg_mt_instance_pp(sem.data_ptr(), seed.data_ptr(), sem_out.data_ptr(), inst_out.data_ptr(),
-                                       par.data_ptr(), aux.data_ptr(), lab.data_ptr(), m.data_ptr(),
-                                       bg.data_ptr(), B, H, W, num_classes, min_size, align_time, stream)
-    raise_on_error(lib, err, 'mt_instance_postprocess_sweep')
-    mt_instance_postprocess_sweep.launches += 1
+    sem_out = torch.empty((B, H, W), dtype=torch.uint8, device=sem.device)
+    inst_out = torch.empty((B, H, W), dtype=torch.int32, device=sem.device)
+    par, aux, lab = (torch.empty_like(inst_out) for _ in range(3))
+    m, bg = torch.empty_like(sem_out), torch.empty_like(sem_out)
+    with device_guard(sem.device):
+        err = entry(sem.data_ptr(), seed.data_ptr(), sem_out.data_ptr(), inst_out.data_ptr(), par.data_ptr(),
+                    aux.data_ptr(), lab.data_ptr(), m.data_ptr(), bg.data_ptr(), B, H, W, num_classes, min_size,
+                    align_time, raw_stream(sem.device))
+    raise_on_error('tiseg_mt_pp', err, 'mt_instance_postprocess_sweep')
+    waves = max(align_time - 1, 0)
+    fn = mt_instance_postprocess_sweep
+    fn.launches += 1
+    fn.global_launches += 1
+    fn.last_route = ('global', 0, 0, 0)
+    fn.last_waves = WaveCounts(waves, waves, waves)
+    return sem_out, inst_out
+
+
+def _launch_cluster(sem: torch.Tensor, seed: torch.Tensor, num_classes: int, min_size: int, align_time: int):
+    entry = bind('tiseg_mt_pp', 'tiseg_mt_instance_pp_cluster', _ARGS_CLUSTER)
+    B, H, W = sem.shape
+    sem_out = torch.empty((B, H, W), dtype=torch.uint8, device=sem.device)
+    inst_out = torch.empty((B, H, W), dtype=torch.int32, device=sem.device)
+    plane_waves = torch.empty(B, dtype=torch.int32, device=sem.device)
+    info = (ctypes.c_int * 2)()  # shared bytes per block, clusters resident
+    with device_guard(sem.device):
+        err = entry(sem.data_ptr(), seed.data_ptr(), sem_out.data_ptr(), inst_out.data_ptr(), plane_waves.data_ptr(),
+                    B, H, W, num_classes, min_size, align_time, ctypes.cast(info, ctypes.c_void_p),
+                    raw_stream(sem.device))
+    raise_on_error('tiseg_mt_pp', err, 'mt_instance_postprocess_sweep (cluster route)')
+    fn = mt_instance_postprocess_sweep
+    fn.launches += 1
+    fn.cluster_launches += 1
+    fn.last_route = ('cluster', CLUSTER, info[0], info[1])
+    fn.last_waves = WaveCounts(max(align_time - 1, 0), plane_waves=plane_waves)
     return sem_out, inst_out
 
 
@@ -103,8 +131,12 @@ def mt_instance_postprocess_sweep(sem_pred: torch.Tensor, seed_mask: torch.Tenso
     plane) grown into it for ``align_time - 1`` waves. Seeds outside the
     canvas keep their label; canvas pixels no wave reaches stay 0.
 
-    A CUDA tensor runs the CUDA kernel (or raises); a CPU tensor runs
-    :func:`mt_instance_postprocess_plain`. ``sweeps`` and ``fill_sweeps``
+    A CUDA tensor runs a CUDA kernel (or raises): the cluster route where
+    the plane fits, else the global chain; a CPU tensor runs
+    :func:`mt_instance_postprocess_plain`. After a kernel call,
+    ``.last_waves`` holds the growth waves (in the budget, needed, run) and
+    ``.last_route`` (route, cluster size, shared bytes per block, clusters
+    resident at once). ``sweeps`` and ``fill_sweeps``
     are accepted for the JAX signature and not needed: both versions are
     exact for every geodesic, where the JAX kernel is exact up to those
     caps.
@@ -127,7 +159,10 @@ def mt_instance_postprocess_sweep(sem_pred: torch.Tensor, seed_mask: torch.Tenso
     sem = sem_pred.to(torch.int32).contiguous()
     seed = seed_mask.to(torch.int32).contiguous()
     if sem.is_cuda:
-        sem_out, inst_out = _launch_cuda(sem, seed, num_classes, min_size, align_time)
+        if cluster_route(*sem.shape).route == 'cluster':
+            sem_out, inst_out = _launch_cluster(sem, seed, num_classes, min_size, align_time)
+        else:
+            sem_out, inst_out = _launch_global(sem, seed, num_classes, min_size, align_time)
     elif sem.device.type == 'cpu':
         sem_out, inst_out = mt_instance_postprocess_plain(sem, seed, num_classes, min_size, align_time)
     else:
@@ -136,3 +171,6 @@ def mt_instance_postprocess_sweep(sem_pred: torch.Tensor, seed_mask: torch.Tenso
 
 
 mt_instance_postprocess_sweep.launches = 0
+mt_instance_postprocess_sweep.cluster_launches = mt_instance_postprocess_sweep.global_launches = 0
+mt_instance_postprocess_sweep.last_waves = WaveCounts(None)
+mt_instance_postprocess_sweep.last_route = ('', 0, 0, 0)

@@ -15,7 +15,15 @@ CUDA kernel (``csrc/watershed.cu``) and its plain PyTorch version:
 ``rounds_per_level=4, cleanup_rounds=64`` is ``watershed_pallas`` (pixels
 that 64 cleanup waves do not reach stay 0); ``None`` runs a level, or the
 cleanup, to its fixpoint, which is ``ops/watershed.watershed`` with its
-default ``rounds_per_level=None``.
+default ``rounds_per_level=None``. A wave that changes nothing ends its level
+in both modes: the waves left in its budget would change nothing either.
+
+A CUDA batch takes one of two routes (:func:`._cluster.cluster_route`):
+planes whose rows fit the shared memory of a cluster of 8 blocks (up to
+408^2) run one launch per batch with each plane resident in its
+cluster (``watershed.cluster_launches``); larger planes run the chain of one
+launch per wave over device memory (``watershed.global_launches``).
+``watershed.launches`` counts both.
 """
 from __future__ import annotations
 
@@ -24,7 +32,8 @@ from typing import Optional
 
 import torch
 
-from ._build import raise_on_error
+from ._build import bind, device_guard, raise_on_error, raw_stream
+from ._cluster import CLUSTER, WaveCounts, cluster_route
 from .instance_pp import _N4, _N8, _shift
 
 _BIG = (2 ** 31 - 1) // 2  # "no label", as in the JAX kernel
@@ -42,15 +51,15 @@ def _wave(labels: torch.Tensor, allowed: torch.Tensor, neigh) -> torch.Tensor:
 
 
 def _flood(labels: torch.Tensor, allowed: torch.Tensor, neigh, rounds: Optional[int]) -> torch.Tensor:
-    if rounds is not None:
-        for _ in range(rounds):
-            labels = _wave(labels, allowed, neigh)
-        return labels
-    while True:
+    """Up to ``rounds`` waves (None: no cap), ending at the first wave that
+    changes nothing: the next would change nothing either."""
+    r = 0
+    while rounds is None or r < rounds:
         new = _wave(labels, allowed, neigh)
         if torch.equal(new, labels):
-            return labels
-        labels = new
+            break
+        labels, r = new, r + 1
+    return labels
 
 
 def _levels(image: torch.Tensor, mask: torch.Tensor, num_levels: int) -> torch.Tensor:
@@ -79,33 +88,57 @@ def watershed_plain(image: torch.Tensor, markers: torch.Tensor, mask: torch.Tens
     return torch.where(mask, labels, 0)
 
 
-def _lib():
-    from ._build import load
-    lib = load('tiseg_ws')
-    lib.tiseg_watershed.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
-    lib.tiseg_watershed.restype = ctypes.c_int
-    return lib
+_ARGS_GLOBAL = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+_ARGS_CLUSTER = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
 
 
-def _launch_cuda(image, markers, mask, connectivity, num_levels, rounds_per_level, cleanup_rounds):
-    lib = _lib()
+def _budget(num_levels, rounds_per_level, cleanup_rounds):
+    if rounds_per_level is None or cleanup_rounds is None:
+        return None
+    return num_levels * rounds_per_level + cleanup_rounds
+
+
+def _launch_global(image, markers, mask, connectivity=1, num_levels=64, rounds_per_level=4, cleanup_rounds=64):
+    """The chain of one launch per wave over device memory, on any (B, H, W)
+    CUDA batch (float32 image, int32 markers and mask)."""
+    entry = bind('tiseg_ws', 'tiseg_watershed', _ARGS_GLOBAL)
     B, H, W = image.shape
-    with torch.cuda.device(image.device):
-        out = torch.empty_like(markers)
-        lab_a, lab_b = torch.empty_like(markers), torch.empty_like(markers)
-        lvl = torch.empty(image.shape, dtype=torch.uint8, device=image.device)
-        lohi = torch.empty(2 * B, dtype=torch.int32, device=image.device)
-        flags = torch.empty(CHECK_EVERY, dtype=torch.int32, device=image.device)
-        waves = (ctypes.c_int * 2)()
-        err = lib.tiseg_watershed(
-            image.data_ptr(), markers.data_ptr(), mask.data_ptr(), out.data_ptr(), lab_a.data_ptr(),
-            lab_b.data_ptr(), lvl.data_ptr(), lohi.data_ptr(), flags.data_ptr(), B, H, W,
-            int(connectivity == 2), num_levels, -1 if rounds_per_level is None else rounds_per_level,
-            -1 if cleanup_rounds is None else cleanup_rounds, CHECK_EVERY, ctypes.cast(waves, ctypes.c_void_p),
-            torch.cuda.current_stream(image.device).cuda_stream)
-    raise_on_error(lib, err, 'watershed')
+    out = torch.empty_like(markers)
+    lab_a, lab_b = torch.empty_like(markers), torch.empty_like(markers)
+    lvl = torch.empty(image.shape, dtype=torch.uint8, device=image.device)
+    lohi = torch.empty(2 * B, dtype=torch.int32, device=image.device)
+    flags = torch.empty(CHECK_EVERY, dtype=torch.int32, device=image.device)
+    waves = (ctypes.c_int * 2)()
+    with device_guard(image.device):
+        err = entry(image.data_ptr(), markers.data_ptr(), mask.data_ptr(), out.data_ptr(), lab_a.data_ptr(),
+                    lab_b.data_ptr(), lvl.data_ptr(), lohi.data_ptr(), flags.data_ptr(), B, H, W,
+                    int(connectivity == 2), num_levels, -1 if rounds_per_level is None else rounds_per_level,
+                    -1 if cleanup_rounds is None else cleanup_rounds, CHECK_EVERY,
+                    ctypes.cast(waves, ctypes.c_void_p), raw_stream(image.device))
+    raise_on_error('tiseg_ws', err, 'watershed')
     watershed.launches += 1
-    watershed.last_waves = (waves[0], waves[1])
+    watershed.global_launches += 1
+    watershed.last_route = ('global', 0, 0, 0)
+    watershed.last_waves = WaveCounts(_budget(num_levels, rounds_per_level, cleanup_rounds), waves[1], waves[0])
+    return out
+
+
+def _launch_cluster(image, markers, mask, connectivity, num_levels, rounds_per_level, cleanup_rounds):
+    entry = bind('tiseg_ws', 'tiseg_watershed_cluster', _ARGS_CLUSTER)
+    B, H, W = image.shape
+    out = torch.empty_like(markers)
+    plane_waves = torch.empty(B, dtype=torch.int32, device=image.device)
+    info = (ctypes.c_int * 2)()  # shared bytes per block, clusters resident
+    with device_guard(image.device):
+        err = entry(image.data_ptr(), markers.data_ptr(), mask.data_ptr(), out.data_ptr(), plane_waves.data_ptr(),
+                    B, H, W, int(connectivity == 2), num_levels, -1 if rounds_per_level is None else rounds_per_level,
+                    -1 if cleanup_rounds is None else cleanup_rounds, ctypes.cast(info, ctypes.c_void_p),
+                    raw_stream(image.device))
+    raise_on_error('tiseg_ws', err, 'watershed (cluster route)')
+    watershed.launches += 1
+    watershed.cluster_launches += 1
+    watershed.last_route = ('cluster', CLUSTER, info[0], info[1])
+    watershed.last_waves = WaveCounts(_budget(num_levels, rounds_per_level, cleanup_rounds), plane_waves=plane_waves)
     return out
 
 
@@ -113,9 +146,12 @@ def watershed(image: torch.Tensor, markers: torch.Tensor, mask: Optional[torch.T
               connectivity: int = 1, num_levels: int = 64, rounds_per_level: Optional[int] = 4,
               cleanup_rounds: Optional[int] = 64) -> torch.Tensor:
     """(H, W) or (B, H, W) height map + int markers (+ mask) -> int32 basin
-    labels. A CUDA tensor runs the CUDA kernel (or raises); a CPU tensor runs
+    labels. A CUDA tensor runs a CUDA kernel (or raises): the cluster route
+    where the plane fits, else the global chain; a CPU tensor runs
     :func:`watershed_plain`. After a kernel call, ``watershed.last_waves``
-    holds (waves launched, waves the algorithm needed)."""
+    holds (waves in the budget, waves needed, waves run) and
+    ``watershed.last_route`` (route, cluster size, shared bytes per block,
+    clusters resident at once)."""
     squeeze = image.dim() == 2
     if squeeze:
         image, markers = image[None], markers[None]
@@ -137,8 +173,11 @@ def watershed(image: torch.Tensor, markers: torch.Tensor, mask: Optional[torch.T
     image = image.to(torch.float32).contiguous()
     markers = markers.to(torch.int32).contiguous()
     if image.is_cuda:
-        out = _launch_cuda(image, markers, mask.to(torch.int32).contiguous(), connectivity, num_levels,
-                           rounds_per_level, cleanup_rounds)
+        mask = mask.to(torch.int32).contiguous()
+        if cluster_route(*image.shape).route == 'cluster':
+            out = _launch_cluster(image, markers, mask, connectivity, num_levels, rounds_per_level, cleanup_rounds)
+        else:
+            out = _launch_global(image, markers, mask, connectivity, num_levels, rounds_per_level, cleanup_rounds)
     elif image.device.type == 'cpu':
         out = watershed_plain(image, markers, mask > 0, connectivity, num_levels, rounds_per_level,
                               cleanup_rounds)
@@ -147,5 +186,6 @@ def watershed(image: torch.Tensor, markers: torch.Tensor, mask: Optional[torch.T
     return out[0] if squeeze else out
 
 
-watershed.launches = 0
-watershed.last_waves = (0, 0)
+watershed.launches = watershed.cluster_launches = watershed.global_launches = 0
+watershed.last_waves = WaveCounts(None)
+watershed.last_route = ('', 0, 0, 0)
