@@ -28,9 +28,17 @@
    On the binary planes also the
    round-bounded ccl_rounds (B8a, both connectivities, 64 and 128 rounds) and
    fill_holes_rounds (B8b, H + W and 16 rounds), whose un-converged results
-   on the spiral planes must equal the plain versions' too, and the 3x3
-   neighbourhood max/min (B9, int32 and float32 planes with negative values,
-   and the same planes cut to a width that is not a multiple of 4).
+   on the spiral planes must equal the plain versions' too, with the rounds
+   each kernel counted equal to those that change a pixel; the window count
+   of 'pallas-rounds' (min_size 1, 2, 5) on B8a's un-converged labels; and
+   the 3x3 neighbourhood max/min (B9, int32 and float32 planes with negative
+   values, and the same planes cut to a width that is not a multiple of 4).
+   B8b takes its block route (one block per plane, bit-packed) and B8a its
+   cluster route on every set up to 408^2 (ragged sets included), B8b the
+   block and B8a the global chain on a 480^2 plane, both their global chains
+   on the 1000^2 plane; a 64^2 spiral checks both at rounds = needed - 1,
+   needed and needed + 1. The timed cases of these routes are timed in
+   turns against the earlier chains.
    fused_decode0_cls (B10) is held against its plain version at the full
    width of a 256^2 patch (B 8, G 128) and on a ragged grid, with two and
    three classes, in float32 (1e-4 of the largest logit: sums in another
@@ -70,9 +78,14 @@
    that every class occurs, and their background biases bisected so that
    about 40% of the fused map is foreground and 10% seeds.
 7. UNet.postprocess on 16 images of 256^2 under device_postprocess True (B1),
-   'xla' (B3 once and B2 twice per image) and 'pallas-rounds' (B8b once and
-   B8a twice per image): each bit-exact against its plain version, all three
-   equal, post-processing ms per image printed.
+   'xla' (B3 once and B2 twice per image) and 'pallas-rounds' (B8b once on
+   its block route, B8a twice on its cluster route, the window count once,
+   no global chain, per image): each bit-exact against its plain version
+   ('pallas-rounds' against the plain versions of all three, which launch
+   no kernel), all three equal, post-processing ms per image printed;
+   'pallas-rounds' in turns with its earlier design (global chains, the
+   window count as tensor ops). On the first image's planes B8b, B8a and
+   the window count are timed in turns against their earlier versions.
 8. Two images through CUNet (executor on, boundary class stripped, radius 3,
    B1), checked against the unfolded net and the plain post-processor.
 9. B9 (no caller on any path) against F.max_pool2d(3, 1, 1) on the same
@@ -113,6 +126,7 @@ TF32_OPS_PER_S = 495e12  # H100 SXM tensor cores, TF32, dense (data sheet)
 BF16_OPS_PER_S = 989e12  # H100 SXM tensor cores, bf16, dense (data sheet)
 FLUSH_BYTES = 256 * 2 ** 20  # written before each device_ms launch: over five times the 50 MB L2
 DIAMOND_MIN_SIZE = 10  # HoVer-Net's size filter (ops/hover.py)
+UNBOUNDED = 10 ** 6  # a round budget no plane here exhausts
 CONIC_CLASSES, CONIC_RADIUS, ALIGN_TIME = 7, 3, 20  # the CoNIC recipes' post-processing settings
 CONIC_BATCH, CONIC_HW = 16, 256  # images per timed CDNet / MultiTaskCDNet batch, and their size
 
@@ -292,10 +306,23 @@ def watershed_cases(ws_in):
 def round_and_stencil_cases(x: torch.Tensor):
     """The same for the round-bounded propagation kernels and the 3x3
     stencil. A fourth entry gives (rounds that change a pixel, neighbours)."""
-    from tiseg_tpu_torch.ops.flood import ccl_plain
+    cases = round_cases(x)
+    cases.update(stencil_cases(x))
+    return cases
+
+
+def checked_only(cases):
+    """``cases`` with no input for the bound: checked, not timed."""
+    return {k: (f, g, None, *work) for k, (f, g, _, *work) in cases.items()}
+
+
+def round_cases(x: torch.Tensor):
+    """B8a (both connectivities, 64 and 128 rounds), B8b (H + W and 16
+    rounds), and the window count (min_size 1, 2 and 5, checked only) on
+    B8a's un-converged 4-connected labels."""
     from tiseg_tpu_torch.ops.rounds import (ccl_rounds, ccl_rounds_needed, ccl_rounds_plain, fill_holes_rounds,
-                                            fill_holes_rounds_needed, fill_holes_rounds_plain)
-    from tiseg_tpu_torch.ops.stencil import neighborhood_3x3, neighborhood_3x3_plain
+                                            fill_holes_rounds_needed, fill_holes_rounds_plain, small_component_mask,
+                                            window_count_mask)
     cases = {}
     for conn in (1, 2):
         for rounds in (64, 128):
@@ -306,10 +333,44 @@ def round_and_stencil_cases(x: torch.Tensor):
         cases[f'fill_holes_rounds {"default" if rounds is None else f"r{rounds}"}'] = (
             lambda r=rounds: fill_holes_rounds(x, r), lambda r=rounds: fill_holes_rounds_plain(x > 0, r), x,
             lambda r=rounds: (fill_holes_rounds_needed(x > 0, r), 4))
-    # an int32 label plane and a float32 plane, both with negative values up to the plane edge
+    lab = ccl_rounds_plain(x > 0, 64, 1)
+    for k in (1, 2, 5):
+        cases[f'window_count_mask min{k}'] = (lambda k=k: window_count_mask(lab, k),
+                                              lambda k=k: small_component_mask(lab, k), None)
+    return cases
+
+
+def round_boundary_cases(x: torch.Tensor):
+    """B8a (both connectivities) and B8b at rounds = needed - 1, needed and
+    needed + 1, where needed is the rounds that change a pixel with no
+    budget: an early stop one round off shows here. Checked, not timed."""
+    from tiseg_tpu_torch.ops.rounds import (ccl_rounds, ccl_rounds_needed, ccl_rounds_plain, fill_holes_rounds,
+                                            fill_holes_rounds_needed, fill_holes_rounds_plain)
+    cases = {}
+    for conn in (1, 2):
+        needed = ccl_rounds_needed(x > 0, UNBOUNDED, conn)
+        for rounds in (needed - 1, needed, needed + 1):
+            cases[f'ccl_rounds conn{conn} needed{rounds - needed:+d}'] = (
+                lambda c=conn, r=rounds: ccl_rounds(x, r, c), lambda c=conn, r=rounds: ccl_rounds_plain(x > 0, r, c),
+                None, lambda n=needed, r=rounds, c=conn: (min(n, r), 4 * c))
+    needed = fill_holes_rounds_needed(x > 0, UNBOUNDED)
+    for rounds in (needed - 1, needed, needed + 1):
+        cases[f'fill_holes_rounds needed{rounds - needed:+d}'] = (
+            lambda r=rounds: fill_holes_rounds(x, r), lambda r=rounds: fill_holes_rounds_plain(x > 0, r), None,
+            lambda n=needed, r=rounds: (min(n, r), 4))
+    return cases
+
+
+def stencil_cases(x: torch.Tensor):
+    """B9 on an int32 label plane and a float32 plane, both with negative
+    values up to the plane edge, and both cut to a width that is not a
+    multiple of 4."""
+    from tiseg_tpu_torch.ops.flood import ccl_plain
+    from tiseg_tpu_torch.ops.stencil import neighborhood_3x3, neighborhood_3x3_plain
     lab = ccl_plain(x > 0, 2) - 5
     planes = {'int32': lab, 'float32': lab.float() * 0.37 - 11.5}
     planes.update({f'{k} ragged': p[..., :-3].contiguous() for k, p in planes.items()})  # W % 4 == 1
+    cases = {}
     for dtype, plane in planes.items():
         for op, minimum in (('max', False), ('min', True)):
             cases[f'neighborhood_3x3 {op} {dtype}'] = (lambda p=plane, m=minimum: neighborhood_3x3(p, m),
@@ -369,31 +430,64 @@ def mt_cases(x: torch.Tensor, seed: torch.Tensor):
     return cases
 
 
-def cluster_kernels():
-    """name -> wrapper of the kernels with a cluster route (B5, B6)."""
+def routed_kernels():
+    """name -> (wrapper, the pure function that gives its route and layout,
+    the wrapper's attribute with its waves or rounds) of the kernels with
+    two routes (B5, B6, B8a, B8b)."""
+    from tiseg_tpu_torch.ops._cluster import cluster_route
     from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_sweep
+    from tiseg_tpu_torch.ops.rounds import ccl_rounds, fill_holes_rounds, fill_route
     from tiseg_tpu_torch.ops.watershed import watershed
-    return {'watershed': watershed, 'mt_instance_postprocess_sweep': mt_instance_postprocess_sweep}
+    return {'watershed': (watershed, cluster_route, 'last_waves'),
+            'mt_instance_postprocess_sweep': (mt_instance_postprocess_sweep, cluster_route, 'last_waves'),
+            'ccl_rounds': (ccl_rounds, cluster_route, 'last_rounds'),
+            'fill_holes_rounds': (fill_holes_rounds, fill_route, 'last_rounds')}
 
 
-def expected_route(set_name: str) -> str:
-    """The route B5 and B6 must take on a plane set: the 1000^2 planes
-    exceed a cluster's shared memory, every other set fits it."""
-    return 'global' if set_name.endswith('1000') else 'cluster'
+def expected_route(kernel: str, set_name: str) -> str:
+    """The route a kernel must take on a plane set: the 1000^2 planes exceed
+    a block's and a cluster's shared memory; the 480^2 plane fits B8b's
+    block, not a cluster; every other set fits both."""
+    if set_name.endswith('1000'):
+        return 'global'
+    if kernel == 'fill_holes_rounds':
+        return 'block'
+    return 'global' if set_name.endswith('480') else 'cluster'
+
+
+def route_note(fn, route_of, counts: str, shape) -> str:
+    """The last call's route and layout, held against the route function on
+    ``shape``, and its waves or rounds."""
+    route, *layout = fn.last_route
+    want = route_of(*shape)
+    if route != want.route or (route != 'global' and tuple(layout[:len(want) - 1]) != tuple(want[1:])):
+        raise AssertionError(f'{fn.__name__} on {tuple(shape)}: the kernel took {fn.last_route}, the route function '
+                             f'gives {want}')
+    if route == 'cluster':
+        note = f'cluster route (cluster {layout[0]}, {layout[1]} B shared per block, {layout[2]} clusters resident)'
+    elif route == 'block':
+        note = f'block route ({layout[0]} B shared per block{", transposed" if layout[1] else ""})'
+    else:
+        note = 'global route'
+    c = getattr(fn, counts)
+    budget, needed, ran = c
+    return f', {note}, {counts[5:]}: budget {budget}, needed {needed} (mean per plane {c.mean_needed:.1f}), run {ran}'
 
 
 def check_kernels(case_sets):
     """Each kernel bit-exact against its plain version on every plane set
-    (``case_sets``: set name -> (planes, seeds, cases)); B5 and B6 also on
-    the route the set selects. Prints kernel ms, plain ms and bound for the
-    cases with an input for the bound (the others are checked only).
-    Returns each kernel's largest |kernel - plain| and the timings by (case,
-    set)."""
-    from tiseg_tpu_torch.ops._cluster import cluster_route
-    routed = cluster_kernels()
+    (``case_sets``: set name -> (planes, seeds, cases)); B5, B6, B8a and B8b
+    also on the route the set selects, and B8a and B8b with the rounds they
+    counted equal to those that change a pixel. Prints kernel ms, plain ms
+    and bound for the cases with an input for the bound (the others are
+    checked only); a routed kernel is timed in turns against its earlier
+    chain. Returns each kernel's largest |kernel - plain| and the timings by
+    (case, set)."""
+    routed = routed_kernels()
     max_err, timed = {}, {}
     for set_name, (x, seed, cases) in case_sets.items():
         for name, (kernel, plain, bound_in, *work) in cases.items():
+            kname = name.split()[0]
             got = kernel()
             torch.cuda.synchronize()
             want = plain()
@@ -403,24 +497,20 @@ def check_kernels(case_sets):
                     raise AssertionError(f'{name} differs from its plain version on {set_name}: '
                                          f'{int((g != w).sum())} pixels')
                 err = int((g.long() - w.long()).abs().max())
-                max_err[name.split()[0]] = max(max_err.get(name.split()[0], 0), err)
-            waves, neigh, extra = 0, 4, ''
-            fn = routed.get(name.split()[0])
+                max_err[kname] = max(max_err.get(kname, 0), err)
+            waves, neigh, extra, route = 0, 4, '', None
+            fn, route_of, counts = routed.get(kname, (None, None, None))
             if fn is not None:
-                route, cl, smem, active = fn.last_route
-                if route != expected_route(set_name):
+                route = fn.last_route[0]
+                if route != expected_route(kname, set_name):
                     raise AssertionError(f'{name} took the {route} route on {set_name}')
-                if route == 'cluster' and (cl, smem) != cluster_route(*got[0].shape)[1:]:
-                    raise AssertionError(f'{name} on {set_name}: the kernel laid out {smem} B per block in '
-                                         f'clusters of {cl}, the route function {cluster_route(*got[0].shape)}')
-                budget, needed, ran = fn.last_waves
-                extra = (f', {route} route' + (f' (cluster {cl}, {smem} B shared per block, {active} clusters '
-                                               f'resident)' if route == 'cluster' else '') +
-                         f', waves: budget {budget}, needed {needed} (mean per plane '
-                         f'{fn.last_waves.mean_needed:.1f}), run {ran}')
+                extra = route_note(fn, route_of, counts, got[0].shape)
             if work:
                 waves, neigh = work[0]()
-                extra = f', {waves} rounds change a pixel'
+                extra += f', {waves} rounds change a pixel'
+                if route != 'global' and tuple(fn.last_rounds)[1:] != (waves, min(waves + 1, fn.last_rounds.budget)):
+                    raise AssertionError(f'{name} on {set_name}: the kernel counted {tuple(fn.last_rounds)}, '
+                                         f'{waves} rounds change a pixel')
             elif name.startswith('mt_') and bound_in is not None:
                 waves = growth_waves(seed, want[0])
                 extra += f' ({waves} change a pixel)'
@@ -428,8 +518,8 @@ def check_kernels(case_sets):
                 print(f'{name} {set_name} {tuple(x.shape)}: bit-exact vs plain{extra}', flush=True)
                 continue
             row = {}
-            if fn is not None and route == 'cluster':
-                # the cluster route, the earlier chain on the same inputs, the cluster route again
+            if route not in (None, 'global'):
+                # the new route, the earlier chain on the same inputs, the new route again
                 k_ms, row['earlier_ms'], _ = time_in_turns(kernel, lambda: on_chain(kernel))
                 extra += f', earlier chain {row["earlier_ms"]:.4f} ms ({row["earlier_ms"] / k_ms:.2f}x)'
             else:
@@ -441,26 +531,33 @@ def check_kernels(case_sets):
                 waves = fn.last_waves[1]
                 extra += f', the chain needed {waves}'
             p_ms = cuda_ms(plain, reps=3, warmup=1)
-            b_ms, b_by = bound(name.split()[0], bound_in, waves, neigh)
+            b_ms, b_by = bound(kname, bound_in, waves, neigh)
             print(f'{name} {set_name} {tuple(x.shape)}: bit-exact vs plain, kernel {k_ms:.4f} ms, plain {p_ms:.2f} '
-                  f'ms, bound {b_ms * 1e3:.2f} us ({b_by}){extra}', flush=True)
+                  f'ms, bound {b_ms * 1e3:.2f} us ({b_by}, {b_ms / k_ms:.2%} of the kernel time){extra}', flush=True)
             timed[(name, set_name)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, **row)
     return max_err, timed
 
 
-def on_chain(call):
-    """``call()`` with B5 and B6 routed to their earlier global chains
-    whatever the plane size."""
+def on_chain(call, window_ops: bool = False):
+    """``call()`` with B5, B6, B8a and B8b routed to their earlier global
+    chains whatever the plane size; with ``window_ops`` also the window
+    count of ``'pallas-rounds'`` as the tensor ops it replaced."""
     from tiseg_tpu_torch.ops._cluster import Route
-    mods = [sys.modules[f'tiseg_tpu_torch.ops.{m}'] for m in ('watershed', 'mt_instance_pp')]
-    saved = [m.cluster_route for m in mods]
+    from tiseg_tpu_torch.ops.rounds import FillRoute
+    mods = [sys.modules[f'tiseg_tpu_torch.ops.{m}'] for m in ('watershed', 'mt_instance_pp', 'rounds')]
+    rounds = mods[-1]
+    saved = [m.cluster_route for m in mods] + [rounds.fill_route, rounds.window_count_mask]
     for m in mods:
         m.cluster_route = lambda B, H, W: Route('global', 0, 0)
+    rounds.fill_route = lambda B, H, W: FillRoute('global', 0, False)
+    if window_ops:
+        rounds.window_count_mask = rounds.small_component_mask
     try:
         return call()
     finally:
         for m, f in zip(mods, saved):
             m.cluster_route = f
+        rounds.fill_route, rounds.window_count_mask = saved[-2:]
 
 
 def time_in_turns(kernel, earlier, reps=25):
@@ -1117,13 +1214,18 @@ def multi_task_path(args, config: str, n_img: int, timed: bool):
 def unet_postprocess_routes(args):
     """16 images of 256^2 at CoNIC density through ``seg.inference`` once,
     then ``seg.postprocess`` per image with device_postprocess True (B1),
-    'xla' (B3 + B2 twice) and 'pallas-rounds' (B8b + B8a twice)."""
+    'xla' (B3 + B2 twice) and 'pallas-rounds' (B8b on its block route, B8a
+    twice on its cluster route, the window count once; no global chain).
+    The 'pallas-rounds' route and its kernels on the first image's planes
+    are timed in turns against the earlier design (the global chains and
+    the window count's tensor ops)."""
     from tiseg_tpu_torch.models import build_segmentor
     from tiseg_tpu_torch.ops.flood import ccl_sweep, fill_holes_sweep
     from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain, instance_postprocess_sweep
     from tiseg_tpu_torch.ops.rounds import (ccl_rounds, ccl_rounds_needed, ccl_rounds_plain, fill_holes_rounds,
                                             fill_holes_rounds_needed, fill_holes_rounds_plain,
-                                            instance_postprocess_rounds_plain)
+                                            instance_postprocess_rounds_plain, small_component_mask,
+                                            window_count_mask)
     from tiseg_tpu_torch.utils import Config
 
     n_img, hw = CONIC_BATCH, CONIC_HW
@@ -1139,57 +1241,97 @@ def unet_postprocess_routes(args):
     fused = seg.inference(img_t)['sem'].cpu().numpy()
     sem_pred = torch.from_numpy(fused.argmax(-1).astype(np.int32)).cuda()
     want = instance_postprocess_plain(sem_pred)  # the exact per-class function, plain
-    routes = {True: {'instance_postprocess_sweep': (instance_postprocess_sweep, 1)},
-              'xla': {'fill_holes_sweep': (fill_holes_sweep, 1), 'ccl_sweep': (ccl_sweep, 2)},
-              'pallas-rounds': {'fill_holes_rounds': (fill_holes_rounds, 1), 'ccl_rounds': (ccl_rounds, 2)}}
+    # (wrapper, counter, launches per image): every counter the route must move, and those it must not
+    routes = {True: [(instance_postprocess_sweep, 'launches', 1)],
+              'xla': [(fill_holes_sweep, 'launches', 1), (ccl_sweep, 'launches', 2)],
+              'pallas-rounds': [(fill_holes_rounds, 'launches', 1), (fill_holes_rounds, 'block_launches', 1),
+                                (fill_holes_rounds, 'global_launches', 0), (ccl_rounds, 'launches', 2),
+                                (ccl_rounds, 'cluster_launches', 2), (ccl_rounds, 'global_launches', 0),
+                                (window_count_mask, 'launches', 1)]}
+    round_kernels = [(fn, c) for fn, c, _ in routes['pallas-rounds']]
+    for fn, c in round_kernels:
+        setattr(fn, c, 0)
+    # the reference of 'pallas-rounds': the plain versions of the two propagation functions and of the window count
+    rounds_ref = [instance_postprocess_rounds_plain(sem_pred[i]) for i in range(n_img)]
+    if any(getattr(fn, c) for fn, c in round_kernels):
+        raise AssertionError('instance_postprocess_rounds_plain launched a kernel')
     launches, n_inst = {}, 0
     for mode, counters in routes.items():
         seg.test_cfg['device_postprocess'] = mode
         seg.postprocess({'sem': fused[0]})  # warm-up
-        for fn, _ in counters.values():
-            fn.launches = 0
+        for fn, c, _ in counters:
+            setattr(fn, c, 0)
         outs = [seg.postprocess({'sem': fused[i]}) for i in range(n_img)]
         torch.cuda.synchronize()
-        for name, (fn, per_image) in counters.items():
-            if fn.launches != per_image * n_img:
-                raise AssertionError(f'device_postprocess={mode!r}: {fn.launches} launches of {name} for {n_img} '
+        for fn, c, per_image in counters:
+            if getattr(fn, c) != per_image * n_img:
+                raise AssertionError(f'device_postprocess={mode!r}: {fn.__name__}.{c} = {getattr(fn, c)} for {n_img} '
                                      f'images, expected {per_image} per image')
-            launches[name] = fn.launches
+            launches[f'{fn.__name__}.{c}'] = getattr(fn, c)
         for i, out in enumerate(outs):
-            ref = want if mode != 'pallas-rounds' else [t[None] for t in instance_postprocess_rounds_plain(sem_pred[i])]
-            j = i if mode != 'pallas-rounds' else 0
+            ref = (want[0][i], want[1][i]) if mode != 'pallas-rounds' else rounds_ref[i]
             if not (out['sem_pred'].dtype == np.uint8 and out['inst_pred'].dtype == np.int32
-                    and np.array_equal(out['sem_pred'], ref[0][j].cpu().numpy())
-                    and np.array_equal(out['inst_pred'], ref[1][j].cpu().numpy())):
+                    and np.array_equal(out['sem_pred'], ref[0].cpu().numpy())
+                    and np.array_equal(out['inst_pred'], ref[1].cpu().numpy())):
                 raise AssertionError(f'device_postprocess={mode!r}: image {i} differs from the plain version')
             if not np.array_equal(out['inst_pred'], want[1][i].cpu().numpy()):
                 raise AssertionError(f'device_postprocess={mode!r}: image {i} differs from the exact instances')
         n_inst = sum(len(np.unique(o['inst_pred'])) - 1 for o in outs)
-        ms = statistics.median(wall_ms(lambda i=i: seg.postprocess({'sem': fused[i]}), reps=3) for i in range(n_img))
+        per_image = [lambda i=i: seg.postprocess({'sem': fused[i]}) for i in range(n_img)]
+        ms = statistics.median(wall_ms(f, reps=3) for f in per_image)
+        extra = ''
+        if mode == 'pallas-rounds':
+            # in turns: the route, the earlier design on the same images, the route again
+            earlier = statistics.median(wall_ms(lambda f=f: on_chain(f, window_ops=True), reps=3) for f in per_image)
+            again = statistics.median(wall_ms(f, reps=3) for f in per_image)
+            extra = (f'; readings {ms:.3f} and {again:.3f} in turns with the earlier design (global chains, window '
+                     f'count as tensor ops) {earlier:.3f} ms ({earlier / ((ms + again) / 2):.2f}x)')
+            ms = (ms + again) / 2
         print(f'UNet.postprocess device_postprocess={mode!r}: {ms:.3f} ms per {hw}^2 image (host argmax and copies '
-              f'included; median over {n_img} images of the median of 3), launches '
-              f'{ {k: launches[k] for k in counters} } for {n_img} images, equal to the plain version', flush=True)
+              f'included; median over {n_img} images of the median of 3), counters '
+              f'{ {f"{fn.__name__}.{c}": launches[f"{fn.__name__}.{c}"] for fn, c, _ in counters} } for {n_img} '
+              f'images, equal to the plain version{extra}', flush=True)
     fg = float((sem_pred > 0).float().mean())
     if not (0.1 <= fg <= 0.6 and n_inst > n_img):
         raise AssertionError(f'degenerate planes: foreground {fg:.3f}, {n_inst} instances')
     print(f'UNet.postprocess routes: foreground {fg:.4f}, {n_inst} instances in {n_img} images, the three device '
           f'routes equal', flush=True)
 
-    # the two round kernels on the planes the route gave them for the first image
+    # the route's kernels on the planes it gave them for the first image, each in turns against its earlier chain
     mask = (sem_pred[:1] == 1).to(torch.int32)
     filled = fill_holes_rounds(mask).to(torch.int32)
+    cc4 = ccl_rounds(filled, 128, 1)
+    if not torch.equal(window_count_mask(cc4, 5), small_component_mask(cc4, 5)):
+        raise AssertionError('window_count_mask differs from small_component_mask on the route\'s labels')
+    w_ms, w_plain = time_in_turns(lambda: window_count_mask(cc4, 5), lambda: small_component_mask(cc4, 5))[:2]
+    print(f'UNet.postprocess window count {tuple(cc4.shape)} (min_size 5, 81 window cells): kernel {w_ms:.4f} ms, '
+          f'small_component_mask\'s ~400 tensor ops {w_plain:.4f} ms in turns ({w_plain / w_ms:.1f}x), '
+          f'bit-exact', flush=True)
     stats = {}
-    for name, kernel, plain, x, neigh, work in (
-            ('fill_holes_rounds', lambda: fill_holes_rounds(mask), lambda: fill_holes_rounds_plain(mask > 0), mask, 4,
-             lambda: fill_holes_rounds_needed(mask > 0)),
-            ('ccl_rounds', lambda: ccl_rounds(filled, 128, 1), lambda: ccl_rounds_plain(filled > 0, 128, 1), filled, 4,
-             lambda: ccl_rounds_needed(filled > 0, 128, 1))):
-        k_ms, p_ms = cuda_ms(kernel, reps=25), cuda_ms(plain, reps=3, warmup=1)
+    for name, fn, kernel, plain, x, conn, budget, work in (
+            ('fill_holes_rounds', fill_holes_rounds, lambda: fill_holes_rounds(mask),
+             lambda: fill_holes_rounds_plain(mask > 0), mask, 1, 2 * hw, lambda: fill_holes_rounds_needed(mask > 0)),
+            ('ccl_rounds', ccl_rounds, lambda: ccl_rounds(filled, 128, 1), lambda: ccl_rounds_plain(filled > 0, 128, 1),
+             filled, 1, 128, lambda: ccl_rounds_needed(filled > 0, 128, 1))):
+        if not torch.equal(kernel(), plain()):
+            raise AssertionError(f'{name} differs from its plain version on the route\'s plane')
+        route = fn.last_route
+        counts = tuple(fn.last_rounds)
         waves = work()
-        b_ms, b_by = bound(name, x, waves, neigh)
-        print(f'UNet.postprocess kernel {name} {tuple(x.shape)}: {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound '
-              f'{b_ms * 1e3:.2f} us ({b_by}), {waves} rounds change a pixel', flush=True)
-        stats[name] = dict(launches=launches[name], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        if counts != (budget, waves, min(waves + 1, budget)):
+            raise AssertionError(f'{name}: the kernel counted {counts}, {waves} rounds change a pixel')
+        k_ms, earlier_ms, readings = time_in_turns(kernel, lambda: on_chain(kernel))
+        p_ms = cuda_ms(plain, reps=3, warmup=1)
+        b_ms, b_by = bound(name, x, waves, 4 * conn)
+        print(f'UNet.postprocess kernel {name} {tuple(x.shape)}: {route[0]} route {k_ms:.4f} ms (readings '
+              f'{readings[0]:.4f}, {readings[1]:.4f}), earlier chain {earlier_ms:.4f} ms in turns '
+              f'({earlier_ms / k_ms:.2f}x), plain {p_ms:.2f} ms, bound {b_ms * 1e3:.2f} us ({b_by}, '
+              f'{b_ms / k_ms:.2%} of the route\'s time); rounds: budget {counts[0]}, needed {counts[1]}, run '
+              f'{counts[2]} (the chain runs {budget})', flush=True)
+        stats[name] = dict(launches=launches[f'{name}.launches'], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                           earlier_ms=earlier_ms, ms_turns=readings, ratio=earlier_ms / k_ms, plane_route=list(route),
+                           rounds_budget=counts[0], rounds_needed=counts[1], rounds_run=counts[2],
+                           bound_share=b_ms / k_ms)
     return stats
 
 
@@ -1314,7 +1456,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from tiseg_tpu_torch.datasets.synthetic import (CONIC_NUCLEI_PER_PATCH, hard_planes, hard_planes_multiclass,
-                                                    make_nuclei, multiclass_nuclei)
+                                                    make_nuclei, multiclass_nuclei, spiral)
     from tiseg_tpu_torch.ops import _build
     from tiseg_tpu_torch.ops.flood import ccl_plain
 
@@ -1328,7 +1470,9 @@ def main(argv=None) -> int:
     reports = _build.build(verbose=True)
     print(f'built {sorted(_build.SOURCES.values())} in {time.perf_counter() - t0:.2f} s', flush=True)
     for name, kernel in (('tiseg_fused_decode', 'k_fused_decode'), ('tiseg_stencil', 'k_neighborhood'),
-                         ('tiseg_ws', 'k_ws_cluster'), ('tiseg_mt_pp', 'k_mt_cluster')):
+                         ('tiseg_ws', 'k_ws_cluster'), ('tiseg_mt_pp', 'k_mt_cluster'),
+                         ('tiseg_rounds', 'k_fill_block'), ('tiseg_rounds', 'k_ccl_cluster'),
+                         ('tiseg_rounds', 'k_window_count')):
         for entry, regs, spills in ptxas_report(reports.get(name, '')):
             if kernel in entry:
                 print(f'ptxas {_build.SOURCES[name]} {entry}: {regs} registers, {spills}', flush=True)
@@ -1359,17 +1503,24 @@ def main(argv=None) -> int:
                                   '7class-conic1000': multiclass(1, 1000, args.seed + 7000)}.items():
         x, seed = torch.from_numpy(sem).cuda(), torch.from_numpy(seed).cuda()
         case_sets[set_name] = (x, seed, multiclass_kernel_cases(x, seed))
-    # ragged planes for the cluster route: H not a multiple of the cluster size, odd W, B = 17 and B = 1
+    # ragged planes for the cluster and block routes: H not a multiple of the cluster size, odd W, B = 17 and B = 1
     for shape in ((17, 101, 77), (1, 251, 243)):
         B, h, w = shape
         _, inst = nuclei(B, 256, args.seed + 9000)
         inst = np.ascontiguousarray(inst[:, :h, :w])
         ws_in = hover_inputs(inst, args.seed)
-        case_sets[f'ragged{B}x{h}x{w}'] = (ws_in[0], None, watershed_cases(ws_in))
+        cases = watershed_cases(ws_in)
+        cases.update(checked_only(round_cases(torch.from_numpy((inst > 0).astype(np.int32)).cuda())))
+        case_sets[f'ragged{B}x{h}x{w}'] = (ws_in[0], None, cases)
         sem, seed = (np.ascontiguousarray(a[:, :h, :w]) for a in multiclass(B, 256, args.seed + 9000))
         x, seed = torch.from_numpy(sem).cuda(), torch.from_numpy(seed).cuda()
-        checked_only = {k: (f, g, None) for k, (f, g, _) in mt_cases(x, seed).items()}
-        case_sets[f'7class-ragged{B}x{h}x{w}'] = (x, seed, checked_only)
+        case_sets[f'7class-ragged{B}x{h}x{w}'] = (x, seed, checked_only(mt_cases(x, seed)))
+    # the round kernels on a 480^2 plane (B8b's block route, B8a's global chain) and at the round budget's
+    # boundary on a spiral (B8a's cluster and B8b's block route)
+    x = torch.from_numpy(nuclei(1, 480, args.seed + 8000)[0]).cuda()
+    case_sets['conic480'] = (x, None, checked_only(round_cases(x)))
+    x = torch.from_numpy(spiral(64)[None].astype(np.int32)).cuda()
+    case_sets['spiral64'] = (x, None, round_boundary_cases(x))
     max_err, timed = check_kernels(case_sets)
     check_round_budget(case_sets)
     max_err['fused_decode0_cls'] = check_fused_decode(args)

@@ -12,7 +12,9 @@ tiseg_tpu/ops/hover.py on the same numpy maps.
   32, enough for these planes), and at 520^2, above its 512*512 switch, where
   it takes its XLA program with the default rounds=None (exact fixpoint CCL,
   fill capped at 16 scan rounds, fixpoint watershed); that case is in
-  test_torch_hover_pp_xla.py, a file of its own for ``--dist loadfile``."""
+  test_torch_hover_pp_xla.py, a file of its own for ``--dist loadfile``.
+- The 512^2 switch of the watershed's waves: one slow case each in
+  test_torch_hover_pp_switch_512.py and test_torch_hover_pp_switch_513.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,14 +25,9 @@ from tiseg_tpu.ops import pallas_sweep as jps
 from tiseg_tpu.ops.morph import binary_dilation as j_dilation
 from tiseg_tpu.ops.morph import binary_erosion as j_erosion
 from tiseg_tpu.ops.pallas_postproc import watershed_pallas
-from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, hover_maps, make_nuclei
 from tiseg_tpu_torch.ops import hover as th
 from tiseg_tpu_torch.ops.watershed import watershed
-
-
-def _maps(seed, hw):
-    inst = make_nuclei(seed, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2)[2]
-    return hover_maps(inst, seed=seed)
+from torch_port_utils import hover_test_maps as _maps
 
 
 @pytest.fixture(scope='module')
@@ -87,22 +84,6 @@ def test_hover_post_proc_device_bit_exact(hw, rounds):
     assert got.dtype == torch.int32 and got.shape == (hw, hw)
     np.testing.assert_array_equal(got.numpy(), want)
     assert len(np.unique(want)) > 5
-
-
-@pytest.mark.parametrize('hw,rounds', [(512, (4, 64)), (513, (None, None))])
-def test_watershed_follows_the_plane_size_switch(monkeypatch, hw, rounds):
-    """Planes of at most 512*512 pixels get the bounded watershed, larger
-    ones the fixpoint (the JAX package's MAX_VMEM_PLANE switch)."""
-    seen = []
-
-    def spy(image, markers, mask, connectivity, num_levels, rounds_per_level, cleanup_rounds):
-        seen.append((rounds_per_level, cleanup_rounds))
-        return torch.zeros(image.shape, dtype=torch.int32)
-
-    monkeypatch.setattr(th, 'watershed', spy)
-    fore = torch.zeros((1, hw, 512))
-    th.hover_post_proc_device(fore, torch.zeros((1, hw, 512, 2)))
-    assert seen == [rounds]
 
 
 def test_batched_planes_match_single_planes():

@@ -11,13 +11,8 @@ import pytest
 import torch
 
 from tiseg_tpu.ops import hover as jh
-from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, hover_maps, make_nuclei
 from tiseg_tpu_torch.ops import hover as th
-
-
-def _maps(seed, hw):
-    inst = make_nuclei(seed, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2)[2]
-    return hover_maps(inst, seed=seed)
+from torch_port_utils import hover_test_maps as _maps
 
 
 @pytest.mark.parametrize('hw,rounds', [(520, None)], ids=['xla-route'])

@@ -8,66 +8,32 @@ must equal the JAX kernel bit for bit (canvas and instances); the JAX sweep
 caps are 64, as in test_torch_instance_pp.py. The CUDA kernel is held to the
 plain version on the card (the ``gpu`` test here and chip_smoke.py). The
 host route (``_mt_postprocess``) is held to the JAX package's with the
-numpy ``align_foreground`` on both sides. The seven-class cases are in
-test_torch_mt_instance_pp_seven.py, so that a worker of their own can run
-them."""
-import jax.numpy as jnp
+numpy ``align_foreground`` on both sides. The JAX kernel's interpret-mode
+runs take minutes each, and ``--dist loadfile`` gives a file one worker, so
+the seven-class cases are in test_torch_mt_instance_pp_seven.py, the
+two-class cases at align_time 2 and 20 in test_torch_mt_instance_pp_align2.py
+and test_torch_mt_instance_pp_align20.py, and the 520^2 plane in
+test_torch_mt_instance_pp_xla.py."""
 import numpy as np
 import pytest
 import torch
 
 from tiseg_tpu.models.segmentors import multi_task_unet as jax_mt
 from tiseg_tpu.models.utils.postprocess import align_foreground as jax_align_foreground
-from tiseg_tpu.ops.pallas_sweep import mt_instance_postprocess_sweep as jax_mt_pp
-from tiseg_tpu_torch.datasets.synthetic import hard_planes_multiclass, multiclass_nuclei
+from tiseg_tpu_torch.datasets.synthetic import hard_planes_multiclass
 from tiseg_tpu_torch.models.segmentors.multi_task_unet import _mt_postprocess
 from tiseg_tpu_torch.models.utils.postprocess import align_foreground
 from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_plain, mt_instance_postprocess_sweep
-
-HW = 96
-
-
-def _planes(hw=HW):
-    sem, seed = hard_planes_multiclass(hw)
-    nsem, nseed = multiclass_nuclei(5, hw, 100 * hw * hw // 256 ** 2)
-    return np.concatenate([sem, nsem[None]]), np.concatenate([seed, nseed[None]])
+from torch_port_utils import check_two_class_mt_pp
+from torch_port_utils import mt_planes as _planes
+from torch_port_utils import port_mt_pp as _port
 
 
-def _jax(sem, seed, **kw):
-    s, i = jax_mt_pp(jnp.asarray(sem), jnp.asarray(seed), sweeps=64, fill_sweeps=64, **kw)
-    return np.asarray(s), np.asarray(i)
-
-
-def _port(sem, seed, **kw):
-    s, i = mt_instance_postprocess_sweep(torch.from_numpy(sem), torch.from_numpy(seed), **kw)
-    return s.numpy(), i.numpy()
-
-
-@pytest.mark.parametrize('align_time', [1, 2, 20])
+@pytest.mark.parametrize('align_time', [1])
 def test_matches_jax_kernel_bit_exact_two_classes(align_time):
     """num_classes=2 sees only class 1 of the planes; align_time 1 is no
-    wave, 2 is one."""
-    sem, seed = _planes()
-    want_s, want_i = _jax(sem, seed, num_classes=2, align_time=align_time)
-    got_s, got_i = _port(sem, seed, num_classes=2, align_time=align_time)
-    np.testing.assert_array_equal(got_s, want_s)
-    np.testing.assert_array_equal(got_i, want_i)
-    assert set(np.unique(want_s)) == {0, 1}
-    grown = ((got_i > 0) & (seed == 0)).sum()
-    assert (grown == 0) if align_time == 1 else (grown > 0)
-
-
-def test_large_plane_takes_the_jax_xla_route():
-    """One 520^2 plane (above the JAX package's 512^2 switch)."""
-    sem, seed = hard_planes_multiclass(520)
-    nsem, nseed = multiclass_nuclei(6, 520, 400)
-    sem = np.where(sem[0] > 0, sem[0], nsem)[None]
-    seed = np.maximum(seed[0], nseed)[None]
-    want_s, want_i = _jax(sem, seed, num_classes=2)
-    got_s, got_i = _port(sem, seed, num_classes=2)
-    np.testing.assert_array_equal(got_s, want_s)
-    np.testing.assert_array_equal(got_i, want_i)
-    assert len(np.unique(want_i)) > 50
+    wave (2 and 20: test_torch_mt_instance_pp_align{2,20}.py)."""
+    check_two_class_mt_pp(align_time)
 
 
 def test_two_dim_input_and_checks():

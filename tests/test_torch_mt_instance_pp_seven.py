@@ -6,32 +6,14 @@ CoNIC density, and what each hand-made case must give. Kept in a file of
 their own (they were in test_torch_mt_instance_pp.py), since the JAX
 kernel's interpret-mode run takes minutes and ``--dist loadfile`` gives a
 file one worker."""
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-from tiseg_tpu.ops.pallas_sweep import mt_instance_postprocess_sweep as jax_mt_pp
-from tiseg_tpu_torch.datasets.synthetic import hard_planes_multiclass, multiclass_nuclei
-from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_sweep
+from torch_port_utils import jax_mt_pp as _jax
+from torch_port_utils import mt_planes as _planes
+from torch_port_utils import port_mt_pp as _port
 
-HW = 96
-
-
-def _planes(hw=HW):
-    sem, seed = hard_planes_multiclass(hw)
-    nsem, nseed = multiclass_nuclei(5, hw, 100 * hw * hw // 256 ** 2)
-    return np.concatenate([sem, nsem[None]]), np.concatenate([seed, nseed[None]])
-
-
-def _jax(sem, seed, **kw):
-    s, i = jax_mt_pp(jnp.asarray(sem), jnp.asarray(seed), sweeps=64, fill_sweeps=64, **kw)
-    return np.asarray(s), np.asarray(i)
-
-
-def _port(sem, seed, **kw):
-    s, i = mt_instance_postprocess_sweep(torch.from_numpy(sem), torch.from_numpy(seed), **kw)
-    return s.numpy(), i.numpy()
+HW = 96  # the planes' size (mt_planes' default)
 
 
 @pytest.fixture(scope='module')

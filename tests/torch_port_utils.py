@@ -99,3 +99,226 @@ def standardize_head(model_cfg, variables, img, head, conv_path, shifts, scale=2
     params = set_leaf(params, tuple(conv_path) + ('bias',),
                       (node['bias'] - logit.mean(0)) * gain + np.asarray(shifts, np.float32))
     return dict(variables, params=params)
+
+
+# -- the multi-task recovery's and HoVer-Net's test planes -------------------------
+def mt_planes(hw: int = 96):
+    """Seven-class semantic and seed planes: the hand-made hard planes and
+    one plane at CoNIC density."""
+    from tiseg_tpu_torch.datasets.synthetic import hard_planes_multiclass, multiclass_nuclei
+    sem, seed = hard_planes_multiclass(hw)
+    nsem, nseed = multiclass_nuclei(5, hw, 100 * hw * hw // 256 ** 2)
+    return np.concatenate([sem, nsem[None]]), np.concatenate([seed, nseed[None]])
+
+
+def jax_mt_pp(sem, seed, **kw):
+    """The JAX package's ``mt_instance_postprocess_sweep`` (sweep caps 64) as numpy."""
+    import jax.numpy as jnp
+
+    from tiseg_tpu.ops.pallas_sweep import mt_instance_postprocess_sweep
+    s, i = mt_instance_postprocess_sweep(jnp.asarray(sem), jnp.asarray(seed), sweeps=64, fill_sweeps=64, **kw)
+    return np.asarray(s), np.asarray(i)
+
+
+def port_mt_pp(sem, seed, **kw):
+    """The port's ``mt_instance_postprocess_sweep`` on CPU tensors, as numpy."""
+    import torch
+
+    from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_sweep
+    s, i = mt_instance_postprocess_sweep(torch.from_numpy(sem), torch.from_numpy(seed), **kw)
+    return s.numpy(), i.numpy()
+
+
+def check_two_class_mt_pp(align_time: int):
+    """The port's multi-task recovery with num_classes=2 (only class 1 of the
+    seven-class planes) against the JAX kernel, bit for bit; align_time 1 is
+    no growth wave, 2 is one."""
+    sem, seed = mt_planes()
+    want_s, want_i = jax_mt_pp(sem, seed, num_classes=2, align_time=align_time)
+    got_s, got_i = port_mt_pp(sem, seed, num_classes=2, align_time=align_time)
+    np.testing.assert_array_equal(got_s, want_s)
+    np.testing.assert_array_equal(got_i, want_i)
+    assert set(np.unique(want_s)) == {0, 1}
+    grown = ((got_i > 0) & (seed == 0)).sum()
+    assert (grown == 0) if align_time == 1 else (grown > 0)
+
+
+def hover_test_maps(seed: int, hw: int):
+    """Synthetic fore / HV maps around CoNIC-density nuclei of an (hw, hw) plane."""
+    from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, hover_maps, make_nuclei
+    inst = make_nuclei(seed, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2)[2]
+    return hover_maps(inst, seed=seed)
+
+
+def check_watershed_switch(monkeypatch, hw: int, rounds):
+    """``hover_post_proc_device`` on an (hw, 512) plane hands the watershed
+    the bounded (4, 64) waves at or below 512*512 pixels, the fixpoint above
+    (the JAX package's MAX_VMEM_PLANE switch)."""
+    import torch
+
+    from tiseg_tpu_torch.ops import hover as th
+    seen = []
+
+    def spy(image, markers, mask, connectivity, num_levels, rounds_per_level, cleanup_rounds):
+        seen.append((rounds_per_level, cleanup_rounds))
+        return torch.zeros(image.shape, dtype=torch.int32)
+
+    monkeypatch.setattr(th, 'watershed', spy)
+    th.hover_post_proc_device(torch.zeros((1, hw, 512)), torch.zeros((1, hw, 512, 2)))
+    assert seen == [rounds]
+
+
+# -- the multi-task eval slices (tests/test_torch_slice_mt_eval*.py) ---------------
+MT_HW = 96
+MT_NUM_CLASSES = 7
+MT_TEST_CFG = dict(mode='split', crop_size=(64, 64), overlap_size=(16, 16), rotate_degrees=[0, 90],
+                   flip_directions=['none', 'vertical'], if_ddm=True, device_postprocess=True, patch_batch=8)
+MT_SEM_SHIFTS = [1.0] + [0.0] * 6
+# model type -> (seed head, its classifier shifts: background, inner[, boundary])
+MT_SEED_HEADS = {'MultiTaskUNet': ('aux', [1.0, 0.0]), 'MultiTaskCUNet': ('aux', [1.0, 0.0, 0.5]),
+                 'MultiTaskCDNet': ('tc', [1.0, 0.0, 0.5])}
+
+
+def _mt_variables(model_type, img):
+    model = dict(type=model_type, num_classes=MT_NUM_CLASSES)
+    v = random_variables(model_type, MT_NUM_CLASSES, seed=5)
+    head, shifts = MT_SEED_HEADS[model_type]
+    if model_type == 'MultiTaskCDNet':
+        dgm = ('head', 'dgm')
+        v = standardize_head(model, v, img, 'point', dgm + ('point_conv',), [0.3], scale=0.5)
+        v = standardize_head(model, v, img, 'dir', dgm + ('dir_conv',), [9.0] + [0.0] * 8, scale=3.0)
+        v = standardize_head(model, v, img, 'tc', dgm + ('tc_mask_conv',), shifts)
+        return standardize_head(model, v, img, 'sem', dgm + ('mask_conv',), MT_SEM_SHIFTS)
+    br = ('head', 'branches')
+    v = standardize_head(model, v, img, 'aux', br + ('aux_mask_conv',), shifts)
+    return standardize_head(model, v, img, 'sem', br + ('mask_conv',), MT_SEM_SHIFTS)
+
+
+def mt_slice_run(model_type):
+    """One multi-task eval slice on two 96^2 images through the port
+    (inference, InferenceRunner) and the JAX package (inference,
+    inference_and_postprocess) with the same standardized seeded weights:
+    (model type, port segmentor, port fused maps, port outputs, JAX fused
+    maps, JAX outputs)."""
+    import jax.numpy as jnp
+    import torch
+
+    from tiseg_tpu.models import build_segmentor as build_jax_segmentor
+    from tiseg_tpu_torch.apis import InferenceRunner
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.utils.weights import state_dict_from_flax
+    img = np.stack([make_nuclei(31 + i, MT_HW, nuclei_density(MT_HW))[0] for i in range(2)])
+    variables = _mt_variables(model_type, img)
+    model = dict(type=model_type, num_classes=MT_NUM_CLASSES)
+
+    port = build_segmentor(dict(model, test_cfg=MT_TEST_CFG), device='cpu')
+    port.net.load_state_dict(state_dict_from_flax(model_type, variables))
+    port_fused = {k: v.numpy() for k, v in port.inference(torch.from_numpy(img)).items()}
+    port_out = InferenceRunner(port)(img, (MT_HW, MT_HW))
+
+    jseg = build_jax_segmentor(dict(model, train_cfg=dict(), test_cfg=MT_TEST_CFG))
+    jvars = jax.tree_util.tree_map(jnp.asarray, variables)
+
+    def both(v, im):
+        return jseg.inference(v, im), jseg.inference_and_postprocess(v, im)
+
+    jax_fused, jax_out = jax.tree_util.tree_map(np.asarray, jax.jit(both)(jvars, jnp.asarray(img)))
+    return model_type, port, port_fused, port_out, jax_fused, jax_out
+
+
+def check_mt_fused_maps(slice_run):
+    model_type, _, port_fused, _, jax_fused, _ = slice_run
+    head, shifts = MT_SEED_HEADS[model_type]
+    assert set(port_fused) == set(jax_fused) == {head, 'sem'} | ({'dir_map'} if head == 'tc' else set())
+    for k, channels in ((head, len(shifts)), ('sem', MT_NUM_CLASSES)):
+        assert port_fused[k].shape == jax_fused[k].shape == (2, MT_HW, MT_HW, channels)
+        assert np.abs(port_fused[k] - jax_fused[k]).max() <= 1e-4, k
+        top2 = np.sort(port_fused[k], -1)[..., -2:]
+        assert ((top2[..., 1] - top2[..., 0]) <= 1e-3).mean() < 0.02, k
+    if head == 'tc':
+        np.testing.assert_array_equal(port_fused['dir_map'], jax_fused['dir_map'])
+        assert len(np.unique(port_fused['dir_map'])) == 9
+        assert np.abs(port_fused['tc'].sum(-1) - 1).max() > 0.1     # the enhancement moved the boundary channel
+
+
+def check_mt_sem_pred(slice_run):
+    _, _, port_fused, port_out, _, jax_out = slice_run
+    np.testing.assert_array_equal(port_out['sem_pred'], jax_out['sem_pred'])
+    assert port_out['sem_pred'].dtype == np.uint8
+    assert len(np.unique(port_out['sem_pred'])) >= 4
+    assert 0.05 <= (port_out['sem_pred'] > 0).mean() <= 0.9
+
+
+def check_mt_inst_pred(slice_run):
+    model_type, _, port_fused, port_out, _, jax_out = slice_run
+    assert port_out['inst_pred'].dtype == np.int32
+    np.testing.assert_array_equal(port_out['inst_pred'], jax_out['inst_pred'])
+    assert len(np.unique(port_out['inst_pred'])) > 10
+    seed = port_fused[MT_SEED_HEADS[model_type][0]].argmax(-1) == 1
+    assert ((port_out['inst_pred'] > 0) & ~seed).any()              # the growth claimed canvas pixels
+
+
+def check_mt_host_route(slice_run):
+    """``postprocess`` (scipy) on the same fused maps gives the device
+    route's canvas and, up to the numbering, its instances."""
+    model_type, port, port_fused, port_out, _, _ = slice_run
+    host = port.postprocess({k: v[0] for k, v in port_fused.items()})
+    np.testing.assert_array_equal(host['sem_pred'], port_out['sem_pred'][0])
+    pairs = set(zip(host['inst_pred'].ravel().tolist(), port_out['inst_pred'][0].ravel().tolist()))
+    assert len(pairs) == len(np.unique(host['inst_pred'])) == len(np.unique(port_out['inst_pred'][0]))
+    extra = {'MultiTaskUNet': set(), 'MultiTaskCUNet': {'tc_sem_pred'},
+             'MultiTaskCDNet': {'tc_sem_pred', 'dir_pred', 'dir_num_angles'}}[model_type]
+    assert set(host) == {'sem_pred', 'inst_pred'} | extra
+
+
+# -- the HoVer-Net eval slice (tests/test_torch_slice_hovernet_*.py) -----------------------
+HOVER_HW = 96
+HOVER_NUM_CLASSES = 7
+HOVER_TEST_CFG = dict(mode='split', crop_size=(64, 64), overlap_size=(16, 16), rotate_degrees=[0, 90],
+                      flip_directions=['none', 'diagonal'], scale_factor=1, device_postprocess=True, patch_batch=8)
+
+
+def hovernet_slice_input():
+    """The slice's 96^2 image at CoNIC density, (1, H, W, 3)."""
+    from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, make_nuclei
+    return make_nuclei(13, HOVER_HW, CONIC_NUCLEI_PER_PATCH * HOVER_HW * HOVER_HW // 256 ** 2)[0][None]
+
+
+def hovernet_port(variables, test_cfg=None):
+    """The port's HoverNet (7 classes, on the CPU) with flax ``variables``;
+    ``test_cfg`` defaults to HOVER_TEST_CFG."""
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.utils.weights import hovernet_state_dict_from_flax
+    seg = build_segmentor(dict(type='HoverNet', num_classes=HOVER_NUM_CLASSES,
+                               test_cfg=HOVER_TEST_CFG if test_cfg is None else test_cfg), device='cpu')
+    seg.net.load_state_dict(hovernet_state_dict_from_flax(variables))
+    return seg
+
+
+def scaled_hovernet_variables(seed, img, quantile=0.5):
+    """Seeded weights with the ``tp`` and ``np`` classifiers rescaled on the
+    first view of ``img``: a random 50-layer residual trunk gives logits of ~1e4 with
+    per-class offsets of the same size, which saturate the softmax. The
+    ``sem`` logits are centred per class and scaled to a spatial standard
+    deviation of about 2; the ``fore`` logit difference is scaled likewise
+    and shifted so that 1 - ``quantile`` of the pixels are foreground."""
+    import torch
+
+    from tiseg_tpu_torch.ops.sliding import split_inference
+    variables = random_hovernet_variables(seed=seed)
+    heads = split_inference(hovernet_port(variables).forward_heads, torch.from_numpy(img), 64, 16)
+    params = variables['params']
+    sem = heads['sem'].reshape(-1, HOVER_NUM_CLASSES)
+    scale = float(sem.std(0).mean()) / 2
+    cls = params['tp']['u0_cls']
+    params['tp'] = dict(params['tp'], u0_cls=dict(kernel=cls['kernel'] / scale,
+                                                 bias=(cls['bias'] - sem.mean(0).numpy()) / scale))
+    fore = heads['fore'].reshape(-1, 2)
+    diff = fore[:, 1] - fore[:, 0]
+    scale = float(diff.std()) / 2
+    cls = params['np']['u0_cls']
+    shift = float(torch.quantile(diff - float(cls['bias'][1] - cls['bias'][0]), quantile)) / scale
+    params['np'] = dict(params['np'], u0_cls=dict(kernel=cls['kernel'] / scale,
+                                                 bias=np.array([0.0, -shift], np.float32)))
+    return variables

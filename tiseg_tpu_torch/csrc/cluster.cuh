@@ -1,5 +1,5 @@
 // Thread-block clusters for the plane-resident kernels (watershed.cu,
-// mt_instance_pp.cu).
+// mt_instance_pp.cu, rounds.cu).
 //
 // One cluster of kCluster blocks holds one (H, W) plane: block r of a
 // cluster owns rows [r*R, min((r+1)*R, H)), R = ceil(H / kCluster), and keeps
@@ -10,7 +10,7 @@
 // lays its shared memory out alike (room for R rows), so a pointer into one
 // block's shared memory maps to the same array in its peers.
 //
-// Layout of a block's dynamic shared memory, the same in both kernels
+// Layout of a block's dynamic shared memory, the same in every kernel
 // (ops/_cluster.py:cluster_route mirrors it to choose the route on the
 // host): kSmallPlanes uint8 arrays of R*W, padded to 16 bytes, then
 // kWordPlanes int32 arrays of R*W, then kCtlBytes of control words. The

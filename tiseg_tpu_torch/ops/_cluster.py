@@ -1,12 +1,13 @@
 """Route choice for the plane-resident kernels (``csrc/cluster.cuh``).
 
-The watershed (B5) and the multi-task recovery (B6) hold a plane in the
-distributed shared memory of one thread-block cluster when its rows fit:
-block ``r`` of ``CLUSTER`` keeps rows ``[r*R, (r+1)*R)``, ``R = ceil(H /
-CLUSTER)``, as ``SMALL_PLANES`` uint8 arrays and ``WORD_PLANES`` int32
-arrays, the same layout in both kernels. Larger planes take the kernels'
-global-memory chains. :func:`cluster_route` is the one pure function both
-wrappers (and the CPU tests) ask; it mirrors ``cluster.cuh``'s
+The watershed (B5), the multi-task recovery (B6) and the round-bounded
+labels (B8a) hold a plane in the distributed shared memory of one
+thread-block cluster when its rows fit: block ``r`` of ``CLUSTER`` keeps
+rows ``[r*R, (r+1)*R)``, ``R = ceil(H / CLUSTER)``, as ``SMALL_PLANES``
+uint8 arrays and ``WORD_PLANES`` int32 arrays, the same layout in the three
+kernels. Larger planes take the kernels' global-memory chains.
+:func:`cluster_route` is the one pure function the wrappers (and the CPU
+tests) ask; it mirrors ``cluster.cuh``'s
 ``cluster_smem_bytes``, with which the CUDA entry points size the layout
 and refuse a plane that does not fit.
 """
