@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (tiseg_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--patch-batch 100] [--hover-patch-batch 32] [--cd-patch-batch 64]
+                          [--save-pp-planes PATH]
 
 1. Prints the card (nvidia-smi name, power limit), torch and CUDA versions,
    and builds every CUDA kernel from the sources in this checkout (one nvcc
@@ -18,13 +19,20 @@
    256^2, 16 x 256^2 at CoNIC density, one 1000^2 plane) the same for the
    class-vectorized instance_postprocess_sweep (B7, radius 3) and
    mt_instance_postprocess_sweep (B6; 7 and 2 classes, align_time 1, 2 and
-   20). B5 and B6 take the cluster route (one launch per batch, one cluster
-   of 8 blocks per plane) on every set but the 1000^2 one, which takes the
-   global chain, and two ragged sets (17 x 101 x 77, 1 x 251 x 243) check
-   the cluster route alone; each call's route, cluster size, shared bytes
-   per block (held against ops/_cluster.py:cluster_route), resident
-   clusters and waves are printed. Their timed cases on the cluster route
-   are timed in turns against the earlier global chain on the same inputs.
+   20). B1, B5, B6 and B7 take the cluster route (one launch per batch, one
+   cluster of 8 blocks per plane) on every set but the 1000^2 one, where B5
+   and B6 take the global chain and B1 and B7 the strip route (one
+   cooperative launch, a block per strip of rows), and two ragged sets
+   (17 x 101 x 77, 1 x 251 x 243) check the cluster route alone, a 480^2
+   plane B1's and B7's strip route, and batches of 3 (two classes) and 2
+   (seven classes) 1000^2 planes the strip route in groups of planes, one
+   launch per group; each call's route, cluster or strip geometry, shared
+   bytes per block (held against ops/_cluster.py:cluster_route and
+   ops/instance_pp.py:pp_route), resident clusters or blocks and waves are
+   printed, and B1's and B7's launches on each route are held against
+   pp_route's. Their timed cases on the
+   cluster and strip routes are timed in turns against the earlier global
+   chain on the same inputs.
    On the binary planes also the
    round-bounded ccl_rounds (B8a, both connectivities, 64 and 128 rounds) and
    fill_holes_rounds (B8b, H + W and 16 rounds), whose un-converged results
@@ -46,7 +54,8 @@
 3. Drives the UNet eval path through its entry points at the full width of
    the reference UNet recipe (VGG16-BN + UNetHead, 2 classes, float32, seeded
    weights): one 1000^2 image, split 256/40 windows x 8 dihedral TTA views
-   (200 patches), softmax mean, argmax and the B1 kernel. Three times: the
+   (200 patches), softmax mean, argmax and the B1 kernel (strip route, one
+   launch, timed in turns against its earlier chain). Three times: the
    unfolded net (fast_eval=False), the BN-folded phase-space executor (the
    default), and the executor with TISEG_FUSED_TAIL=1 (B10, one launch per
    network forward). Launch counts are read from each run alone. The three
@@ -68,8 +77,10 @@
    width of the CoNIC recipe (VGG16-BN + CDHead, 7 classes + boundary,
    float32, seeded weights): 16 images of 256^2, 8 views, per-view DDM, DDM
    enhancement, boundary strip and the B7 kernel, whose launch count is read
-   from that run alone; instances checked bit for bit against the plain
-   version on the same semantic plane.
+   from that run alone (cluster route, one launch, no global one; timed in
+   turns against its earlier chain, and the cluster kernel at 1024 threads
+   per block against 512); instances checked bit for bit against
+   the plain version on the same semantic plane.
 6. The same for MultiTaskCDNet (tc/sem/dir/point heads, B6, one
    cluster-route launch, timed in turns against the earlier chain as B5),
    and two images each through MultiTaskUNet and MultiTaskCUNet (B6;
@@ -77,7 +88,10 @@
    The classifiers of these nets are rescaled on view 0 of the images so
    that every class occurs, and their background biases bisected so that
    about 40% of the fused map is foreground and 10% seeds.
-7. UNet.postprocess on 16 images of 256^2 under device_postprocess True (B1),
+7. UNet.postprocess on 16 images of 256^2 under device_postprocess True (B1
+   on its cluster route, one launch per image; timed in turns against its
+   earlier chain on one image, and the cluster kernel at 1024 threads per
+   block against 512, as on the CDNet batch),
    'xla' (B3 once and B2 twice per image) and 'pallas-rounds' (B8b once on
    its block route, B8a twice on its cluster route, the window count once,
    no global chain, per image): each bit-exact against its plain version
@@ -86,8 +100,12 @@
    'pallas-rounds' in turns with its earlier design (global chains, the
    window count as tensor ops). On the first image's planes B8b, B8a and
    the window count are timed in turns against their earlier versions.
+   With --save-pp-planes, the semantic planes that B1 and B7 get on the
+   UNet, CDNet and UNet.postprocess paths are saved to PATH (the input of
+   tools/pp_phases.py).
 8. Two images through CUNet (executor on, boundary class stripped, radius 3,
-   B1), checked against the unfolded net and the plain post-processor.
+   B1 on its cluster route), checked against the unfolded net and the plain
+   post-processor.
 9. B9 (no caller on any path) against F.max_pool2d(3, 1, 1) on the same
    float32 16 x 256^2 plane, each timed per call (ms, host time included)
    and per launch with L2 flushed and the host's enqueue hidden (device_ms),
@@ -129,6 +147,8 @@ DIAMOND_MIN_SIZE = 10  # HoVer-Net's size filter (ops/hover.py)
 UNBOUNDED = 10 ** 6  # a round budget no plane here exhausts
 CONIC_CLASSES, CONIC_RADIUS, ALIGN_TIME = 7, 3, 20  # the CoNIC recipes' post-processing settings
 CONIC_BATCH, CONIC_HW = 16, 256  # images per timed CDNet / MultiTaskCDNet batch, and their size
+PP_ROUTES = ('cluster', 'strip', 'global')  # the routes of B1 and B7
+PP_PLANES = {}  # the main paths' planes of B1 and B7: name -> (planes, num_classes, radius)
 
 
 def card_line() -> str:
@@ -271,10 +291,8 @@ def kernel_cases(x: torch.Tensor, ws_in):
     """name -> (kernel call, plain call, input the bound is computed from) for one plane set."""
     from tiseg_tpu_torch.ops.flood import (ccl_plain, ccl_sweep, fill_holes_plain, fill_holes_sweep,
                                            size_filter, size_filter_plain)
-    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain, instance_postprocess_sweep
     from tiseg_tpu_torch.ops.watershed import watershed, watershed_plain
-    cases = {'instance_postprocess_sweep': (lambda: instance_postprocess_sweep(x),
-                                            lambda: instance_postprocess_plain(x), x)}
+    cases = pp_cases(x)
     for conn in (1, 2):
         lab = ccl_plain(x > 0, conn)
         cases[f'ccl_sweep conn{conn}'] = (lambda c=conn: ccl_sweep(x, connectivity=c),
@@ -285,6 +303,13 @@ def kernel_cases(x: torch.Tensor, ws_in):
     cases.update(watershed_cases(ws_in))
     cases.update(round_and_stencil_cases(x))
     return cases
+
+
+def pp_cases(x: torch.Tensor):
+    """B1 (two classes, radius 1) on the binary planes ``x``."""
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain, instance_postprocess_sweep
+    return {'instance_postprocess_sweep': (lambda: instance_postprocess_sweep(x), lambda: instance_postprocess_plain(x),
+                                           x)}
 
 
 def watershed_cases(ws_in):
@@ -408,12 +433,15 @@ def growth_waves(seed: torch.Tensor, canvas: torch.Tensor) -> int:
 
 def multiclass_kernel_cases(x: torch.Tensor, seed: torch.Tensor):
     """The same for the seven-class planes ``x`` and their seed planes."""
+    return {**vectorized_cases(x), **mt_cases(x, seed)}
+
+
+def vectorized_cases(x: torch.Tensor):
+    """B7 (seven classes, radius 3) on the planes ``x``."""
     from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep, instance_postprocess_vectorized_plain
-    return {
-        'instance_postprocess_vectorized': (
-            lambda: instance_postprocess_sweep(x, radius=CONIC_RADIUS, num_classes=CONIC_CLASSES),
-            lambda: instance_postprocess_vectorized_plain(x, CONIC_RADIUS, 5, CONIC_CLASSES), x),
-        **mt_cases(x, seed)}
+    return {'instance_postprocess_vectorized': (
+        lambda: instance_postprocess_sweep(x, radius=CONIC_RADIUS, num_classes=CONIC_CLASSES),
+        lambda: instance_postprocess_vectorized_plain(x, CONIC_RADIUS, 5, CONIC_CLASSES), x)}
 
 
 def mt_cases(x: torch.Tensor, seed: torch.Tensor):
@@ -432,43 +460,84 @@ def mt_cases(x: torch.Tensor, seed: torch.Tensor):
 
 def routed_kernels():
     """name -> (wrapper, the pure function that gives its route and layout,
-    the wrapper's attribute with its waves or rounds) of the kernels with
-    two routes (B5, B6, B8a, B8b)."""
+    the wrapper's attribute with its waves or rounds, if any) of the kernels
+    with more than one route (B1, B5, B6, B7, B8a, B8b)."""
     from tiseg_tpu_torch.ops._cluster import cluster_route
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
     from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_sweep
     from tiseg_tpu_torch.ops.rounds import ccl_rounds, fill_holes_rounds, fill_route
     from tiseg_tpu_torch.ops.watershed import watershed
-    return {'watershed': (watershed, cluster_route, 'last_waves'),
+    return {'instance_postprocess_sweep': (instance_postprocess_sweep, pp_layout, None),
+            'instance_postprocess_vectorized': (instance_postprocess_sweep, pp_layout, None),
+            'watershed': (watershed, cluster_route, 'last_waves'),
             'mt_instance_postprocess_sweep': (mt_instance_postprocess_sweep, cluster_route, 'last_waves'),
             'ccl_rounds': (ccl_rounds, cluster_route, 'last_rounds'),
             'fill_holes_rounds': (fill_holes_rounds, fill_route, 'last_rounds')}
 
 
+def pp_layout(B: int, H: int, W: int):
+    """B1's and B7's route on this card (ops/instance_pp.py:pp_route): the
+    route, rows per block, blocks per plane and shared bytes per block, as
+    the wrapper's ``last_route`` reports them."""
+    from tiseg_tpu_torch.ops.instance_pp import pp_route
+    return pp_route(B, H, W, torch.cuda.get_device_properties(0).multi_processor_count)[:4]
+
+
+def pp_launches(fn):
+    """B1's and B7's launch counters, by route."""
+    return {r: getattr(fn, f'{r}_launches') for r in PP_ROUTES}
+
+
+def check_pp_launches(fn, before, shape) -> int:
+    """The launches of B1's or B7's last call on each route (the counters
+    against ``before``), held against pp_route: all on its route, one per
+    group of planes. Returns them."""
+    from tiseg_tpu_torch.ops.instance_pp import pp_route
+    route = pp_route(*shape, torch.cuda.get_device_properties(0).multi_processor_count)
+    ran = {r: n - before[r] for r, n in pp_launches(fn).items()}
+    want = {r: route.launches if r == route.route else 0 for r in PP_ROUTES}
+    if ran != want:
+        raise AssertionError(f'{fn.__name__} on {tuple(shape)} launched {ran}, pp_route gives {route}')
+    return route.launches
+
+
 def expected_route(kernel: str, set_name: str) -> str:
     """The route a kernel must take on a plane set: the 1000^2 planes exceed
-    a block's and a cluster's shared memory; the 480^2 plane fits B8b's
-    block, not a cluster; every other set fits both."""
+    a block's and a cluster's shared memory (B1 and B7 take strips of rows);
+    the 480^2 plane fits B8b's block, not a cluster; every other set fits
+    both."""
+    strip = kernel.startswith('instance_postprocess')
     if set_name.endswith('1000'):
-        return 'global'
+        return 'strip' if strip else 'global'
     if kernel == 'fill_holes_rounds':
         return 'block'
-    return 'global' if set_name.endswith('480') else 'cluster'
+    if set_name.endswith('480'):
+        return 'strip' if strip else 'global'
+    return 'cluster'
 
 
-def route_note(fn, route_of, counts: str, shape) -> str:
+def route_note(fn, route_of, counts, shape) -> str:
     """The last call's route and layout, held against the route function on
     ``shape``, and its waves or rounds."""
     route, *layout = fn.last_route
     want = route_of(*shape)
-    if route != want.route or (route != 'global' and tuple(layout[:len(want) - 1]) != tuple(want[1:])):
+    if route != want[0] or (route != 'global' and tuple(layout[:len(want) - 1]) != tuple(want[1:])):
         raise AssertionError(f'{fn.__name__} on {tuple(shape)}: the kernel took {fn.last_route}, the route function '
                              f'gives {want}')
-    if route == 'cluster':
+    if route == 'cluster' and len(layout) == 5:
+        note = (f'cluster route ({layout[0]} rows x cluster {layout[1]}, {layout[4]} threads and {layout[2]} B shared '
+                f'per block, {layout[3]} clusters resident)')
+    elif route == 'cluster':
         note = f'cluster route (cluster {layout[0]}, {layout[1]} B shared per block, {layout[2]} clusters resident)'
+    elif route == 'strip':
+        note = (f'strip route ({layout[0]} rows x {layout[1]} strips per plane, {layout[4]} threads and {layout[2]} B '
+                f'shared per block, {layout[3]} blocks resident)')
     elif route == 'block':
         note = f'block route ({layout[0]} B shared per block{", transposed" if layout[1] else ""})'
     else:
         note = 'global route'
+    if counts is None:
+        return f', {note}'
     c = getattr(fn, counts)
     budget, needed, ran = c
     return f', {note}, {counts[5:]}: budget {budget}, needed {needed} (mean per plane {c.mean_needed:.1f}), run {ran}'
@@ -488,6 +557,8 @@ def check_kernels(case_sets):
     for set_name, (x, seed, cases) in case_sets.items():
         for name, (kernel, plain, bound_in, *work) in cases.items():
             kname = name.split()[0]
+            fn, route_of, counts = routed.get(kname, (None, None, None))
+            before = pp_launches(fn) if kname.startswith('instance_postprocess') else None
             got = kernel()
             torch.cuda.synchronize()
             want = plain()
@@ -499,12 +570,13 @@ def check_kernels(case_sets):
                 err = int((g.long() - w.long()).abs().max())
                 max_err[kname] = max(max_err.get(kname, 0), err)
             waves, neigh, extra, route = 0, 4, '', None
-            fn, route_of, counts = routed.get(kname, (None, None, None))
             if fn is not None:
                 route = fn.last_route[0]
                 if route != expected_route(kname, set_name):
                     raise AssertionError(f'{name} took the {route} route on {set_name}')
                 extra = route_note(fn, route_of, counts, got[0].shape)
+            if before is not None:
+                extra += f', {check_pp_launches(fn, before, got[0].shape)} launch(es)'
             if work:
                 waves, neigh = work[0]()
                 extra += f', {waves} rounds change a pixel'
@@ -539,17 +611,21 @@ def check_kernels(case_sets):
 
 
 def on_chain(call, window_ops: bool = False):
-    """``call()`` with B5, B6, B8a and B8b routed to their earlier global
-    chains whatever the plane size; with ``window_ops`` also the window
-    count of ``'pallas-rounds'`` as the tensor ops it replaced."""
+    """``call()`` with B1, B5, B6, B7, B8a and B8b routed to their earlier
+    global chains whatever the plane size; with ``window_ops`` also the
+    window count of ``'pallas-rounds'`` as the tensor ops it replaced."""
     from tiseg_tpu_torch.ops._cluster import Route
     from tiseg_tpu_torch.ops.rounds import FillRoute
     mods = [sys.modules[f'tiseg_tpu_torch.ops.{m}'] for m in ('watershed', 'mt_instance_pp', 'rounds')]
-    rounds = mods[-1]
+    rounds, ipp = mods[-1], sys.modules['tiseg_tpu_torch.ops.instance_pp']
     saved = [m.cluster_route for m in mods] + [rounds.fill_route, rounds.window_count_mask]
+    saved_pp = ipp._launch_cluster, ipp._launch_strip
     for m in mods:
         m.cluster_route = lambda B, H, W: Route('global', 0, 0)
     rounds.fill_route = lambda B, H, W: FillRoute('global', 0, False)
+    ipp._launch_cluster = lambda sem, radius, min_size, nc, vec: ipp._launch_global(sem, radius, min_size, nc, vec)
+    ipp._launch_strip = lambda sem, radius, min_size, nc, vec, route: ipp._launch_global(sem, radius, min_size, nc,
+                                                                                          vec)
     if window_ops:
         rounds.window_count_mask = rounds.small_component_mask
     try:
@@ -558,6 +634,7 @@ def on_chain(call, window_ops: bool = False):
         for m, f in zip(mods, saved):
             m.cluster_route = f
         rounds.fill_route, rounds.window_count_mask = saved[-2:]
+        ipp._launch_cluster, ipp._launch_strip = saved_pp
 
 
 def time_in_turns(kernel, earlier, reps=25):
@@ -713,16 +790,20 @@ def unet_main_path(args):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             instance_postprocess_sweep.launches = fused_decode0_cls.launches = 0
+            instance_postprocess_sweep.strip_launches = instance_postprocess_sweep.global_launches = 0
             out = runner.dispatch(img, (hw, hw))
             torch.cuda.synchronize()
             launches = {'instance_postprocess_sweep': instance_postprocess_sweep.launches,
+                        'strip route': instance_postprocess_sweep.strip_launches,
+                        'global route': instance_postprocess_sweep.global_launches,
                         'fused_decode0_cls': fused_decode0_cls.launches}
             peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         finally:
             seg._device_instance_pp = device_pp
         n_forwards = -(-200 // args.patch_batch)  # 25 windows x 8 views, in chunks of patch_batch
-        if launches != {'instance_postprocess_sweep': 1, 'fused_decode0_cls': n_forwards if fused_tail else 0}:
-            raise AssertionError(f'UNet {name}: launches {launches}, expected 1 of B1 and '
+        if launches != {'instance_postprocess_sweep': 1, 'strip route': 1, 'global route': 0,
+                        'fused_decode0_cls': n_forwards if fused_tail else 0}:
+            raise AssertionError(f'UNet {name}: launches {launches}, expected 1 of B1 on the strip route and '
                                  f'{n_forwards if fused_tail else 0} of B10')
         sem_pred, sem_out, inst_out = captured['sem_pred'], out['sem_pred'], out['inst_pred']
         if not (sem_out.shape == inst_out.shape == (1, hw, hw) and sem_out.dtype == torch.uint8
@@ -784,12 +865,8 @@ def unet_main_path(args):
         raise AssertionError('main-path instances differ from the host scipy pipeline')
     print("UNet executor: instances equal to the host pipeline's partition", flush=True)
 
-    sem_pred = main['sem_pred']
-    k_ms = cuda_ms(lambda: instance_postprocess_sweep(sem_pred), reps=50)
-    p_ms = cuda_ms(lambda: instance_postprocess_plain(sem_pred), reps=3, warmup=1)
-    b_ms, b_by = bound('instance_postprocess_sweep', sem_pred)
-    stats = {'instance_postprocess_sweep': dict(launches=main['launches']['instance_postprocess_sweep'], ms=k_ms,
-                                                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)}
+    stats = {'instance_postprocess_sweep': time_pp_main_path('UNet', main['sem_pred'], 1, 2,
+                                                             main['launches']['instance_postprocess_sweep'])}
     # B10 on the first patch batch the main path gave it
     x, z, *weights, _ = captured.pop('fused_args')
     _, fp = last_stage(seg)
@@ -802,6 +879,41 @@ def unet_main_path(args):
     stats['fused_decode0_cls'] = dict(launches=runs['executor + fused tail']['launches']['fused_decode0_cls'],
                                       **time_fused_decode('UNet main path', x, z, weights, fp, reps=10))
     return stats
+
+
+def time_pp_main_path(model: str, sem_pred: torch.Tensor, radius: int, num_classes: int, launches: int):
+    """B1 or B7 on a main path's semantic planes: the route, the earlier
+    global chain and the route again, each the median of 25 calls; the
+    route held against pp_route; the plain version and the bound."""
+    from tiseg_tpu_torch.ops.instance_pp import (_launch_cluster, _launch_global, instance_postprocess_plain,
+                                                 instance_postprocess_sweep, instance_postprocess_vectorized_plain)
+    vectorized = num_classes > 2
+    name = 'instance_postprocess_vectorized' if vectorized else 'instance_postprocess_sweep'
+    PP_PLANES[f'main path {model} {tuple(sem_pred.shape)}'] = (sem_pred.cpu(), num_classes, radius)
+    kernel = lambda: instance_postprocess_sweep(sem_pred, radius=radius, num_classes=num_classes)  # noqa: E731
+    k_ms, earlier_ms, turns = time_in_turns(kernel, lambda: _launch_global(sem_pred, radius, 5, num_classes,
+                                                                           vectorized))
+    row = {}
+    if pp_layout(*sem_pred.shape)[0] == 'cluster':
+        # the cluster kernel's two widths in turns on the same planes
+        width = {t: (lambda t=t: _launch_cluster(sem_pred, radius, 5, num_classes, vectorized, t)) for t in (512, 1024)}
+        if not all(torch.equal(a, b) for a, b in zip(width[512](), width[1024]())):
+            raise AssertionError(f'{model}: the cluster kernel gives other outputs at 512 and 1024 threads')
+        row['ms_1024_threads'], row['ms_512_threads'], row['ms_turns_1024_threads'] = time_in_turns(width[1024],
+                                                                                                  width[512])
+    kernel()
+    note = route_note(instance_postprocess_sweep, pp_layout, None, sem_pred.shape)
+    if row:
+        note += (f'; 1024 threads {row["ms_1024_threads"]:.4f} ms (readings {row["ms_turns_1024_threads"][0]:.4f} / '
+                 f'{row["ms_turns_1024_threads"][1]:.4f}), 512 threads {row["ms_512_threads"]:.4f} ms in turns')
+    plain = instance_postprocess_vectorized_plain if vectorized else instance_postprocess_plain
+    p_ms = cuda_ms(lambda: plain(sem_pred, radius, 5, num_classes), reps=3, warmup=1)
+    b_ms, b_by = bound(name, sem_pred)
+    print(f'{model} main-path kernel {name} {tuple(sem_pred.shape)}: {k_ms:.4f} ms (readings {turns[0]:.4f} / '
+          f'{turns[1]:.4f}), earlier chain {earlier_ms:.4f} ms in turns ({earlier_ms / k_ms:.2f}x), plain {p_ms:.2f} '
+          f'ms, bound {b_ms * 1e3:.2f} us ({b_by}){note}', flush=True)
+    return dict(launches=launches, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, earlier_ms=earlier_ms,
+                ms_turns=turns, plane_route=list(instance_postprocess_sweep.last_route), **row)
 
 
 # -- phase 4: the HoVer-Net eval path --------------------------------------------------
@@ -1105,8 +1217,11 @@ def cdnet_main_path(args):
     standardize_classifier_(seg, img_t, 'sem', dgm.mask_conv, [0.0] * CONIC_CLASSES + [-1.0])
     background_bias_(seg, img_t, 'sem', dgm.mask_conv, foreground, share=0.4)
     runner = InferenceRunner(seg)
-    counters = {'instance_postprocess_vectorized': (instance_postprocess_sweep, 'vectorized_launches')}
-    out, (sem_pred,), launches, peak_gib = drive_once(runner, seg, '_device_instance_pp', imgs, hw, counters)
+    counters = {'instance_postprocess_vectorized': (instance_postprocess_sweep, 'vectorized_launches'),
+                'cluster route': (instance_postprocess_sweep, 'cluster_launches'),
+                'global route': (instance_postprocess_sweep, 'global_launches')}
+    out, (sem_pred,), launches, peak_gib = drive_once(runner, seg, '_device_instance_pp', imgs, hw, counters,
+                                                      expect={'global route': 0})
 
     want = instance_postprocess_vectorized_plain(sem_pred, CONIC_RADIUS, 5, CONIC_CLASSES)
     classes, n_inst, fg = check_instances('CDNet', out, want, n_img, hw, min_inst=100)
@@ -1124,13 +1239,7 @@ def cdnet_main_path(args):
     device_pp = seg._device_instance_pp
     time_path('CDNet', runner, seg, imgs, hw, lambda: device_pp(seg._device_sem_pred(fused)), args.cd_patch_batch)
     name = 'instance_postprocess_vectorized'
-    k_ms = cuda_ms(lambda: device_pp(sem_pred), reps=25)
-    p_ms = cuda_ms(lambda: instance_postprocess_vectorized_plain(sem_pred, CONIC_RADIUS, 5, CONIC_CLASSES), reps=3,
-                   warmup=1)
-    b_ms, b_by = bound(name, sem_pred)
-    print(f'CDNet main-path kernel {name} {tuple(sem_pred.shape)}: {k_ms:.4f} ms, plain {p_ms:.2f} ms, bound '
-          f'{b_ms * 1e3:.2f} us ({b_by})', flush=True)
-    return {name: dict(launches=launches[name], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)}
+    return {name: time_pp_main_path('CDNet', sem_pred, CONIC_RADIUS, CONIC_CLASSES, launches[name])}
 
 
 def multi_task_path(args, config: str, n_img: int, timed: bool):
@@ -1242,7 +1351,8 @@ def unet_postprocess_routes(args):
     sem_pred = torch.from_numpy(fused.argmax(-1).astype(np.int32)).cuda()
     want = instance_postprocess_plain(sem_pred)  # the exact per-class function, plain
     # (wrapper, counter, launches per image): every counter the route must move, and those it must not
-    routes = {True: [(instance_postprocess_sweep, 'launches', 1)],
+    routes = {True: [(instance_postprocess_sweep, 'launches', 1), (instance_postprocess_sweep, 'cluster_launches', 1),
+                     (instance_postprocess_sweep, 'global_launches', 0)],
               'xla': [(fill_holes_sweep, 'launches', 1), (ccl_sweep, 'launches', 2)],
               'pallas-rounds': [(fill_holes_rounds, 'launches', 1), (fill_holes_rounds, 'block_launches', 1),
                                 (fill_holes_rounds, 'global_launches', 0), (ccl_rounds, 'launches', 2),
@@ -1297,6 +1407,8 @@ def unet_postprocess_routes(args):
     print(f'UNet.postprocess routes: foreground {fg:.4f}, {n_inst} instances in {n_img} images, the three device '
           f'routes equal', flush=True)
 
+    # B1 on the 256^2 planes of device_postprocess True, one image a call, in turns against the earlier chain
+    time_pp_main_path('UNet.postprocess True', sem_pred[:1], 1, 2, launches['instance_postprocess_sweep.launches'])
     # the route's kernels on the planes it gave them for the first image, each in turns against its earlier chain
     mask = (sem_pred[:1] == 1).to(torch.int32)
     filled = fill_holes_rounds(mask).to(torch.int32)
@@ -1356,9 +1468,11 @@ def cunet_path(args):
     cls = seg.net.head.postprocess
     standardize_classifier_(seg, img_t, 'sem', cls, [0.0] * nc + [-1.0])  # the boundary class 1 below, as CDNet's
     background_bias_(seg, img_t, 'sem', cls, lambda p: (p.argmax(-1) > 0) & (p.argmax(-1) < nc), share=0.3)
-    counters = {'instance_postprocess_sweep': (instance_postprocess_sweep, 'launches')}
+    counters = {'instance_postprocess_sweep': (instance_postprocess_sweep, 'launches'),
+                'cluster route': (instance_postprocess_sweep, 'cluster_launches'),
+                'global route': (instance_postprocess_sweep, 'global_launches')}
     out, (sem_pred,), launches, peak_gib = drive_once(InferenceRunner(seg), seg, '_device_instance_pp', imgs, hw,
-                                                      counters)
+                                                      counters, expect={'global route': 0})
     want = instance_postprocess_plain(sem_pred, radius=3, num_classes=nc)
     if not (torch.equal(out['sem_pred'], want[0]) and torch.equal(out['inst_pred'], want[1])
             and out['inst_pred'].shape == (n_img, hw, hw)):
@@ -1450,6 +1564,7 @@ def main(argv=None) -> int:
     p.add_argument('--hover-patch-batch', type=int, default=32, help='HoVer-Net patches per network forward')
     p.add_argument('--cd-patch-batch', type=int, default=64,
                    help='CDNet and multi-task patches per network forward')
+    p.add_argument('--save-pp-planes', help="save the main paths' planes of B1 and B7 to this file")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1471,6 +1586,7 @@ def main(argv=None) -> int:
     print(f'built {sorted(_build.SOURCES.values())} in {time.perf_counter() - t0:.2f} s', flush=True)
     for name, kernel in (('tiseg_fused_decode', 'k_fused_decode'), ('tiseg_stencil', 'k_neighborhood'),
                          ('tiseg_ws', 'k_ws_cluster'), ('tiseg_mt_pp', 'k_mt_cluster'),
+                         ('tiseg_pp', 'k_pp_cluster'), ('tiseg_pp', 'k_pp_strip'),
                          ('tiseg_rounds', 'k_fill_block'), ('tiseg_rounds', 'k_ccl_cluster'),
                          ('tiseg_rounds', 'k_window_count')):
         for entry, regs, spills in ptxas_report(reports.get(name, '')):
@@ -1510,15 +1626,23 @@ def main(argv=None) -> int:
         inst = np.ascontiguousarray(inst[:, :h, :w])
         ws_in = hover_inputs(inst, args.seed)
         cases = watershed_cases(ws_in)
-        cases.update(checked_only(round_cases(torch.from_numpy((inst > 0).astype(np.int32)).cuda())))
+        x = torch.from_numpy((inst > 0).astype(np.int32)).cuda()
+        cases.update(checked_only({**pp_cases(x), **round_cases(x)}))
         case_sets[f'ragged{B}x{h}x{w}'] = (ws_in[0], None, cases)
         sem, seed = (np.ascontiguousarray(a[:, :h, :w]) for a in multiclass(B, 256, args.seed + 9000))
         x, seed = torch.from_numpy(sem).cuda(), torch.from_numpy(seed).cuda()
-        case_sets[f'7class-ragged{B}x{h}x{w}'] = (x, seed, checked_only(mt_cases(x, seed)))
-    # the round kernels on a 480^2 plane (B8b's block route, B8a's global chain) and at the round budget's
-    # boundary on a spiral (B8a's cluster and B8b's block route)
+        case_sets[f'7class-ragged{B}x{h}x{w}'] = (x, seed, checked_only({**vectorized_cases(x), **mt_cases(x, seed)}))
+    # a 480^2 plane: the round kernels (B8b's block route, B8a's global chain) and B1 and B7 (strip route); the
+    # round kernels at the round budget's boundary on a spiral (B8a's cluster and B8b's block route)
     x = torch.from_numpy(nuclei(1, 480, args.seed + 8000)[0]).cuda()
-    case_sets['conic480'] = (x, None, checked_only(round_cases(x)))
+    case_sets['conic480'] = (x, None, checked_only({**pp_cases(x), **round_cases(x)}))
+    x = torch.from_numpy(multiclass(1, 480, args.seed + 8000)[0]).cuda()
+    case_sets['7class-conic480'] = (x, None, checked_only(vectorized_cases(x)))
+    # batches of 1000^2 planes that B1's and B7's strips take in groups of planes, one launch per group
+    x = torch.from_numpy(nuclei(3, 1000, args.seed + 7100)[0]).cuda()
+    case_sets['conic3x1000'] = (x, None, checked_only(pp_cases(x)))
+    x = torch.from_numpy(multiclass(2, 1000, args.seed + 7100)[0]).cuda()
+    case_sets['7class-conic2x1000'] = (x, None, checked_only(vectorized_cases(x)))
     x = torch.from_numpy(spiral(64)[None].astype(np.int32)).cuda()
     case_sets['spiral64'] = (x, None, round_boundary_cases(x))
     max_err, timed = check_kernels(case_sets)
@@ -1556,6 +1680,9 @@ def main(argv=None) -> int:
     cunet_path(args)
     print(f'UNet.postprocess routes and CUNet phase: {time.perf_counter() - t0:.1f} s', flush=True)
     stats['neighborhood_3x3'] = stencil_yardstick(case_sets, timed)
+    if args.save_pp_planes:
+        os.makedirs(os.path.dirname(os.path.abspath(args.save_pp_planes)), exist_ok=True)
+        torch.save(PP_PLANES, args.save_pp_planes)
 
     keys = ('launches', 'ms', 'plain_ms', 'bound_ms', 'bound_by')
     kernels = [dict(name=name, route='cuda', source=src, replaces=rep, max_abs_err=max_err[name],

@@ -85,11 +85,10 @@ def test_per_class_loop_matches_jax():
     assert set(np.unique(want_s)) == {0, 1, 2}
 
 
-def test_vectorized_multiclass_not_ported():
-    """The name dates from when num_classes > 2 with the JAX default
-    ``multiclass_vectorized=True`` raised in the port: now it runs the
-    class-vectorized pipeline (held against JAX in
-    test_torch_instance_pp_multiclass.py) and no longer raises."""
+def test_three_classes_take_the_vectorized_pipeline():
+    """num_classes > 2 with the JAX default ``multiclass_vectorized=True``
+    runs the class-vectorized pipeline (held against JAX in
+    test_torch_instance_pp_multiclass.py)."""
     planes = np.where(blob_planes(6, 1, 64) > 0, 2, blob_planes(5, 1, 64)).astype(np.int32)
     want_s, want_i = _jax(planes, num_classes=3)
     got_s, got_i = instance_postprocess_sweep(torch.from_numpy(planes), num_classes=3)
@@ -117,14 +116,28 @@ def test_partition_matches_host_postprocess(case):
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain():
+    """Two classes: the cluster route on 256^2 and ragged planes, the strip
+    route on 1000^2 planes (two groups of planes for three), and the global
+    chain of the per-class loop, each against the plain version."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')
+    from tiseg_tpu_torch.ops.instance_pp import _launch_global, pp_route
+    fn = instance_postprocess_sweep
     planes = np.concatenate([hard_planes(256), blob_planes(0, 4, 256, n=150),
                              np.stack([make_nuclei(i)[1] for i in range(4)]).astype(np.int32)])
-    x = torch.from_numpy(planes).cuda()
-    before = instance_postprocess_sweep.launches
-    s, i = instance_postprocess_sweep(x)
-    torch.cuda.synchronize()
-    assert instance_postprocess_sweep.launches == before + 1
-    ps, pi = instance_postprocess_plain(x)
-    assert torch.equal(s, ps) and torch.equal(i, pi)
+    big = np.stack([make_nuclei(20 + i, 1000, 2288)[1] for i in range(3)]).astype(np.int32)
+    for x, route in ((planes, 'cluster'), (np.ascontiguousarray(planes[:, 3:104, 5:82]), 'cluster'),
+                     (big[:1], 'strip'), (big, 'strip')):
+        x = torch.from_numpy(x).cuda()
+        want = pp_route(*x.shape, sms=torch.cuda.get_device_properties(0).multi_processor_count)
+        before = (fn.launches, fn.cluster_launches, fn.strip_launches, fn.global_launches)
+        s, i = fn(x)
+        torch.cuda.synchronize()
+        after = (fn.launches, fn.cluster_launches, fn.strip_launches, fn.global_launches)
+        n = want.launches
+        assert want.route == route and fn.last_route[0] == route
+        assert tuple(a - b for a, b in zip(after, before)) == ((n, n, 0, 0) if route == 'cluster' else (n, 0, n, 0))
+        ps, pi = instance_postprocess_plain(x)
+        assert torch.equal(s, ps) and torch.equal(i, pi)
+        cs, ci = _launch_global(x)
+        assert torch.equal(cs, ps) and torch.equal(ci, pi) and fn.last_route[0] == 'global'

@@ -1,5 +1,6 @@
-"""The PyTorch port imports no JAX, no flax and nothing of the JAX package.
-Checked with ``ast`` on the sources, without importing them."""
+"""The PyTorch port, and the scripts that drive it on a card, import no
+JAX, no flax and nothing of the JAX package. Checked with ``ast`` on the
+sources, without importing them."""
 import ast
 import os
 import os.path as osp
@@ -11,7 +12,7 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tiseg_tpu')
 
 
 def _sources():
-    files = [osp.join(ROOT, 'chip_smoke.py')]
+    files = [osp.join(ROOT, 'chip_smoke.py'), osp.join(ROOT, 'tools', 'pp_phases.py')]
     for d, _, names in os.walk(osp.join(ROOT, 'tiseg_tpu_torch')):
         files += [osp.join(d, n) for n in sorted(names) if n.endswith('.py')]
     return sorted(files)

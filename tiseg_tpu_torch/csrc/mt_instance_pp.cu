@@ -49,7 +49,7 @@
 //
 // Bound on this card: read two int32 planes, write a uint8 and an int32
 // plane, 13 bytes per pixel at 3.35 TB/s; or 8 compares per pixel and wave.
-#include "cluster.cuh"
+#include "pieces.cuh"
 #include "uf.cuh"
 
 namespace {
@@ -107,180 +107,7 @@ __global__ void k_grow(const int* __restrict__ cur, int* __restrict__ nxt, const
   nxt[i] = v;
 }
 
-
-// -- cluster route -----------------------------------------------------------------
-
-constexpr int kClusterThreads = 512;  // threads per block: two blocks fit an SM at 64 registers
-constexpr int kMaxPerThread = kMaxBlockPixels / kClusterThreads;  // bits of a thread's 64-bit pixel masks
-
-// In-plane indices i of a plane spread over a cluster: rank i / RW holds
-// pixel i at offset i % RW of each array; this block's pixels start at i0.
-struct Plane {
-  int i0, RW;
-  // Pointer to pixel i of the array `a` (the same offset in every block):
-  // this block's own shared memory directly, a peer's through distributed
-  // shared memory.
-  template <typename T>
-  __device__ __forceinline__ T* at(T* a, int i) const {
-    const unsigned off = (unsigned)(i - i0);
-    if (off < (unsigned)RW) return a + off;
-    const int r = i / RW;
-    return cg::this_cluster().map_shared_rank(a, r) + (i - r * RW);
-  }
-};
-
-// A load that sees other threads' and blocks' stores and atomics to the
-// cluster's shared memory: relaxed at cluster scope (a volatile load is
-// relaxed at system scope).
-__device__ __forceinline__ int ld_relaxed(const int* ptr) {
-  int v;
-  asm volatile("ld.relaxed.cluster.u32 %0, [%1];" : "=r"(v) : "l"(ptr) : "memory");
-  return v;
-}
-
-// Root of i in the distributed parents `par` (parents only ever decrease);
-// path halving that only lowers a parent, as uf.cuh.
-__device__ __forceinline__ int dfind(const Plane& pl, int* par, int i) {
-  int p = ld_relaxed(pl.at(par, i));
-  while (p != i) {
-    const int gp = ld_relaxed(pl.at(par, p));
-    if (gp < p) atomicMin(pl.at(par, i), gp);
-    i = p;
-    p = gp;
-  }
-  return i;
-}
-
-// Playne & Hawick's lock-free union on distributed parents.
-__device__ __forceinline__ void dunite(const Plane& pl, int* par, int a, int b) {
-  while (true) {
-    a = dfind(pl, par, a);
-    b = dfind(pl, par, b);
-    if (a == b) return;
-    if (a > b) {
-      const int t = a;
-      a = b;
-      b = t;
-    }
-    const int old = atomicMin(pl.at(par, b), a);
-    if (old == b) return;
-    b = old;
-  }
-}
-
-__device__ __forceinline__ int class_of(int v, int num_classes) { return v >= 1 && v < num_classes ? v : 0; }
-
-// Warp aggregation. Every lane of a warp calls these with its key (a root
-// or a parent) and whether its pixel takes part. Consecutive lanes hold
-// consecutive pixels, so lanes of one region come in runs: each run of
-// taking-part lanes with an equal key is a group whose first lane makes the
-// one access for all of them (a ballot of the run heads, no match.any).
-// *count receives the group's size at its leader.
-__device__ __forceinline__ int group_leader(int key, bool valid, int* count) {
-  const int lane = threadIdx.x & 31;
-  const int prev = __shfl_up_sync(0xffffffffu, key, 1);
-  const bool prev_valid = __shfl_up_sync(0xffffffffu, (int)valid, 1) != 0;
-  const unsigned valid_mask = __ballot_sync(0xffffffffu, valid);
-  const unsigned heads = __ballot_sync(0xffffffffu, valid && (lane == 0 || !prev_valid || prev != key));
-  const unsigned upto = heads & (0xffffffffu >> (31 - lane));
-  const int leader = upto ? 31 - __clz(upto) : 0;
-  // the group ends before the first lane above its leader that is a head or does not take part
-  const unsigned bound = (heads | ~valid_mask) & ~((2u << leader) - 1u);
-  *count = bound ? __ffs(bound) - 1 - leader : 32 - leader;
-  return leader;
-}
-
-// a[g] of a root g (read once per group).
-__device__ __forceinline__ int group_read(const Plane& pl, int* a, int g, bool valid) {
-  int cnt;
-  const int leader = group_leader(g, valid, &cnt);
-  int v = 0;
-  if (valid && (int)(threadIdx.x & 31) == leader) v = ld_relaxed(pl.at(a, g));
-  return __shfl_sync(0xffffffffu, v, leader);
-}
-
-// Parents of a block's pixels after the horizontal pass of a labelling:
-// each pixel's run start, the first pixel of its run of equal `key` in its
-// row (in-plane index). A warp's 32 consecutive pixels find their starts by
-// a ballot; a run that began in an earlier 32-pixel chunk is found by
-// looking back over the chunks' last starts, kept in `scratch` (one int per
-// chunk). Every row start is a run start, so the look-back stays within a
-// row.
-__device__ __forceinline__ void run_starts(const uint8_t* key, int* P, int* scratch, int n, int W, int i0) {
-  const int lane = threadIdx.x & 31;
-  for (int p = threadIdx.x; p - lane < n; p += kClusterThreads) {
-    const bool start = p < n && (p % W == 0 || key[p - 1] != key[p]);
-    const unsigned ballot = __ballot_sync(0xffffffffu, start);
-    const unsigned upto = ballot & (0xffffffffu >> (31 - lane));
-    if (p < n) P[p] = upto ? i0 + p - lane + 31 - __clz(upto) : -1;
-    if (lane == 0) scratch[p >> 5] = ballot ? p + 31 - __clz(ballot) : -1;
-  }
-  __syncthreads();
-  for (int p = threadIdx.x; p < n; p += kClusterThreads) {
-    if (P[p] >= 0) continue;
-    int r = -1;
-    for (int c = (p >> 5) - 1; r < 0; --c) r = scratch[c];
-    P[p] = i0 + r;
-  }
-  __syncthreads();
-}
-
-// The rest of a labelling of the 4-components of equal nonzero `key` over
-// the plane (pixels of key 0 stay in their runs), after run_starts: unions
-// of vertically adjacent runs inside the block (one per pair of overlapping
-// runs: a pixel skips the union its left neighbour makes), flattening to the
-// piece roots (a block's pieces are the components of its own rows), then,
-// after a cluster barrier, unions of the pieces across the border with the
-// row above. Unions start from the run starts and piece roots that the
-// pixels point to, never from the pixels, so a pixel's own entry only
-// changes when it is flattened, and no run start takes the path-halving
-// writes of all its pixels. Returns the mask of this thread's pixels that
-// are piece roots. `sizes`: if not null, each piece's pixels with a key
-// other than 0 are counted at its root.
-__device__ __forceinline__ unsigned long long label_pieces(const Plane& pl, const uint8_t* key, const uint8_t* up_key,
-                                                           int* P, const int* up_P, int* sizes, int n, int W,
-                                                           int top) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int i0 = pl.i0, lane = threadIdx.x & 31;
-  for (int p = threadIdx.x + W; p < n; p += kClusterThreads) {
-    const int v = key[p];
-    if (v && key[p - W] == v && !(p % W > 0 && key[p - 1] == v && key[p - 1 - W] == v)) dunite(pl, P, P[p], P[p - W]);
-  }
-  __syncthreads();
-  for (int p = threadIdx.x; p < n; p += kClusterThreads)
-    if (p % W == 0 || key[p - 1] != key[p]) P[p] = dfind(pl, P, i0 + p);  // run starts first
-  __syncthreads();
-  unsigned long long root = 0;
-#pragma unroll
-  for (int k = 0; k < kMaxPerThread; ++k) {
-    const int p = threadIdx.x + k * kClusterThreads;
-    if (p - lane >= n) break;
-    const bool in = p < n;
-    int lr = 0;
-    if (in) {
-      lr = P[p];
-      if (lr == i0 + p) {
-        root |= 1ull << k;
-      } else if (!(p % W == 0 || key[p - 1] != key[p])) {
-        lr = P[lr - i0];  // the run start's root
-        P[p] = lr;
-      }
-    }
-    if (sizes) {
-      const bool counted = in && key[p] != 0;
-      int cnt;
-      const int leader = group_leader(lr, counted, &cnt);
-      if (counted && lane == leader) atomicAdd(sizes + (lr - i0), cnt);
-    }
-  }
-  cluster.sync();  // every block's pieces are final
-  for (int p = threadIdx.x; p < top; p += kClusterThreads) {
-    const int v = key[p];
-    if (v && up_key[p] == v && !(p > 0 && key[p - 1] == v && up_key[p - 1] == v)) dunite(pl, P, P[p], up_P[p]);
-  }
-  cluster.sync();
-  return root;
-}
+// -- cluster route (labelling helpers in pieces.cuh) ----------------------------------
 
 // One cluster per plane. waves_out[b]: the growth waves run on plane b.
 //

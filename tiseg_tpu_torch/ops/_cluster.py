@@ -1,11 +1,14 @@
 """Route choice for the plane-resident kernels (``csrc/cluster.cuh``).
 
-The watershed (B5), the multi-task recovery (B6) and the round-bounded
-labels (B8a) hold a plane in the distributed shared memory of one
-thread-block cluster when its rows fit: block ``r`` of ``CLUSTER`` keeps
+The watershed (B5), the multi-task recovery (B6), the round-bounded
+labels (B8a) and the instance recovery (B1, B7) hold a plane in the
+distributed shared memory of one thread-block cluster when its rows fit: block ``r`` of ``CLUSTER`` keeps
 rows ``[r*R, (r+1)*R)``, ``R = ceil(H / CLUSTER)``, as ``SMALL_PLANES``
-uint8 arrays and ``WORD_PLANES`` int32 arrays, the same layout in the three
-kernels. Larger planes take the kernels' global-memory chains.
+uint8 arrays and ``WORD_PLANES`` int32 arrays, the same layout in every
+such kernel (:func:`layout_bytes`). Larger planes take the kernels'
+global-memory chains, or for B1 and B7 the strip route of
+``instance_pp.py:pp_route``, whose blocks hold strips of rows in the same
+layout.
 :func:`cluster_route` is the one pure function the wrappers (and the CPU
 tests) ask; it mirrors ``cluster.cuh``'s
 ``cluster_smem_bytes``, with which the CUDA entry points size the layout
@@ -29,13 +32,20 @@ class Route(NamedTuple):
     smem_bytes: int  # dynamic shared memory per block (0 on the global route)
 
 
+def layout_bytes(R: int, W: int) -> int:
+    """Dynamic shared bytes per block for R rows of W pixels, or 0 when they
+    do not fit a block (``cluster.cuh:cluster_smem_bytes``)."""
+    held = R * W
+    smem = (SMALL_PLANES * held + 15) // 16 * 16 + 4 * WORD_PLANES * held + CTL_BYTES
+    return 0 if held > MAX_BLOCK_PIXELS or smem > SMEM_PER_BLOCK - STATIC_BYTES else smem
+
+
 def cluster_route(B: int, H: int, W: int) -> Route:
     """Route of a (B, H, W) batch: 'cluster' with its cluster size and
     shared bytes per block when a block's rows fit its shared memory, else
     'global'."""
-    held = -(-H // CLUSTER) * W
-    smem = (SMALL_PLANES * held + 15) // 16 * 16 + 4 * WORD_PLANES * held + CTL_BYTES
-    if B * H * W == 0 or held > MAX_BLOCK_PIXELS or smem > SMEM_PER_BLOCK - STATIC_BYTES:
+    smem = layout_bytes(-(-H // CLUSTER), W)
+    if B * H * W == 0 or smem == 0:
         return Route('global', 0, 0)
     return Route('cluster', CLUSTER, smem)
 

@@ -6,15 +6,23 @@ Port of ``tiseg_tpu/ops/pallas_sweep.py:instance_postprocess_sweep`` with
 both of its plane functions: the per-class loop (``_instance_pp_plane``)
 and the class-vectorized pipeline (``_multiclass_pp_plane``), which fills
 every class's holes into one class plane (the highest class wins) and then
-runs one class-aware CCL -> size filter -> CCL -> dilation chain. The CUDA
-kernels (``csrc/instance_pp.cu``) run union-find connected components over
-device memory, one thread per pixel. Their bound is the bytes they must
-move: read the int32 semantic plane, write the uint8 semantic and int32
-instance planes, 9 bytes per pixel (the vectorized one also does one
-compare per disk cell and pixel). The TPU kernel's row/column log-doubling
-sweeps and its per-plane VMEM residency do not carry over (a 256^2 int32
-plane is larger than a block's shared memory), and union-find is exact for
-every geodesic, so the sweep caps are not needed.
+runs one class-aware CCL -> size filter -> CCL -> dilation chain. With two
+classes both give the same outputs.
+
+On the card (``csrc/instance_pp.cu``) the class-vectorized pipeline, and
+the per-class loop with two classes (B1 on the UNet paths, B7 on CDNet),
+run one plane-resident kernel on the route that :func:`pp_route` gives:
+'cluster' for planes up to 408^2 (one launch per batch, one cluster of 8
+blocks per plane, the state in distributed shared memory), 'strip' for
+larger ones (one cooperative launch per group of planes, each block a
+strip of rows in its shared memory, only the pieces that meet across the
+strip borders in device memory). The per-class loop with more classes
+keeps the earlier chains of union-find launches over device memory (the
+private :func:`_launch_global`, also the yardstick the smoke run times
+the routes against). The bound is the bytes the function must move: read
+the int32 semantic plane, write the uint8 semantic and int32 instance
+planes, 9 bytes per pixel (the vectorized one also does one compare per
+disk cell and pixel).
 
 :func:`instance_postprocess_plain` and
 :func:`instance_postprocess_vectorized_plain` are the same functions in
@@ -23,12 +31,21 @@ plain PyTorch tensor ops; the wrapper uses them only for tensors on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-from ._build import raise_on_error
+from ._build import bind, device_guard, raise_on_error, raw_stream
+from ._cluster import CLUSTER, MAX_BLOCK_PIXELS, STATIC_BYTES, cluster_route, layout_bytes
 
 _INT32_MAX = 2 ** 31 - 1
+H100_SMS = 132  # SMs of an H100 SXM
+SMEM_PER_SM = 233_472  # shared memory of an SM on sm_90 (228 KB)
+BLOCK_RESERVED = 1024  # shared memory the runtime reserves per block
+STRIP_THREADS = 1024  # threads per block of the strip kernel
+BLOCKS_PER_SM = 1  # the strip kernel's __launch_bounds__(1024, 1): 1024 threads of up to 64 registers
+MIN_STRIP_ROWS = 8  # instance_pp.cu:kMinStripRows
 _N4 = ((1, 0), (-1, 0), (0, 1), (0, -1))
 _N8 = _N4 + ((1, 1), (1, -1), (-1, 1), (-1, -1))
 
@@ -153,41 +170,143 @@ def instance_postprocess_vectorized_plain(sem: torch.Tensor, radius: int = 1, mi
     return sem_out.to(torch.uint8), inst
 
 
-def _lib():
-    """The built kernel library, with its C signatures declared."""
-    from ._build import load
-    lib = load('tiseg_pp')
-    lib.tiseg_instance_pp.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.tiseg_instance_pp_vectorized.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.tiseg_instance_pp.restype = lib.tiseg_instance_pp_vectorized.restype = ctypes.c_int
-    return lib
+class PPRoute(NamedTuple):
+    route: str  # 'cluster', 'strip' or 'none' (no route fits the plane)
+    rows: int  # rows of a plane per block
+    blocks: int  # blocks per plane: the cluster size, or the strips
+    smem_bytes: int  # dynamic shared memory per block
+    planes: int  # planes per launch
+    launches: int  # launches for the batch
 
 
-def _launch_cuda(sem: torch.Tensor, radius: int, min_size: int, num_classes: int, vectorized: bool):
-    lib = _lib()
-    B, H, W = sem.shape
-    with torch.cuda.device(sem.device):
-        sem_out = torch.empty((B, H, W), dtype=torch.uint8, device=sem.device)
-        inst_out = torch.empty((B, H, W), dtype=torch.int32, device=sem.device)
-        par = torch.empty_like(inst_out)
-        aux = torch.empty_like(inst_out)
-        m = torch.empty_like(sem_out)
-        stream = torch.cuda.current_stream(sem.device).cuda_stream
-        if vectorized:
-            cls = torch.empty_like(sem_out)
-            err = lib.tiseg_instance_pp_vectorized(sem.data_ptr(), sem_out.data_ptr(), inst_out.data_ptr(),
-                                                   par.data_ptr(), aux.data_ptr(), m.data_ptr(), cls.data_ptr(),
-                                                   B, H, W, num_classes, radius, min_size, stream)
-        else:
-            err = lib.tiseg_instance_pp(sem.data_ptr(), sem_out.data_ptr(), inst_out.data_ptr(), par.data_ptr(),
-                                        aux.data_ptr(), m.data_ptr(), B, H, W, num_classes, radius, min_size,
-                                        stream)
-    raise_on_error(lib, err, 'instance_postprocess_sweep')
+def strip_rows(H: int, W: int, sms: int) -> int:
+    """Rows per strip on a card of ``sms`` SMs: about one strip per SM, at
+    least ``MIN_STRIP_ROWS``, at most what a block's layout holds; 0 when
+    not one row fits (``instance_pp.cu:strip_rows``)."""
+    fit = min(H, MAX_BLOCK_PIXELS // W) if W > 0 else 0
+    while fit > 0 and layout_bytes(fit, W) == 0:
+        fit -= 1
+    return min(max(-(-H // sms), MIN_STRIP_ROWS), fit) if fit else 0
+
+
+@functools.lru_cache(maxsize=64)
+def pp_route(B: int, H: int, W: int, sms: int = H100_SMS) -> PPRoute:
+    """Route of the plane-resident kernel on a (B, H, W) batch, on a card of
+    ``sms`` SMs: 'cluster' (one launch, one cluster of 8 blocks per plane)
+    where :func:`._cluster.cluster_route` admits the plane; else 'strip'
+    (blocks of ``rows`` rows, all of a launch resident at once: at most
+    ``BLOCKS_PER_SM`` per SM by the kernel's launch bounds, fewer where
+    their shared memory does not fit the SM's, so the batch runs in groups
+    of ``planes``); 'none' when not one row fits a block, or the batch is
+    empty."""
+    if B * H * W == 0:
+        return PPRoute('none', 0, 0, 0, 0, 0)
+    if cluster_route(B, H, W).route == 'cluster':
+        R = -(-H // CLUSTER)
+        return PPRoute('cluster', R, CLUSTER, layout_bytes(R, W), B, 1)
+    S = strip_rows(H, W, sms)
+    if S == 0:
+        return PPRoute('none', 0, 0, 0, 0, 0)
+    strips, smem = -(-H // S), layout_bytes(S, W)
+    per_sm = min(BLOCKS_PER_SM, SMEM_PER_SM // (smem + STATIC_BYTES + BLOCK_RESERVED))
+    planes = min(B, per_sm * sms // strips)
+    if planes == 0:
+        return PPRoute('none', 0, 0, 0, 0, 0)
+    return PPRoute('strip', S, strips, smem, planes, -(-B // planes))
+
+
+_ARGS_GLOBAL = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS_GLOBAL_VEC = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGS_CLUSTER = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+_ARGS_STRIP = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+
+
+def _count(vectorized: bool, route: str, n: int, layout) -> None:
+    fn = instance_postprocess_sweep
     if vectorized:
-        instance_postprocess_sweep.vectorized_launches += 1
+        fn.vectorized_launches += n
     else:
-        instance_postprocess_sweep.launches += 1
+        fn.launches += n
+    setattr(fn, f'{route}_launches', getattr(fn, f'{route}_launches') + n)
+    fn.last_route = (route, *layout)
+
+
+def _outputs(sem: torch.Tensor):
+    return (torch.empty(sem.shape, dtype=torch.uint8, device=sem.device),
+            torch.empty(sem.shape, dtype=torch.int32, device=sem.device))
+
+
+def _launch_global(sem: torch.Tensor, radius: int = 1, min_size: int = 5, num_classes: int = 2,
+                   vectorized: bool = False):
+    """The earlier chains of union-find launches over device memory, one
+    thread per pixel, on any (B, H, W) CUDA batch of int32 planes: the
+    per-class loop, or with ``vectorized`` the class-vectorized pipeline."""
+    B, H, W = sem.shape
+    sem_out, inst_out = _outputs(sem)
+    par, aux = torch.empty_like(inst_out), torch.empty_like(inst_out)
+    m, cls = torch.empty_like(sem_out), torch.empty_like(sem_out)
+    with device_guard(sem.device):
+        if vectorized:
+            entry = bind('tiseg_pp', 'tiseg_instance_pp_vectorized', _ARGS_GLOBAL_VEC)
+            err = entry(sem.data_ptr(), sem_out.data_ptr(), inst_out.data_ptr(), par.data_ptr(), aux.data_ptr(),
+                        m.data_ptr(), cls.data_ptr(), B, H, W, num_classes, radius, min_size, raw_stream(sem.device))
+        else:
+            entry = bind('tiseg_pp', 'tiseg_instance_pp', _ARGS_GLOBAL)
+            err = entry(sem.data_ptr(), sem_out.data_ptr(), inst_out.data_ptr(), par.data_ptr(), aux.data_ptr(),
+                        m.data_ptr(), B, H, W, num_classes, radius, min_size, raw_stream(sem.device))
+    raise_on_error('tiseg_pp', err, 'instance_postprocess_sweep (global route)')
+    _count(vectorized, 'global', 1, (0, 0, 0, 0, 0))
     return sem_out, inst_out
+
+
+def _launch_cluster(sem: torch.Tensor, radius: int, min_size: int, num_classes: int, vectorized: bool,
+                    threads: int = 0):
+    """One launch, one cluster per plane: 1024 threads per block where the
+    batch's clusters are all resident at one block per SM, else 512;
+    ``threads`` (512 or 1024) takes that width."""
+    entry = bind('tiseg_pp', 'tiseg_instance_pp_cluster', _ARGS_CLUSTER)
+    B, H, W = sem.shape
+    sem_out, inst_out = _outputs(sem)
+    info = (ctypes.c_int * 3)()  # shared bytes per block, clusters resident, threads per block
+    with device_guard(sem.device):
+        err = entry(sem.data_ptr(), sem_out.data_ptr(), inst_out.data_ptr(), B, H, W, num_classes, radius, min_size,
+                    threads, ctypes.cast(info, ctypes.c_void_p), raw_stream(sem.device))
+    raise_on_error('tiseg_pp', err, 'instance_postprocess_sweep (cluster route)')
+    _count(vectorized, 'cluster', 1, (-(-H // CLUSTER), CLUSTER, *info))
+    return sem_out, inst_out
+
+
+def _launch_strip(sem: torch.Tensor, radius: int, min_size: int, num_classes: int, vectorized: bool,
+                  route: PPRoute):
+    """One cooperative launch per group of ``route.planes`` planes, all on
+    one scratch buffer."""
+    entry = bind('tiseg_pp', 'tiseg_instance_pp_strip', _ARGS_STRIP)
+    B, H, W = sem.shape
+    G, HW = route.planes, H * W
+    sem_out, inst_out = _outputs(sem)
+    scratch_bytes = 17 * G * HW + 32 * G * route.blocks
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=sem.device)
+    info = (ctypes.c_int * 4)()  # rows per strip, strips per plane, shared bytes per block, blocks resident
+    stream = raw_stream(sem.device)
+    ptrs = sem.data_ptr(), sem_out.data_ptr(), inst_out.data_ptr()
+    with device_guard(sem.device):
+        for b in range(0, B, G):
+            err = entry(ptrs[0] + 4 * b * HW, ptrs[1] + b * HW, ptrs[2] + 4 * b * HW, scratch.data_ptr(),
+                        scratch_bytes, min(G, B - b), H, W, num_classes, radius, min_size,
+                        ctypes.cast(info, ctypes.c_void_p), stream)
+            raise_on_error('tiseg_pp', err, 'instance_postprocess_sweep (strip route)')
+            _count(vectorized, 'strip', 1, (*info, STRIP_THREADS))
+    return sem_out, inst_out
+
+
+_sms = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
 
 
 def instance_postprocess_sweep(sem_pred: torch.Tensor, radius: int = 1, min_size: int = 5,
@@ -205,12 +324,21 @@ def instance_postprocess_sweep(sem_pred: torch.Tensor, radius: int = 1, min_size
     per-class loop on nested multi-class enclosures (see
     :func:`instance_postprocess_vectorized_plain`) and counts its launches
     in ``vectorized_launches``; ``multiclass_vectorized=False`` runs the
-    per-class loop.
+    per-class loop (``launches``).
 
-    A CUDA tensor runs the CUDA kernel (or raises); a CPU tensor runs the
-    plain version. ``sweeps`` and ``fill_sweeps`` are accepted for the JAX
-    signature and not needed: both versions are exact for every geodesic,
-    where the JAX kernel is exact up to those caps.
+    A CUDA tensor runs a CUDA kernel or raises. The class-vectorized
+    pipeline, and the per-class loop with two classes (the same outputs),
+    take the plane-resident kernel on the route :func:`pp_route` gives
+    (``cluster_launches``, ``strip_launches``; a plane no route fits
+    raises); the per-class loop with more classes takes the earlier global
+    chain (``global_launches``). ``last_route`` holds the last call's
+    route, rows per block, blocks per plane, shared bytes per block,
+    clusters or blocks resident at once and threads per block (the cluster
+    route takes 1024 where the batch's clusters are all resident at one
+    block per SM, else 512). A CPU tensor runs the plain version.
+    ``sweeps`` and ``fill_sweeps`` are accepted for the JAX signature and
+    not needed: every version is exact for every geodesic, where the JAX
+    kernel is exact up to those caps.
     """
     del sweeps, fill_sweeps
     vectorized = num_classes > 2 and multiclass_vectorized
@@ -228,7 +356,18 @@ def instance_postprocess_sweep(sem_pred: torch.Tensor, radius: int = 1, min_size
         raise ValueError(f'{num_classes} classes do not fit the uint8 semantic plane')
     sem = sem_pred.to(torch.int32).contiguous()
     if sem.is_cuda:
-        sem_out, inst_out = _launch_cuda(sem, radius, min_size, num_classes, vectorized)
+        if sem.numel() == 0:
+            sem_out, inst_out = _outputs(sem)
+        elif vectorized or num_classes <= 2:
+            route = pp_route(B, H, W, _sm_count(sem.device))
+            if route.route == 'cluster':
+                sem_out, inst_out = _launch_cluster(sem, radius, min_size, num_classes, vectorized)
+            elif route.route == 'strip':
+                sem_out, inst_out = _launch_strip(sem, radius, min_size, num_classes, vectorized, route)
+            else:
+                raise ValueError(f'no route of instance_postprocess_sweep fits {B}x{H}x{W} planes')
+        else:
+            sem_out, inst_out = _launch_global(sem, radius, min_size, num_classes, vectorized)
     elif sem.device.type == 'cpu':
         plain = instance_postprocess_vectorized_plain if vectorized else instance_postprocess_plain
         sem_out, inst_out = plain(sem, radius, min_size, num_classes)
@@ -237,5 +376,7 @@ def instance_postprocess_sweep(sem_pred: torch.Tensor, radius: int = 1, min_size
     return (sem_out[0], inst_out[0]) if squeeze else (sem_out, inst_out)
 
 
-instance_postprocess_sweep.launches = 0
-instance_postprocess_sweep.vectorized_launches = 0
+instance_postprocess_sweep.launches = instance_postprocess_sweep.vectorized_launches = 0
+instance_postprocess_sweep.cluster_launches = instance_postprocess_sweep.strip_launches = 0
+instance_postprocess_sweep.global_launches = 0
+instance_postprocess_sweep.last_route = ('', 0, 0, 0, 0, 0)
