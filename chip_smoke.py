@@ -33,6 +33,16 @@
    pp_route's. Their timed cases on the
    cluster and strip routes are timed in turns against the earlier global
    chain on the same inputs.
+   On every binary set (a 3 x 5 x 9 set among them) B2 on the route of
+   ops/flood.py:ccl_route (cluster for two planes or more up to 408^2, else
+   the global chain) and its other routes forced, ccl_filter_sweep at
+   min_size 0, 1, 2, 10 and 20 (one fused cluster launch where 4-connected,
+   else B2 then B4), both also on views 8 bytes past a 16-byte boundary,
+   and B4 on the tile route of ops/flood.py:filter_route and its global
+   kernel forced, each bit-exact with its launches per route held against
+   the route functions; B4's global route at min_size 106 (a halo no
+   block holds). B2 and B4 (min_size 10) are timed in turns against their
+   earlier kernels on the timed sets.
    On the binary planes also the
    round-bounded ccl_rounds (B8a, both connectivities, 64 and 128 rounds) and
    fill_holes_rounds (B8b, H + W and 16 rounds), whose un-converged results
@@ -67,10 +77,13 @@
    float32, seeded weights and BN statistics): 16 images of 256^2 at CoNIC
    density, 8 dihedral views (128 patches), softmax mean of sem/fore,
    first-view HV maps, and the HoVer post-processing through B2-B5, whose
-   launch counts are read from that run alone (B5: one cluster-route
-   launch, no global one). The instances are checked bit for bit against
-   the same post-processing with the plain versions on the same fused maps.
-   B5 is timed on the main path's inputs in turns: cluster route, the
+   launch counts are read from that run alone (B2: two cluster-route
+   launches, each with B4's size filter fused, no separate size filter; B5:
+   one cluster-route launch, no global one). The instances are checked bit
+   for bit against the same post-processing with the plain versions on the
+   same fused maps. B2, the fused call and B4's tile route are timed on the
+   main path's first inputs in turns against the earlier chains (ms per
+   call and device time per launch), B5 in turns: cluster route, the
    earlier chain of one launch per wave, cluster route again.
 
 5. Drives the CDNet eval path once through InferenceRunner at the full
@@ -92,7 +105,9 @@
    on its cluster route, one launch per image; timed in turns against its
    earlier chain on one image, and the cluster kernel at 1024 threads per
    block against 512, as on the CDNet batch),
-   'xla' (B3 once and B2 twice per image) and 'pallas-rounds' (B8b once on
+   'xla' (B3 once and B2 twice per image on its global chain: ccl_route
+   sends a single plane there; on the first image's plane the chain's and
+   the cluster kernel's launches in turns) and 'pallas-rounds' (B8b once on
    its block route, B8a twice on its cluster route, the window count once,
    no global chain, per image): each bit-exact against its plain version
    ('pallas-rounds' against the plain versions of all three, which launch
@@ -101,8 +116,9 @@
    window count as tensor ops). On the first image's planes B8b, B8a and
    the window count are timed in turns against their earlier versions.
    With --save-pp-planes, the semantic planes that B1 and B7 get on the
-   UNet, CDNet and UNet.postprocess paths are saved to PATH (the input of
-   tools/pp_phases.py).
+   UNet, CDNet and UNet.postprocess paths, and the masks that B2 gets on
+   the HoVer-Net and 'xla' paths, are saved to PATH (the input of
+   tools/pp_phases.py and tools/flood_phases.py).
 8. Two images through CUNet (executor on, boundary class stripped, radius 3,
    B1 on its cluster route), checked against the unfolded net and the plain
    post-processor.
@@ -148,7 +164,7 @@ UNBOUNDED = 10 ** 6  # a round budget no plane here exhausts
 CONIC_CLASSES, CONIC_RADIUS, ALIGN_TIME = 7, 3, 20  # the CoNIC recipes' post-processing settings
 CONIC_BATCH, CONIC_HW = 16, 256  # images per timed CDNet / MultiTaskCDNet batch, and their size
 PP_ROUTES = ('cluster', 'strip', 'global')  # the routes of B1 and B7
-PP_PLANES = {}  # the main paths' planes of B1 and B7: name -> (planes, num_classes, radius)
+PP_PLANES = {}  # the main paths' planes of B1, B2 and B7: name -> (planes, num_classes, radius)
 
 
 def card_line() -> str:
@@ -424,6 +440,98 @@ def check_round_budget(case_sets):
           f'keep un-converged labels after 128 rounds, as in the plain version', flush=True)
 
 
+# the fused filter keeps everything at <= 1; 20 takes B4's tile past its 12 unrolled rings
+FLOOD_MIN_SIZES = (0, 1, 2, DIAMOND_MIN_SIZE, 20)
+LARGE_HALO_MIN_SIZE = 106  # a 242^2 tile exceeds a block's shared memory: B4's global route
+
+
+def check_flood(flood_sets):
+    """B2, the fused ccl_filter_sweep and B4 on every binary plane set, each
+    route against the plain versions: ccl_sweep on the route of ccl_route
+    (both connectivities), its global chain and, where cluster_route admits
+    the planes, its cluster kernel forced; ccl_filter_sweep at min_size 0,
+    1, 2, 10 and 20 (one fused launch where 4-connected and cluster_route
+    admits the planes, else B2 then B4); the size filter on the tile route
+    of filter_route and its global kernel forced; B2 and the fused call on
+    views that start 8 bytes past a 16-byte boundary; on the 64^2 hard
+    planes B4's global route at a halo no block holds. Every call's route
+    and counters are held against the route functions."""
+    from tiseg_tpu_torch.ops import flood
+    from tiseg_tpu_torch.ops._cluster import cluster_route
+    from tiseg_tpu_torch.ops.flood import (ccl_filter_sweep, ccl_plain, ccl_route, ccl_sweep, filter_route,
+                                           size_filter, size_filter_plain)
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f'{what} differs from its plain version: {int((got != want).sum())} pixels')
+
+    def counts():
+        return (ccl_sweep.cluster_launches, ccl_sweep.global_launches, ccl_filter_sweep.fused_launches,
+                size_filter.tile_launches, size_filter.global_launches)
+
+    def ran(before, what, want):
+        got = tuple(a - b for a, b in zip(counts(), before))
+        if got != want:
+            raise AssertionError(f'{what}: launches (B2 cluster, B2 global, fused, B4 tile, B4 global) {got}, '
+                                 f'expected {want}')
+
+    for set_name, x in flood_sets.items():
+        shape = tuple(x.shape)
+        cluster, b2_route = cluster_route(*shape), ccl_route(*shape)
+        b2 = (1, 0) if b2_route.route == 'cluster' else (0, 1)
+        for conn in (1, 2):
+            what = f'ccl_sweep conn{conn} {set_name} {shape}'
+            want = ccl_plain(x > 0, conn)
+            before = counts()
+            same(ccl_sweep(x, connectivity=conn), want, what)
+            ran(before, what, (*b2, 0, 0, 0))
+            if ccl_sweep.last_route[:3] != tuple(b2_route):
+                raise AssertionError(f'{what}: the kernel took {ccl_sweep.last_route}, ccl_route gives {b2_route}')
+            same(flood._launch_global_ccl(x, conn), want, f'{what} (global chain)')
+            if cluster.route == 'cluster':
+                same(flood._launch_cluster_ccl(x, conn), want, f'{what} (cluster kernel)')
+            for k in FLOOD_MIN_SIZES:
+                what = f'ccl_filter_sweep conn{conn} min_size {k} {set_name} {shape}'
+                want_k = size_filter_plain(want, k)
+                tile = filter_route(*shape, k)
+                fused = conn == 1 and cluster.route == 'cluster'
+                before = counts()
+                same(ccl_filter_sweep(x, k, connectivity=conn), want_k, what)
+                ran(before, what, (1, 0, 1, 0, 0) if fused else (*b2, 0, 1, 0))
+                before = counts()
+                same(size_filter(want, k), want_k, f'size_filter conn{conn} min_size {k} {set_name} {shape}')
+                ran(before, what, (0, 0, 0, 1, 0))
+                if tile.route != 'tile' or size_filter.last_route != tuple(tile):
+                    raise AssertionError(f'size_filter on {shape}: {size_filter.last_route}, filter_route gives {tile}')
+                same(flood._launch_global_filter(want, k), want_k, f'size_filter {set_name} (global kernel)')
+        print(f'B2 ({b2_route.route} route), fused ccl_filter_sweep ({cluster.route} route) and B4 (tile route) '
+              f'{set_name} {shape}: bit-exact vs plain at connectivity 1 and 2, min_size {FLOOD_MIN_SIZES}, the other '
+              f'routes forced too; launches per route as the route functions give', flush=True)
+    # views that start 8 bytes past a 16-byte boundary of their storage: the 16-byte loads must not take them
+    m = flood_sets['conic16x256'][:3, :95, :98].contiguous()
+    for view, b2 in ((m[1:], (1, 0)), (m[1], (0, 1))):  # B2: cluster route on two planes, the chain on one
+        what = f'a view {tuple(view.shape)} at {view.data_ptr() % 16} bytes into 16'
+        if view.data_ptr() % 16 != 8:
+            raise AssertionError(f'{what}: expected 8')
+        want = ccl_plain(view.reshape(-1, 95, 98) > 0, 1)
+        before = counts()
+        same(ccl_sweep(view, connectivity=1), want.reshape(view.shape), f'ccl_sweep on {what}')
+        same(ccl_filter_sweep(view, DIAMOND_MIN_SIZE, connectivity=1),
+             size_filter_plain(want, DIAMOND_MIN_SIZE).reshape(view.shape), f'ccl_filter_sweep on {what}')
+        ran(before, what, (b2[0] + 1, b2[1], 1, 0, 0))
+    print('B2 and the fused ccl_filter_sweep on views 8 bytes past a 16-byte boundary (2 x 95 x 98, 95 x 98): '
+          'bit-exact', flush=True)
+    x = flood_sets['hard64']
+    labels = ccl_plain(x > 0, 1)
+    before = counts()
+    same(size_filter(labels, LARGE_HALO_MIN_SIZE), size_filter_plain(labels, LARGE_HALO_MIN_SIZE),
+         f'size_filter min_size {LARGE_HALO_MIN_SIZE} hard64')
+    ran(before, 'size_filter with a large halo', (0, 0, 0, 0, 1))
+    print(f'B4 at min_size {LARGE_HALO_MIN_SIZE} on hard64: global route (the halo does not fit a block), bit-exact',
+          flush=True)
+
+
 def growth_waves(seed: torch.Tensor, canvas: torch.Tensor) -> int:
     """The growth waves that change a pixel on these planes (at most ALIGN_TIME - 1)."""
     from tiseg_tpu_torch.ops.flood import ccl_plain
@@ -461,13 +569,17 @@ def mt_cases(x: torch.Tensor, seed: torch.Tensor):
 def routed_kernels():
     """name -> (wrapper, the pure function that gives its route and layout,
     the wrapper's attribute with its waves or rounds, if any) of the kernels
-    with more than one route (B1, B5, B6, B7, B8a, B8b)."""
+    with more than one route (B1, B2, B4 at HoVer-Net's min_size, B5, B6,
+    B7, B8a, B8b)."""
     from tiseg_tpu_torch.ops._cluster import cluster_route
+    from tiseg_tpu_torch.ops.flood import ccl_route, ccl_sweep, filter_route, size_filter
     from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
     from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_sweep
     from tiseg_tpu_torch.ops.rounds import ccl_rounds, fill_holes_rounds, fill_route
     from tiseg_tpu_torch.ops.watershed import watershed
     return {'instance_postprocess_sweep': (instance_postprocess_sweep, pp_layout, None),
+            'ccl_sweep': (ccl_sweep, ccl_route, None),
+            'size_filter': (size_filter, lambda B, H, W: filter_route(B, H, W, DIAMOND_MIN_SIZE), None),
             'instance_postprocess_vectorized': (instance_postprocess_sweep, pp_layout, None),
             'watershed': (watershed, cluster_route, 'last_waves'),
             'mt_instance_postprocess_sweep': (mt_instance_postprocess_sweep, cluster_route, 'last_waves'),
@@ -505,8 +617,10 @@ def expected_route(kernel: str, set_name: str) -> str:
     """The route a kernel must take on a plane set: the 1000^2 planes exceed
     a block's and a cluster's shared memory (B1 and B7 take strips of rows);
     the 480^2 plane fits B8b's block, not a cluster; every other set fits
-    both."""
+    both. B4's tile holds the halo of min_size 10 on every plane."""
     strip = kernel.startswith('instance_postprocess')
+    if kernel == 'size_filter':
+        return 'tile'
     if set_name.endswith('1000'):
         return 'strip' if strip else 'global'
     if kernel == 'fill_holes_rounds':
@@ -524,11 +638,14 @@ def route_note(fn, route_of, counts, shape) -> str:
     if route != want[0] or (route != 'global' and tuple(layout[:len(want) - 1]) != tuple(want[1:])):
         raise AssertionError(f'{fn.__name__} on {tuple(shape)}: the kernel took {fn.last_route}, the route function '
                              f'gives {want}')
-    if route == 'cluster' and len(layout) == 5:
+    if route == 'tile':
+        note = f'tile route ({layout[0]}^2 output tiles, {layout[1]} B shared per block)'
+    elif route == 'cluster' and len(layout) == 5:
         note = (f'cluster route ({layout[0]} rows x cluster {layout[1]}, {layout[4]} threads and {layout[2]} B shared '
                 f'per block, {layout[3]} clusters resident)')
     elif route == 'cluster':
-        note = f'cluster route (cluster {layout[0]}, {layout[1]} B shared per block, {layout[2]} clusters resident)'
+        note = f'cluster route (cluster {layout[0]}, {layout[1]} B shared per block, {layout[2]} clusters resident'
+        note += f', {layout[3]} threads per block)' if len(layout) == 4 else ')'
     elif route == 'strip':
         note = (f'strip route ({layout[0]} rows x {layout[1]} strips per plane, {layout[4]} threads and {layout[2]} B '
                 f'shared per block, {layout[3]} blocks resident)')
@@ -611,17 +728,20 @@ def check_kernels(case_sets):
 
 
 def on_chain(call, window_ops: bool = False):
-    """``call()`` with B1, B5, B6, B7, B8a and B8b routed to their earlier
-    global chains whatever the plane size; with ``window_ops`` also the
-    window count of ``'pallas-rounds'`` as the tensor ops it replaced."""
+    """``call()`` with B1, B2, B4, B5, B6, B7, B8a and B8b routed to their
+    earlier global chains whatever the plane size (so ``ccl_filter_sweep``
+    to B2's chain then B4's); with ``window_ops`` also the window count of
+    ``'pallas-rounds'`` as the tensor ops it replaced."""
     from tiseg_tpu_torch.ops._cluster import Route
+    from tiseg_tpu_torch.ops.flood import FilterRoute
     from tiseg_tpu_torch.ops.rounds import FillRoute
-    mods = [sys.modules[f'tiseg_tpu_torch.ops.{m}'] for m in ('watershed', 'mt_instance_pp', 'rounds')]
-    rounds, ipp = mods[-1], sys.modules['tiseg_tpu_torch.ops.instance_pp']
-    saved = [m.cluster_route for m in mods] + [rounds.fill_route, rounds.window_count_mask]
+    mods = [sys.modules[f'tiseg_tpu_torch.ops.{m}'] for m in ('flood', 'watershed', 'mt_instance_pp', 'rounds')]
+    flood, rounds, ipp = mods[0], mods[-1], sys.modules['tiseg_tpu_torch.ops.instance_pp']
+    saved = [m.cluster_route for m in mods] + [flood.filter_route, rounds.fill_route, rounds.window_count_mask]
     saved_pp = ipp._launch_cluster, ipp._launch_strip
     for m in mods:
         m.cluster_route = lambda B, H, W: Route('global', 0, 0)
+    flood.filter_route = lambda B, H, W, min_size: FilterRoute('global', 0, 0)
     rounds.fill_route = lambda B, H, W: FillRoute('global', 0, False)
     ipp._launch_cluster = lambda sem, radius, min_size, nc, vec: ipp._launch_global(sem, radius, min_size, nc, vec)
     ipp._launch_strip = lambda sem, radius, min_size, nc, vec, route: ipp._launch_global(sem, radius, min_size, nc,
@@ -633,7 +753,7 @@ def on_chain(call, window_ops: bool = False):
     finally:
         for m, f in zip(mods, saved):
             m.cluster_route = f
-        rounds.fill_route, rounds.window_count_mask = saved[-2:]
+        flood.filter_route, rounds.fill_route, rounds.window_count_mask = saved[-3:]
         ipp._launch_cluster, ipp._launch_strip = saved_pp
 
 
@@ -956,8 +1076,7 @@ def hover_main_path(args):
     from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, make_nuclei
     from tiseg_tpu_torch.models import build_segmentor
     from tiseg_tpu_torch.ops import hover
-    from tiseg_tpu_torch.ops.flood import (ccl_plain, ccl_sweep, fill_holes_plain, fill_holes_sweep, size_filter,
-                                           size_filter_plain)
+    from tiseg_tpu_torch.ops.flood import ccl_filter_sweep, ccl_sweep, fill_holes_plain, fill_holes_sweep, size_filter
     from tiseg_tpu_torch.ops.hover import hover_post_proc_device
     from tiseg_tpu_torch.ops.watershed import _launch_global as ws_global
     from tiseg_tpu_torch.ops.watershed import watershed, watershed_plain
@@ -988,23 +1107,25 @@ def hover_main_path(args):
     runner.dispatch(imgs, (hw, hw))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = {'ccl_sweep': ccl_sweep, 'size_filter': size_filter, 'fill_holes_sweep': fill_holes_sweep,
-                'watershed': watershed}
-    for fn in counters.values():
-        fn.launches = 0
-    watershed.cluster_launches = watershed.global_launches = 0
+    # (wrapper, counter): the route must launch B2 twice on its cluster route, each with B4's size filter fused,
+    # B3 once and B5 once on its cluster route, and no global chain and no separate size filter
+    counters = {'ccl_sweep': (ccl_sweep, 'launches'), 'ccl_sweep cluster': (ccl_sweep, 'cluster_launches'),
+                'ccl_sweep global': (ccl_sweep, 'global_launches'),
+                'ccl_filter_sweep fused': (ccl_filter_sweep, 'fused_launches'),
+                'size_filter': (size_filter, 'launches'), 'fill_holes_sweep': (fill_holes_sweep, 'launches'),
+                'watershed': (watershed, 'launches'), 'watershed cluster': (watershed, 'cluster_launches'),
+                'watershed global': (watershed, 'global_launches')}
+    expected = {'ccl_sweep': 2, 'ccl_sweep cluster': 2, 'ccl_sweep global': 0, 'ccl_filter_sweep fused': 2,
+                'size_filter': 0, 'fill_holes_sweep': 1, 'watershed': 1, 'watershed cluster': 1, 'watershed global': 0}
+    for fn, c in counters.values():
+        setattr(fn, c, 0)
     out = runner.dispatch(imgs, (hw, hw))
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    ws_routes = {'cluster': watershed.cluster_launches, 'global': watershed.global_launches}
+    launches = {name: getattr(fn, c) for name, (fn, c) in counters.items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     seg._instances = instances
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f'{name} was not launched on the HoVer-Net main path')
-    if ws_routes != {'cluster': 1, 'global': 0} or launches['watershed'] != 1:
-        raise AssertionError(f'HoVer-Net main path: watershed launches {launches["watershed"]}, by route {ws_routes}; '
-                             f'expected one cluster-route launch for the batch')
+    if launches != expected:
+        raise AssertionError(f'HoVer-Net main path: launches {launches}, expected {expected}')
 
     fused = captured['fused']
     sem_out, inst_out = out['sem_pred'], out['inst_pred']
@@ -1029,7 +1150,7 @@ def hover_main_path(args):
                              f'{int((inst_out != want).sum())} pixels')
     if not torch.equal(sem_out, torch.argmax(fused['sem'], -1).to(torch.uint8)):
         raise AssertionError('HoVer main-path sem_pred is not the argmax of the fused sem map')
-    print(f'HoVer-Net main path: launches {launches} (watershed by route {ws_routes}), foreground {fg:.4f}, '
+    print(f'HoVer-Net main path: launches {launches}, foreground {fg:.4f}, '
           f'{n_inst} instances in {n_img} images, '
           f'equal to the plain post-processing; peak memory {peak_gib:.3f} GiB '
           f'(patch_batch {args.hover_patch_batch})', flush=True)
@@ -1046,20 +1167,19 @@ def hover_main_path(args):
     fore = fused['fore'][..., 1]
     mask = (fore >= 0.5).to(torch.int32)
     labels = ccl_sweep(mask, connectivity=1)
-    blb = size_filter(labels, DIAMOND_MIN_SIZE) > 0
+    blb = ccl_filter_sweep(mask, DIAMOND_MIN_SIZE, connectivity=1) > 0
     overall, dist = hover.hover_energy(blb, fused['hv'])
     marker = (blb & ~(overall >= 0.4)).to(torch.int32)
     markers = hover.hover_markers(blb, overall)
     blb_i = blb.to(torch.int32)
+    PP_PLANES[f'main path HoVer-Net foreground mask {tuple(mask.shape)}'] = (mask.cpu(), 2, 1)
+    stats = flood_main_path('HoVer main-path', mask, labels, launches['ccl_sweep'])
     calls = {
-        'ccl_sweep': (lambda: ccl_sweep(mask, connectivity=1), lambda: ccl_plain(mask > 0, 1), mask),
-        'size_filter': (lambda: size_filter(labels, DIAMOND_MIN_SIZE),
-                        lambda: size_filter_plain(labels, DIAMOND_MIN_SIZE), labels),
         'fill_holes_sweep': (lambda: fill_holes_sweep(marker), lambda: fill_holes_plain(marker > 0), marker),
         'watershed': (lambda: watershed(dist, markers, blb_i), lambda: watershed_plain(dist, markers, blb), dist),
     }
-    stats = {}
-    pp_kernel_ms = 0.0
+    # per batch: B2 with the size filter fused, twice; B3; B5
+    pp_kernel_ms = stats['ccl_sweep']['fused_ms'] * launches['ccl_filter_sweep fused']
     for name, (call, plain, x) in calls.items():
         extra = {}
         if name == 'watershed':
@@ -1091,8 +1211,55 @@ def hover_main_path(args):
                   f'{extra["waves_mean"]:.2f}), run {extra["waves_run"]}; the earlier chain needed {waves} waves '
                   f'on the batch (the bound\'s count)', flush=True)
     print(f'HoVer post-processing: kernels {pp_kernel_ms / n_img:.3f} ms of {pp_ms:.3f} ms per image '
-          f'(CUDA events x main-path launches / {n_img})', flush=True)
+          f'(CUDA events x main-path launches / {n_img}: fused B2 {stats["ccl_sweep"]["fused_ms"]:.4f} x 2, B3 '
+          f'{stats["fill_holes_sweep"]["ms"]:.4f}, B5 {stats["watershed"]["ms"]:.4f})', flush=True)
     return stats
+
+
+def flood_main_path(label: str, mask: torch.Tensor, labels: torch.Tensor, launches: int):
+    """B2 (4-connected), the fused ccl_filter_sweep (min_size 10) and B4's
+    tile route on a main path's mask and 4-connected labels, each in turns
+    against the earlier chains (B2's union-find chain, that chain then B4's
+    global kernel, B4's global kernel): ms per call (host time included)
+    and device_ms per launch (L2 flushed, enqueue hidden). Returns the
+    rows of B2 (with the fused call's numbers) and B4; B4 has no launch of
+    its own on the main paths."""
+    from tiseg_tpu_torch.ops import flood
+    from tiseg_tpu_torch.ops.flood import (ccl_filter_sweep, ccl_plain, ccl_sweep, filter_route, size_filter,
+                                           size_filter_plain)
+    k = DIAMOND_MIN_SIZE
+    rows = {}
+    for name, call, earlier, plain, x in (
+            ('ccl_sweep', lambda: ccl_sweep(mask, connectivity=1), lambda: flood._launch_global_ccl(mask, 1),
+             lambda: ccl_plain(mask > 0, 1), mask),
+            ('fused', lambda: ccl_filter_sweep(mask, k, connectivity=1),
+             lambda: flood._launch_global_filter(flood._launch_global_ccl(mask, 1), k),
+             lambda: size_filter_plain(ccl_plain(mask > 0, 1), k), mask),
+            ('size_filter', lambda: size_filter(labels, k), lambda: flood._launch_global_filter(labels, k),
+             lambda: size_filter_plain(labels, k), labels)):
+        got = call()
+        route = list((size_filter if name == 'size_filter' else ccl_sweep).last_route)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, plain()) and torch.equal(earlier(), got)):
+            raise AssertionError(f'{label} {name} differs from its plain version or the earlier chain')
+        want_route = filter_route(*x.shape, k) if name == 'size_filter' else ('cluster',)
+        if route[:len(want_route)] != list(want_route):
+            raise AssertionError(f'{label} {name}: route {route}, expected {want_route}')
+        k_ms, earlier_ms, turns = time_in_turns(call, earlier)
+        k_dev, earlier_dev = device_ms(call), device_ms(earlier)
+        p_ms = cuda_ms(plain, reps=3, warmup=1)
+        b_ms, b_by = bound('ccl_sweep' if name == 'fused' else name, x)
+        rows[name] = dict(ms=k_ms, earlier_ms=earlier_ms, ms_turns=turns, device_ms=k_dev,
+                          earlier_device_ms=earlier_dev, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, plane_route=route)
+        print(f'{label} {name} {tuple(x.shape)}: {k_ms:.4f} ms (readings {turns[0]:.4f} / {turns[1]:.4f}), earlier '
+              f'{earlier_ms:.4f} ms in turns ({earlier_ms / k_ms:.2f}x); device {k_dev * 1e3:.2f} us per launch '
+              f'against {earlier_dev * 1e3:.2f} (L2 flushed); plain {p_ms:.2f} ms, bound {b_ms * 1e3:.2f} us '
+              f'({b_by}); route {route}', flush=True)
+    fused = rows.pop('fused')
+    b2 = dict(launches=launches, library_ms=None, **rows['ccl_sweep'],
+              **{f'fused_{key}': v for key, v in fused.items() if key != 'plane_route'})
+    b4 = dict(launches=0, library_ms=None, **rows['size_filter'])
+    return {'ccl_sweep': b2, 'size_filter': b4}
 
 
 # -- phases 5 and 6: the CDNet and the multi-task eval paths ---------------------------
@@ -1323,7 +1490,7 @@ def multi_task_path(args, config: str, n_img: int, timed: bool):
 def unet_postprocess_routes(args):
     """16 images of 256^2 at CoNIC density through ``seg.inference`` once,
     then ``seg.postprocess`` per image with device_postprocess True (B1),
-    'xla' (B3 + B2 twice) and 'pallas-rounds' (B8b on its block route, B8a
+    'xla' (B3 + B2 twice, on B2's global chain) and 'pallas-rounds' (B8b on its block route, B8a
     twice on its cluster route, the window count once; no global chain).
     The 'pallas-rounds' route and its kernels on the first image's planes
     are timed in turns against the earlier design (the global chains and
@@ -1353,7 +1520,8 @@ def unet_postprocess_routes(args):
     # (wrapper, counter, launches per image): every counter the route must move, and those it must not
     routes = {True: [(instance_postprocess_sweep, 'launches', 1), (instance_postprocess_sweep, 'cluster_launches', 1),
                      (instance_postprocess_sweep, 'global_launches', 0)],
-              'xla': [(fill_holes_sweep, 'launches', 1), (ccl_sweep, 'launches', 2)],
+              'xla': [(fill_holes_sweep, 'launches', 1), (ccl_sweep, 'launches', 2), (ccl_sweep, 'cluster_launches', 0),
+                      (ccl_sweep, 'global_launches', 2)],
               'pallas-rounds': [(fill_holes_rounds, 'launches', 1), (fill_holes_rounds, 'block_launches', 1),
                                 (fill_holes_rounds, 'global_launches', 0), (ccl_rounds, 'launches', 2),
                                 (ccl_rounds, 'cluster_launches', 2), (ccl_rounds, 'global_launches', 0),
@@ -1412,6 +1580,9 @@ def unet_postprocess_routes(args):
     # the route's kernels on the planes it gave them for the first image, each in turns against its earlier chain
     mask = (sem_pred[:1] == 1).to(torch.int32)
     filled = fill_holes_rounds(mask).to(torch.int32)
+    xla_plane = fill_holes_sweep(mask).to(torch.int32)
+    PP_PLANES[f"UNet.postprocess 'xla' filled plane {tuple(xla_plane.shape)}"] = (xla_plane.cpu(), 2, 1)
+    stats = {'ccl_sweep_xla': time_ccl_xla(xla_plane)}
     cc4 = ccl_rounds(filled, 128, 1)
     if not torch.equal(window_count_mask(cc4, 5), small_component_mask(cc4, 5)):
         raise AssertionError('window_count_mask differs from small_component_mask on the route\'s labels')
@@ -1419,7 +1590,6 @@ def unet_postprocess_routes(args):
     print(f'UNet.postprocess window count {tuple(cc4.shape)} (min_size 5, 81 window cells): kernel {w_ms:.4f} ms, '
           f'small_component_mask\'s ~400 tensor ops {w_plain:.4f} ms in turns ({w_plain / w_ms:.1f}x), '
           f'bit-exact', flush=True)
-    stats = {}
     for name, fn, kernel, plain, x, conn, budget, work in (
             ('fill_holes_rounds', fill_holes_rounds, lambda: fill_holes_rounds(mask),
              lambda: fill_holes_rounds_plain(mask > 0), mask, 1, 2 * hw, lambda: fill_holes_rounds_needed(mask > 0)),
@@ -1445,6 +1615,32 @@ def unet_postprocess_routes(args):
                            rounds_budget=counts[0], rounds_needed=counts[1], rounds_run=counts[2],
                            bound_share=b_ms / k_ms)
     return stats
+
+
+def time_ccl_xla(filled: torch.Tensor):
+    """B2 as 'xla' calls it on one image: 4-connected on the filled 256^2
+    plane, where ccl_route takes the global chain. The chain's and the
+    cluster kernel's launches (1024 threads: one cluster is resident that
+    way), the two sides of ccl_route's choice, in turns through their
+    private launches (the wrapper's own work is the same on both); ms per
+    call and device_ms per call."""
+    from tiseg_tpu_torch.ops import flood
+    from tiseg_tpu_torch.ops.flood import ccl_plain, ccl_route, ccl_sweep
+    chain, cluster = (lambda: flood._launch_global_ccl(filled, 1)), (lambda: flood._launch_cluster_ccl(filled, 1))
+    want = ccl_plain(filled > 0, 1)
+    if not torch.equal(ccl_sweep(filled, connectivity=1), want):
+        raise AssertionError("ccl_sweep differs from its plain version on the 'xla' route's plane")
+    route = list(ccl_sweep.last_route)
+    if route[:3] != list(ccl_route(*filled.shape)) or not torch.equal(cluster(), want):
+        raise AssertionError(f"'xla' plane: ccl_sweep took {route}, or the cluster kernel differs from plain")
+    k_ms, cluster_ms, turns = time_in_turns(chain, cluster)
+    k_dev, cluster_dev = device_ms(chain), device_ms(cluster)
+    print(f"UNet.postprocess 'xla' kernel ccl_sweep {tuple(filled.shape)}: {route[0]} route {k_ms:.4f} ms (readings "
+          f"{turns[0]:.4f}, {turns[1]:.4f}), cluster kernel {cluster_ms:.4f} ms in turns ({cluster_ms / k_ms:.2f}x); "
+          f"device {k_dev * 1e3:.2f} us per call against {cluster_dev * 1e3:.2f} (L2 flushed); route {route}",
+          flush=True)
+    return dict(ms=k_ms, cluster_ms=cluster_ms, ms_turns=turns, device_ms=k_dev, cluster_device_ms=cluster_dev,
+                plane_route=route)
 
 
 # -- phase 8: CUNet through the executor -------------------------------------------------
@@ -1564,7 +1760,7 @@ def main(argv=None) -> int:
     p.add_argument('--hover-patch-batch', type=int, default=32, help='HoVer-Net patches per network forward')
     p.add_argument('--cd-patch-batch', type=int, default=64,
                    help='CDNet and multi-task patches per network forward')
-    p.add_argument('--save-pp-planes', help="save the main paths' planes of B1 and B7 to this file")
+    p.add_argument('--save-pp-planes', help="save the main paths' planes of B1, B2 and B7 to this file")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1588,7 +1784,8 @@ def main(argv=None) -> int:
                          ('tiseg_ws', 'k_ws_cluster'), ('tiseg_mt_pp', 'k_mt_cluster'),
                          ('tiseg_pp', 'k_pp_cluster'), ('tiseg_pp', 'k_pp_strip'),
                          ('tiseg_rounds', 'k_fill_block'), ('tiseg_rounds', 'k_ccl_cluster'),
-                         ('tiseg_rounds', 'k_window_count')):
+                         ('tiseg_rounds', 'k_window_count'), ('tiseg_flood', 'k_ccl_cluster'),
+                         ('tiseg_flood', 'k_diamond_tile')):
         for entry, regs, spills in ptxas_report(reports.get(name, '')):
             if kernel in entry:
                 print(f'ptxas {_build.SOURCES[name]} {entry}: {regs} registers, {spills}', flush=True)
@@ -1608,10 +1805,10 @@ def main(argv=None) -> int:
         return np.stack([p[0] for p in planes]), np.stack([p[1] for p in planes])
 
     t0 = time.perf_counter()
-    case_sets = {}
+    case_sets, flood_sets = {}, {}
     for set_name, (sem, inst) in {'hard64': hard(64), 'hard256': hard(256), 'conic16x256': nuclei(16, 256, args.seed),
                                   'conic1000': nuclei(1, 1000, args.seed + 7000)}.items():
-        x = torch.from_numpy(sem).cuda()
+        x = flood_sets[set_name] = torch.from_numpy(sem).cuda()
         case_sets[set_name] = (x, None, kernel_cases(x, hover_inputs(inst, args.seed)))
     for set_name, (sem, seed) in {'7class-hard64': hard_planes_multiclass(64),
                                   '7class-hard256': hard_planes_multiclass(256),
@@ -1626,7 +1823,7 @@ def main(argv=None) -> int:
         inst = np.ascontiguousarray(inst[:, :h, :w])
         ws_in = hover_inputs(inst, args.seed)
         cases = watershed_cases(ws_in)
-        x = torch.from_numpy((inst > 0).astype(np.int32)).cuda()
+        x = flood_sets[f'ragged{B}x{h}x{w}'] = torch.from_numpy((inst > 0).astype(np.int32)).cuda()
         cases.update(checked_only({**pp_cases(x), **round_cases(x)}))
         case_sets[f'ragged{B}x{h}x{w}'] = (ws_in[0], None, cases)
         sem, seed = (np.ascontiguousarray(a[:, :h, :w]) for a in multiclass(B, 256, args.seed + 9000))
@@ -1634,7 +1831,7 @@ def main(argv=None) -> int:
         case_sets[f'7class-ragged{B}x{h}x{w}'] = (x, seed, checked_only({**vectorized_cases(x), **mt_cases(x, seed)}))
     # a 480^2 plane: the round kernels (B8b's block route, B8a's global chain) and B1 and B7 (strip route); the
     # round kernels at the round budget's boundary on a spiral (B8a's cluster and B8b's block route)
-    x = torch.from_numpy(nuclei(1, 480, args.seed + 8000)[0]).cuda()
+    x = flood_sets['conic480'] = torch.from_numpy(nuclei(1, 480, args.seed + 8000)[0]).cuda()
     case_sets['conic480'] = (x, None, checked_only({**pp_cases(x), **round_cases(x)}))
     x = torch.from_numpy(multiclass(1, 480, args.seed + 8000)[0]).cuda()
     case_sets['7class-conic480'] = (x, None, checked_only(vectorized_cases(x)))
@@ -1643,9 +1840,13 @@ def main(argv=None) -> int:
     case_sets['conic3x1000'] = (x, None, checked_only(pp_cases(x)))
     x = torch.from_numpy(multiclass(2, 1000, args.seed + 7100)[0]).cuda()
     case_sets['7class-conic2x1000'] = (x, None, checked_only(vectorized_cases(x)))
-    x = torch.from_numpy(spiral(64)[None].astype(np.int32)).cuda()
+    x = flood_sets['spiral64'] = torch.from_numpy(spiral(64)[None].astype(np.int32)).cuda()
     case_sets['spiral64'] = (x, None, round_boundary_cases(x))
+    # a plane smaller than a radius-9 diamond: B4 masked, most blocks of B2's cluster hold no row
+    flood_sets['small3x5x9'] = torch.from_numpy(
+        (np.random.default_rng(args.seed).random((3, 5, 9)) < 0.6).astype(np.int32)).cuda()
     max_err, timed = check_kernels(case_sets)
+    check_flood(flood_sets)
     check_round_budget(case_sets)
     max_err['fused_decode0_cls'] = check_fused_decode(args)
     print(f'kernel phase: {time.perf_counter() - t0:.1f} s', flush=True)
@@ -1684,6 +1885,7 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.save_pp_planes)), exist_ok=True)
         torch.save(PP_PLANES, args.save_pp_planes)
 
+    stats['ccl_sweep'].update({f'xla_{k}': v for k, v in stats.pop('ccl_sweep_xla').items()})
     keys = ('launches', 'ms', 'plain_ms', 'bound_ms', 'bound_by')
     kernels = [dict(name=name, route='cuda', source=src, replaces=rep, max_abs_err=max_err[name],
                     **{k: stats[name][k] for k in keys}, library_ms=stats[name].get('library_ms'),

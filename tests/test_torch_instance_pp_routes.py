@@ -31,6 +31,8 @@ from tiseg_tpu_torch.ops import instance_pp as ipp
 from tiseg_tpu_torch.ops._cluster import SMEM_PER_BLOCK, cluster_route
 from tiseg_tpu_torch.ops.instance_pp import (disk_offsets, instance_postprocess_plain, instance_postprocess_sweep,
                                              instance_postprocess_vectorized_plain, pp_route)
+from torch_port_utils import UnionFind as _UF
+from torch_port_utils import label_blocks as _label
 
 
 def _layout(rows, W):
@@ -76,55 +78,6 @@ def test_no_route(B, H, W):
 
 
 # -- the kernel's design, emulated ------------------------------------------------------------
-class _UF:
-    """Parents over in-plane indices; unions link the larger root under the
-    smaller, so every root is its set's minimum index."""
-
-    def __init__(self, n):
-        self.par = list(range(n))
-
-    def find(self, i):
-        par = self.par
-        while par[i] != i:
-            par[i] = par[par[i]]
-            i = par[i]
-        return i
-
-    def unite(self, a, b):
-        a, b = self.find(a), self.find(b)
-        if a != b:
-            self.par[max(a, b)] = min(a, b)
-
-
-def _label(key, blocks, uf):
-    """One labelling of the 4-components of equal nonzero ``key`` (pixels
-    of key 0 stay in their runs), block by block: returns each pixel's
-    piece root (the root of its block's own labelling) and leaves ``uf``
-    with the regions after the unions across the block borders."""
-    H, W = key.shape
-    for y0, rows in blocks:
-        for y in range(y0, y0 + rows):
-            start = y * W
-            for x in range(W):
-                if x > 0 and key[y, x - 1] != key[y, x]:
-                    start = y * W + x
-                uf.par[y * W + x] = start
-        for y in range(y0 + 1, y0 + rows):
-            for x in range(W):
-                v = key[y, x]
-                if v and key[y - 1, x] == v and not (x > 0 and key[y, x - 1] == v and key[y - 1, x - 1] == v):
-                    uf.unite(y * W + x, (y - 1) * W + x)
-    piece = np.array([uf.find(i) for i in range(H * W)]).reshape(H, W)
-    for y0, _ in blocks:
-        if y0 == 0:
-            continue
-        for x in range(W):
-            v = key[y0, x]
-            if v and key[y0 - 1, x] == v and not (x > 0 and key[y0, x - 1] == v and key[y0 - 1, x - 1] == v):
-                uf.unite(piece[y0, x], piece[y0 - 1, x])
-    return piece
-
-
 def _emulate_plane(sem, num_classes, radius, min_size, rows_per_block):
     H, W = sem.shape
     HW = H * W

@@ -12,7 +12,7 @@ FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tiseg_tpu')
 
 
 def _sources():
-    files = [osp.join(ROOT, 'chip_smoke.py'), osp.join(ROOT, 'tools', 'pp_phases.py')]
+    files = [osp.join(ROOT, 'chip_smoke.py')] + [osp.join(ROOT, 'tools', n) for n in ('pp_phases.py', 'flood_phases.py')]
     for d, _, names in os.walk(osp.join(ROOT, 'tiseg_tpu_torch')):
         files += [osp.join(d, n) for n in sorted(names) if n.endswith('.py')]
     return sorted(files)

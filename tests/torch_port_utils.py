@@ -1,5 +1,7 @@
 """Shared helpers for the PyTorch-port parity tests (tests/test_torch_*.py):
-seeded numpy weights that go into both the JAX and the port's nets."""
+seeded numpy weights that go into both the JAX and the port's nets, and a
+plain emulation of the block-local labelling of the plane-resident
+kernels."""
 import jax
 import numpy as np
 
@@ -322,3 +324,53 @@ def scaled_hovernet_variables(seed, img, quantile=0.5):
     params['np'] = dict(params['np'], u0_cls=dict(kernel=cls['kernel'] / scale,
                                                  bias=np.array([0.0, -shift], np.float32)))
     return variables
+
+
+# -- the plane-resident labelling of csrc/pieces.cuh, emulated --------------------------------
+class UnionFind:
+    """Parents over in-plane indices; unions link the larger root under the
+    smaller, so every root is its set's minimum index."""
+
+    def __init__(self, n):
+        self.par = list(range(n))
+
+    def find(self, i):
+        par = self.par
+        while par[i] != i:
+            par[i] = par[par[i]]
+            i = par[i]
+        return i
+
+    def unite(self, a, b):
+        a, b = self.find(a), self.find(b)
+        if a != b:
+            self.par[max(a, b)] = min(a, b)
+
+
+def label_blocks(key, blocks, uf):
+    """One labelling of the 4-components of equal nonzero ``key`` (pixels
+    of key 0 stay in their runs), block by block: returns each pixel's
+    piece root (the root of its block's own labelling) and leaves ``uf``
+    with the regions after the unions across the block borders."""
+    H, W = key.shape
+    for y0, rows in blocks:
+        for y in range(y0, y0 + rows):
+            start = y * W
+            for x in range(W):
+                if x > 0 and key[y, x - 1] != key[y, x]:
+                    start = y * W + x
+                uf.par[y * W + x] = start
+        for y in range(y0 + 1, y0 + rows):
+            for x in range(W):
+                v = key[y, x]
+                if v and key[y - 1, x] == v and not (x > 0 and key[y, x - 1] == v and key[y - 1, x - 1] == v):
+                    uf.unite(y * W + x, (y - 1) * W + x)
+    piece = np.array([uf.find(i) for i in range(H * W)]).reshape(H, W)
+    for y0, _ in blocks:
+        if y0 == 0:
+            continue
+        for x in range(W):
+            v = key[y0, x]
+            if v and key[y0 - 1, x] == v and not (x > 0 and key[y0, x - 1] == v and key[y0 - 1, x - 1] == v):
+                uf.unite(piece[y0, x], piece[y0 - 1, x])
+    return piece

@@ -1,5 +1,5 @@
 // Thread-block clusters for the plane-resident kernels (watershed.cu,
-// mt_instance_pp.cu, rounds.cu).
+// mt_instance_pp.cu, rounds.cu, instance_pp.cu, flood.cu).
 //
 // One cluster of kCluster blocks holds one (H, W) plane: block r of a
 // cluster owns rows [r*R, min((r+1)*R, H)), R = ceil(H / kCluster), and keeps
@@ -134,6 +134,33 @@ inline int cluster_launch(void (*kernel)(KArgs...), int B, int threads, int smem
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Launch over B clusters at one of a kernel's two widths: `wide` (1024
+// threads, one block per SM) where `threads` is 1024, or is 0 and all B
+// clusters are resident at that width; else `narrow` (512 threads, two
+// blocks per SM). info_out[1] receives the clusters of the chosen width
+// that can be resident at once, info_out[2] its threads per block.
+// cudaErrorInvalidValue for another `threads`.
+template <typename... KArgs, typename... Args>
+inline int cluster_launch_widths(void (*wide)(KArgs...), void (*narrow)(KArgs...), ClusterCache& wide_cache,
+                                 ClusterCache& narrow_cache, int B, int threads, int smem, cudaStream_t stream,
+                                 int* info_out, Args... args) {
+  if (threads != 0 && threads != 512 && threads != 1024) return (int)cudaErrorInvalidValue;
+  if (threads != 512) {
+    int resident = 0;
+    const int err = cluster_prepare((const void*)wide, 1024, smem, wide_cache, &resident);
+    if (threads == 1024 && err) return err;
+    if (threads == 1024 || (err == 0 && B <= resident)) {
+      info_out[1] = resident;
+      info_out[2] = 1024;
+      return cluster_launch(wide, B, 1024, smem, stream, args...);
+    }
+  }
+  const int err = cluster_prepare((const void*)narrow, 512, smem, narrow_cache, info_out + 1);
+  if (err) return err;
+  info_out[2] = 512;
+  return cluster_launch(narrow, B, 512, smem, stream, args...);
 }
 
 }  // namespace

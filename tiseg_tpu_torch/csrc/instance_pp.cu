@@ -692,25 +692,11 @@ int tiseg_instance_pp_cluster(const int* sem, uint8_t* sem_out, int* inst_out, i
   const int R = (H + kCluster - 1) / kCluster;
   if (B <= 0 || R * W <= 0) return 0;
   const int smem = cluster_smem_bytes(R, W);
-  if (smem == 0 || (threads != 0 && threads != 512 && threads != 1024)) return (int)cudaErrorInvalidValue;
+  if (smem == 0) return (int)cudaErrorInvalidValue;
   info_out[0] = smem;
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  if (threads != 512) {
-    int wide = 0;
-    const int err = cluster_prepare((const void*)k_pp_cluster<1024, 1>, 1024, smem, g_pp_cluster_wide_cache, &wide);
-    if (threads == 1024 && err) return err;
-    if (threads == 1024 || (err == 0 && B <= wide)) {
-      info_out[1] = wide;
-      info_out[2] = 1024;
-      return cluster_launch(k_pp_cluster<1024, 1>, B, 1024, smem, stream, sem, sem_out, inst_out, H, W, R,
-                            num_classes, radius, min_size);
-    }
-  }
-  TISEG_CHECK((cudaError_t)cluster_prepare((const void*)k_pp_cluster<512, 2>, 512, smem, g_pp_cluster_cache,
-                                           info_out + 1));
-  info_out[2] = 512;
-  return cluster_launch(k_pp_cluster<512, 2>, B, 512, smem, stream, sem, sem_out, inst_out, H, W, R, num_classes,
-                        radius, min_size);
+  return cluster_launch_widths(k_pp_cluster<1024, 1>, k_pp_cluster<512, 2>, g_pp_cluster_wide_cache,
+                               g_pp_cluster_cache, B, threads, smem, (cudaStream_t)stream_ptr, info_out, sem, sem_out,
+                               inst_out, H, W, R, num_classes, radius, min_size);
 }
 
 // Strip route over the B planes of one group, one cooperative launch.

@@ -1,6 +1,6 @@
 // Local-first labelling of a plane's rows held in a block's shared memory,
-// shared by the cluster kernels of mt_instance_pp.cu (B6) and
-// instance_pp.cu (B1, B7).
+// shared by the cluster kernels of mt_instance_pp.cu (B6), instance_pp.cu
+// (B1, B7) and flood.cu (B2).
 //
 // A block holds rows [y0, y0 + rows) of an (H, W) plane, n = rows * W
 // pixels, as arrays of R*W entries; in-plane indices i = y * W + x, this
@@ -253,20 +253,31 @@ __device__ __forceinline__ unsigned long long label_local(const Plane& pl, const
                                                           int n, int W) {
   const int i0 = pl.i0, lane = threadIdx.x & 31;
   const float inv_w = 1.0f / W;
-  // the unions and the run starts' finds in the rotated order: a row-wide
-  // run starts at the row's first pixel
+  // the unions and the run starts' finds in the rotated order (a row-wide
+  // run starts at the row's first pixel); each thread marks its pixels
+  // first (bit k: iteration k) and then runs its marked ones, so a warp
+  // takes as many turns as its busiest lane has unions, not one for every
+  // iteration in which any lane has one
+  unsigned long long todo = 0;
   for (int k = 0; k * T < n; ++k) {
     const int p = rotated_pixel<T>(k);
     if (p < W || p >= n) continue;
     const int v = key[p];
     if (v && key[p - W] == v && !(column_of(p, W, inv_w) > 0 && key[p - 1] == v && key[p - 1 - W] == v))
-      lunite(P, i0, P[p], P[p - W]);
+      todo |= 1ull << k;
+  }
+  for (; todo; todo &= todo - 1) {
+    const int p = rotated_pixel<T>(__ffsll(todo) - 1);
+    lunite(P, i0, P[p], P[p - W]);
   }
   __syncthreads();
   for (int k = 0; k * T < n; ++k) {
     const int p = rotated_pixel<T>(k);
-    if (p < n && (p == 0 || key[p - 1] != key[p] || column_of(p, W, inv_w) == 0))
-      P[p] = lfind(P, i0, i0 + p);  // run starts first
+    if (p < n && (p == 0 || key[p - 1] != key[p] || column_of(p, W, inv_w) == 0)) todo |= 1ull << k;
+  }
+  for (; todo; todo &= todo - 1) {
+    const int p = rotated_pixel<T>(__ffsll(todo) - 1);
+    P[p] = lfind(P, i0, i0 + p);  // run starts first
   }
   __syncthreads();
   unsigned long long root = 0;
@@ -314,13 +325,14 @@ __device__ __forceinline__ void unite_up(const Plane& pl, const uint8_t* key, co
 // then, after a cluster barrier (every block's pieces are final), unite_up
 // and another barrier. Afterwards P[r] of a piece root r leads to its
 // region's root.
+template <int T = kClusterThreads>
 __device__ __forceinline__ unsigned long long label_pieces(const Plane& pl, const uint8_t* key, const uint8_t* up_key,
                                                            int* P, const int* up_P, int* sizes, int n, int W,
                                                            int top) {
   cg::cluster_group cluster = cg::this_cluster();
-  const unsigned long long root = label_local(pl, key, P, sizes, n, W);
+  const unsigned long long root = label_local<T>(pl, key, P, sizes, n, W);
   cluster.sync();
-  unite_up(pl, key, up_key, P, up_P, top);
+  unite_up<T>(pl, key, up_key, P, up_P, top);
   cluster.sync();
   return root;
 }

@@ -3,8 +3,8 @@ components, the same-label size filter, and hole filling.
 
 Port of three TPU kernels of ``tiseg_tpu/ops/pallas_sweep.py``:
 ``ccl_sweep`` (B2), the size filter inside ``ccl_filter_sweep`` (B4) and
-``fill_holes_sweep`` (B3). Each wrapper runs its CUDA kernel
-(``csrc/flood.cu``) on a CUDA tensor, or raises, and its plain PyTorch
+``fill_holes_sweep`` (B3). Each wrapper runs a CUDA kernel of
+``csrc/flood.cu`` on a CUDA tensor, or raises, and its plain PyTorch
 version on a CPU tensor. CCL and hole filling are union-find on the card,
 exact for every geodesic, so the JAX ``sweeps`` caps are accepted and not
 needed. The size filter keeps the JAX kernel's rule, not the component
@@ -12,17 +12,41 @@ size: a label survives where its count over the L1 diamond of radius
 ``min_size - 1`` reaches ``min_size``. With 4-connectivity that is the
 component size rule; with 8-connectivity a diagonal chain of ``min_size``
 pixels is dropped.
+
+A CUDA batch takes a route chosen by a pure function of the shapes:
+
+- :func:`ccl_sweep`: :func:`ccl_route` gives ``'cluster'`` (one launch per
+  batch, one thread-block cluster of 8 per plane, batches of two or more
+  planes up to 408^2: ``.cluster_launches``) or ``'global'`` (the chain of
+  union-find launches over device memory, which spreads a single plane
+  over every SM: ``.global_launches``);
+- :func:`ccl_filter_sweep` with ``connectivity=1`` on a batch that
+  :func:`._cluster.cluster_route` admits, a single plane included: one
+  launch of the same kernel with the size filter fused
+  (``.fused_launches``; it counts as a cluster launch of ``ccl_sweep``);
+  otherwise :func:`ccl_sweep` then :func:`size_filter`;
+- :func:`size_filter`: :func:`filter_route` gives ``'tile'`` (32 x 32
+  output tiles with their halo in shared memory, counting ring by ring
+  until ``min_size``: ``.tile_launches``) or, for a halo no block holds,
+  ``'global'`` (one thread per pixel over device memory).
+
+``.launches`` counts every route of a wrapper; ``.last_route`` holds the
+last call's route and layout.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from ._build import raise_on_error
+from ._build import bind, device_guard, raise_on_error, raw_stream
+from ._cluster import CLUSTER, SMEM_PER_BLOCK, STATIC_BYTES, Route, cluster_route
 from .instance_pp import _N4, _N8, _fill_holes, _min_labels, _shift
 
 _INT32_MAX = 2 ** 31 - 1
+TILE = 32  # output tile side of the size filter's tile route (flood.cu:kTile)
+MAX_GRID_YZ = 65535  # the grid's y and z extents: tile rows and planes of one launch of the tile route
 
 
 def _planes(x: torch.Tensor, what: str):
@@ -37,21 +61,6 @@ def _planes(x: torch.Tensor, what: str):
     if not (x.is_cuda or x.device.type == 'cpu'):
         raise ValueError(f'{what}: no kernel for device {x.device}')
     return x.to(torch.int32).contiguous(), squeeze
-
-
-def _lib():
-    from ._build import load
-    lib = load('tiseg_flood')
-    lib.tiseg_ccl.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.tiseg_size_filter.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.tiseg_fill_holes.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    for fn in (lib.tiseg_ccl, lib.tiseg_size_filter, lib.tiseg_fill_holes):
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 # -- plain versions -------------------------------------------------------------
@@ -88,56 +97,194 @@ def fill_holes_plain(mask: torch.Tensor) -> torch.Tensor:
     return _fill_holes(mask)
 
 
+# -- routes -----------------------------------------------------------------------
+def ccl_route(B: int, H: int, W: int) -> Route:
+    """Route of :func:`ccl_sweep` on a (B, H, W) batch: :func:`cluster_route`
+    for two planes or more; 'global' for a single plane, which the chain
+    spreads over every SM where the cluster route holds it on 8 (one
+    256^2 plane: 22.4-24.1 us of device time for the chain against
+    25.8-26.3 for the cluster on an H100; ``chip_smoke.py:time_ccl_xla``
+    times both)."""
+    if B == 1:
+        return Route('global', 0, 0)
+    return cluster_route(B, H, W)
+
+
+class FilterRoute(NamedTuple):
+    route: str  # 'tile' or 'global'
+    tile: int  # output tile side (0 on the global route)
+    smem_bytes: int  # dynamic shared memory per block (0 on the global route)
+
+
+def tile_bytes(min_size: int) -> int:
+    """Shared bytes of one output tile with its halo of ``min_size - 1``
+    (none for ``min_size <= 1``, which keeps every set pixel), or 0 when
+    they do not fit a block (``flood.cu:tile_smem_bytes``)."""
+    side = TILE + 2 * max(min_size - 1, 0)
+    smem = 4 * side * side
+    return 0 if smem > SMEM_PER_BLOCK - STATIC_BYTES else smem
+
+
+def filter_route(B: int, H: int, W: int, min_size: int) -> FilterRoute:
+    """Route of the size filter on a (B, H, W) batch: 'tile' where a tile
+    with its halo fits a block's shared memory (``min_size`` up to 105) and
+    the tiles fit one grid, else 'global'."""
+    smem = tile_bytes(min_size)
+    if B * H * W == 0 or smem == 0 or max(B, -(-H // TILE)) > MAX_GRID_YZ:
+        return FilterRoute('global', 0, 0)
+    return FilterRoute('tile', TILE, smem)
+
+
+# -- launches ---------------------------------------------------------------------
+_ARGS_CCL_GLOBAL = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS_CCL_CLUSTER = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+_ARGS_FILTER_GLOBAL = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGS_FILTER_TILE = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+_ARGS_FILL = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+def _launch_global_ccl(x: torch.Tensor, connectivity: int) -> torch.Tensor:
+    """The earlier chain of union-find launches over device memory, one
+    thread per pixel, on any (B, H, W) CUDA batch of int32 masks."""
+    entry = bind('tiseg_flood', 'tiseg_ccl', _ARGS_CCL_GLOBAL)
+    B, H, W = x.shape
+    out, par = torch.empty_like(x), torch.empty_like(x)
+    m = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    with device_guard(x.device):
+        err = entry(x.data_ptr(), out.data_ptr(), par.data_ptr(), m.data_ptr(), B, H, W, int(connectivity == 2),
+                    raw_stream(x.device))
+    raise_on_error('tiseg_flood', err, 'ccl_sweep (global route)')
+    ccl_sweep.launches += 1
+    ccl_sweep.global_launches += 1
+    ccl_sweep.last_route = ('global', 0, 0, 0, 0)
+    return out
+
+
+def _launch_cluster_ccl(x: torch.Tensor, connectivity: int, min_size: int = 0) -> torch.Tensor:
+    """One launch, one cluster per plane, 1024 threads per block where the
+    batch's clusters are all resident at one block per SM, else 512;
+    ``min_size > 1`` (4-connected only) zeroes the regions under
+    ``min_size`` pixels."""
+    entry = bind('tiseg_flood', 'tiseg_ccl_cluster', _ARGS_CCL_CLUSTER)
+    B, H, W = x.shape
+    out = torch.empty_like(x)
+    info = (ctypes.c_int * 3)()  # shared bytes per block, clusters resident, threads per block
+    with device_guard(x.device):
+        err = entry(x.data_ptr(), out.data_ptr(), B, H, W, int(connectivity == 2), min_size,
+                    ctypes.cast(info, ctypes.c_void_p), raw_stream(x.device))
+    raise_on_error('tiseg_flood', err, 'ccl_sweep (cluster route)')
+    ccl_sweep.launches += 1
+    ccl_sweep.cluster_launches += 1
+    ccl_sweep.last_route = ('cluster', CLUSTER, *info)
+    return out
+
+
+def _launch_global_filter(x: torch.Tensor, min_size: int) -> torch.Tensor:
+    """The earlier kernel: one thread per pixel reads its whole diamond from
+    device memory."""
+    entry = bind('tiseg_flood', 'tiseg_size_filter', _ARGS_FILTER_GLOBAL)
+    B, H, W = x.shape
+    out = torch.empty_like(x)
+    with device_guard(x.device):
+        err = entry(x.data_ptr(), out.data_ptr(), B, H, W, min_size, raw_stream(x.device))
+    raise_on_error('tiseg_flood', err, 'size_filter (global route)')
+    size_filter.launches += 1
+    size_filter.global_launches += 1
+    size_filter.last_route = ('global', 0, 0)
+    return out
+
+
+def _launch_tile_filter(x: torch.Tensor, min_size: int) -> torch.Tensor:
+    entry = bind('tiseg_flood', 'tiseg_size_filter_tile', _ARGS_FILTER_TILE)
+    B, H, W = x.shape
+    out = torch.empty_like(x)
+    info = (ctypes.c_int * 1)()  # shared bytes per block
+    with device_guard(x.device):
+        err = entry(x.data_ptr(), out.data_ptr(), B, H, W, min_size, ctypes.cast(info, ctypes.c_void_p),
+                    raw_stream(x.device))
+    raise_on_error('tiseg_flood', err, 'size_filter (tile route)')
+    size_filter.launches += 1
+    size_filter.tile_launches += 1
+    size_filter.last_route = ('tile', TILE, info[0])
+    return out
+
+
 # -- wrappers -------------------------------------------------------------------
 def ccl_sweep(mask: torch.Tensor, connectivity: int = 2, sweeps: int = 8) -> torch.Tensor:
     """Min-index connected components of an (H, W) or (B, H, W) mask
     (> 0 is set), 4- (``connectivity=1``) or 8-connected (2). Returns int32
     labels: the component's minimum in-plane linear index + 1, 0 off the
-    mask. ``sweeps`` is accepted for the JAX signature and not needed."""
+    mask. ``sweeps`` is accepted for the JAX signature and not needed.
+    ``last_route``: (route, cluster size, shared bytes per block, clusters
+    resident, threads per block), zeros on the global route."""
     del sweeps
     if connectivity not in (1, 2):
         raise ValueError(f'connectivity must be 1 or 2, got {connectivity}')
     x, squeeze = _planes(mask, 'ccl_sweep')
-    if x.is_cuda:
-        lib = _lib()
-        B, H, W = x.shape
-        with torch.cuda.device(x.device):
-            out = torch.empty_like(x)
-            par = torch.empty_like(x)
-            m = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
-            err = lib.tiseg_ccl(x.data_ptr(), out.data_ptr(), par.data_ptr(), m.data_ptr(), B, H, W,
-                                int(connectivity == 2), _stream(x))
-        raise_on_error(lib, err, 'ccl_sweep')
-        ccl_sweep.launches += 1
-    else:
+    if not x.is_cuda:
         out = ccl_plain(x > 0, connectivity)
+    elif x.numel() == 0:
+        out = torch.empty_like(x)
+    elif ccl_route(*x.shape).route == 'cluster':
+        out = _launch_cluster_ccl(x, connectivity)
+    else:
+        out = _launch_global_ccl(x, connectivity)
     return out[0] if squeeze else out
 
 
 def size_filter(labels: torch.Tensor, min_size: int) -> torch.Tensor:
     """The size filter of ``ccl_filter_sweep`` on an (H, W) or (B, H, W)
-    int32 label plane (see :func:`size_filter_plain`)."""
+    int32 label plane (see :func:`size_filter_plain`), on the route of
+    :func:`filter_route`. ``last_route``: (route, tile side, shared bytes
+    per block), zeros on the global route."""
     if min_size < 0:
         raise ValueError('min_size must be non-negative')
     x, squeeze = _planes(labels, 'size_filter')
-    if x.is_cuda:
-        lib = _lib()
-        B, H, W = x.shape
-        with torch.cuda.device(x.device):
-            out = torch.empty_like(x)
-            err = lib.tiseg_size_filter(x.data_ptr(), out.data_ptr(), B, H, W, min_size, _stream(x))
-        raise_on_error(lib, err, 'size_filter')
-        size_filter.launches += 1
-    else:
+    if not x.is_cuda:
         out = size_filter_plain(x, min_size)
+    elif x.numel() == 0:
+        out = torch.empty_like(x)
+    elif filter_route(*x.shape, min_size).route == 'tile':
+        out = _launch_tile_filter(x, min_size)
+    else:
+        out = _launch_global_filter(x, min_size)
     return out[0] if squeeze else out
 
 
 def ccl_filter_sweep(mask: torch.Tensor, min_size: int = 10, connectivity: int = 1,
                      sweeps: int = 8) -> torch.Tensor:
     """Min-index labels with the components that fail the size filter
-    zeroed: :func:`ccl_sweep` then :func:`size_filter`."""
-    return size_filter(ccl_sweep(mask, connectivity=connectivity, sweeps=sweeps), min_size)
+    zeroed: :func:`size_filter` of :func:`ccl_sweep`.
+
+    With ``connectivity=1`` on a batch that :func:`cluster_route` admits
+    (a single plane too: the chain would take four launches) this is one
+    launch that keeps the regions of at least ``min_size`` pixels
+    (``fused_launches``):
+    on 4-connected labels the diamond rule is the component size rule. The
+    JAX kernel's docstring says so (``pallas_sweep.py:237-256``: the count
+    decides "the pixel's 4-conn component has >= min_size pixels"): the
+    first ``min_size`` pixels of a 4-connected breadth-first search from
+    any member lie within L1 distance ``min_size - 1``, and the diamond
+    counts no pixel twice, since the circular wrap is taken only when
+    ``min(H, W) >= 3 * min_size - 2 >= 2r + 1``. ``min_size <= 1`` keeps
+    every set pixel under both rules. With 8-connectivity the rules differ
+    (a diagonal chain of ``min_size`` pixels fits no diamond), so that, and
+    planes on the global route, take the two calls. ``last_route``: B2's
+    layout after a fused launch, ``('chain',)`` after the two calls."""
+    if min_size < 0:
+        raise ValueError('min_size must be non-negative')
+    if connectivity not in (1, 2):
+        raise ValueError(f'connectivity must be 1 or 2, got {connectivity}')
+    x, squeeze = _planes(mask, 'ccl_filter_sweep')
+    if x.is_cuda and x.numel() and connectivity == 1 and cluster_route(*x.shape).route == 'cluster':
+        out = _launch_cluster_ccl(x, 1, min_size)
+        ccl_filter_sweep.fused_launches += 1
+        ccl_filter_sweep.last_route = ccl_sweep.last_route
+    else:
+        out = size_filter(ccl_sweep(x, connectivity=connectivity, sweeps=sweeps), min_size)
+        if x.is_cuda:
+            ccl_filter_sweep.last_route = ('chain',)
+    return out[0] if squeeze else out
 
 
 def fill_holes_sweep(mask: torch.Tensor, sweeps: int = 32) -> torch.Tensor:
@@ -147,22 +294,25 @@ def fill_holes_sweep(mask: torch.Tensor, sweeps: int = 32) -> torch.Tensor:
     del sweeps
     x, squeeze = _planes(mask, 'fill_holes_sweep')
     if x.is_cuda:
-        lib = _lib()
+        entry = bind('tiseg_flood', 'tiseg_fill_holes', _ARGS_FILL)
         B, H, W = x.shape
-        with torch.cuda.device(x.device):
-            out = torch.empty(x.shape, dtype=torch.bool, device=x.device)
-            par = torch.empty_like(x)
-            flag = torch.empty_like(x)
-            m = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
-            err = lib.tiseg_fill_holes(x.data_ptr(), out.data_ptr(), par.data_ptr(), flag.data_ptr(),
-                                       m.data_ptr(), B, H, W, _stream(x))
-        raise_on_error(lib, err, 'fill_holes_sweep')
+        out = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+        par, flag = torch.empty_like(x), torch.empty_like(x)
+        m = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+        with device_guard(x.device):
+            err = entry(x.data_ptr(), out.data_ptr(), par.data_ptr(), flag.data_ptr(), m.data_ptr(), B, H, W,
+                        raw_stream(x.device))
+        raise_on_error('tiseg_flood', err, 'fill_holes_sweep')
         fill_holes_sweep.launches += 1
     else:
         out = fill_holes_plain(x > 0)
     return out[0] if squeeze else out
 
 
-ccl_sweep.launches = 0
-size_filter.launches = 0
+ccl_sweep.launches = ccl_sweep.cluster_launches = ccl_sweep.global_launches = 0
+ccl_sweep.last_route = ('', 0, 0, 0, 0)
+size_filter.launches = size_filter.tile_launches = size_filter.global_launches = 0
+size_filter.last_route = ('', 0, 0)
+ccl_filter_sweep.fused_launches = 0
+ccl_filter_sweep.last_route = ('',)
 fill_holes_sweep.launches = 0

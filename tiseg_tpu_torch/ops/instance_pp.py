@@ -61,6 +61,8 @@ def _shift(x: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
     outside the plane are ``fill``."""
     H, W = x.shape[-2:]
     out = torch.full_like(x, fill)
+    if abs(dy) >= H or abs(dx) >= W:  # shifted wholly off the plane
+        return out
     out[..., max(dy, 0):H + min(dy, 0), max(dx, 0):W + min(dx, 0)] = \
         x[..., max(-dy, 0):H - max(dy, 0), max(-dx, 0):W - max(dx, 0)]
     return out

@@ -70,7 +70,7 @@ extern "C" int tiseg_read_stamps(unsigned long long* t, int* tags) {
   return n;
 }
 '''
-BARRIER = re.compile(r'net\.(sync|next|finish|classes)\(|__syncthreads\(\);')
+BARRIER = re.compile(r'net\.(sync|next|finish|classes)\(|__syncthreads\(\);|cluster\.sync\(\);')
 
 
 def _stamp(text: str, labels: list, scopes=None) -> str:
