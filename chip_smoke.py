@@ -12,7 +12,8 @@
    CoNIC nucleus density, one 1000^2 plane), and times both:
    instance_postprocess_sweep (B1), ccl_sweep (B2, 4- and 8-connected),
    ccl_filter_sweep's size filter (B4, min_size 10, both connectivities),
-   fill_holes_sweep (B3), and the watershed (B5) in its bounded (4, 64) and
+   fill_holes_sweep (B3, on the route of ops/flood.py:fill_route, timed in
+   turns against its earlier chain), and the watershed (B5) in its bounded (4, 64) and
    fixpoint modes, 4- and 8-connected, on (dist, markers, foreground) from
    the HoVer pipeline.
    On seven-class planes with seed planes (hand-made hard cases at 64^2 and
@@ -41,8 +42,11 @@
    and B4 on the tile route of ops/flood.py:filter_route and its global
    kernel forced, each bit-exact with its launches per route held against
    the route functions; B4's global route at min_size 106 (a halo no
-   block holds). B2 and B4 (min_size 10) are timed in turns against their
-   earlier kernels on the timed sets.
+   block holds). B3 on every binary set on the route of fill_route (the
+   cluster route up to 408^2, a single plane included, else the earlier
+   chain), both its routes forced where they apply, and on the same views,
+   its launches per route held against fill_route. B2 and B4 (min_size 10)
+   are timed in turns against their earlier kernels on the timed sets.
    On the binary planes also the
    round-bounded ccl_rounds (B8a, both connectivities, 64 and 128 rounds) and
    fill_holes_rounds (B8b, H + W and 16 rounds), whose un-converged results
@@ -78,13 +82,14 @@
    density, 8 dihedral views (128 patches), softmax mean of sem/fore,
    first-view HV maps, and the HoVer post-processing through B2-B5, whose
    launch counts are read from that run alone (B2: two cluster-route
-   launches, each with B4's size filter fused, no separate size filter; B5:
-   one cluster-route launch, no global one). The instances are checked bit
-   for bit against the same post-processing with the plain versions on the
-   same fused maps. B2, the fused call and B4's tile route are timed on the
-   main path's first inputs in turns against the earlier chains (ms per
-   call and device time per launch), B5 in turns: cluster route, the
-   earlier chain of one launch per wave, cluster route again.
+   launches, each with B4's size filter fused, no separate size filter; B3
+   and B5: one cluster-route launch each, no global one). The instances are
+   checked bit for bit against the same post-processing with the plain
+   versions on the same fused maps. B2, the fused call, B4's tile route and
+   B3 are timed on the main path's first inputs in turns against the
+   earlier chains (ms per call and device time per launch), B5 in turns:
+   cluster route, the earlier chain of one launch per wave, cluster route
+   again.
 
 5. Drives the CDNet eval path once through InferenceRunner at the full
    width of the CoNIC recipe (VGG16-BN + CDHead, 7 classes + boundary,
@@ -105,9 +110,10 @@
    on its cluster route, one launch per image; timed in turns against its
    earlier chain on one image, and the cluster kernel at 1024 threads per
    block against 512, as on the CDNet batch),
-   'xla' (B3 once and B2 twice per image on its global chain: ccl_route
-   sends a single plane there; on the first image's plane the chain's and
-   the cluster kernel's launches in turns) and 'pallas-rounds' (B8b once on
+   'xla' (B3 once per image on its cluster route, B2 twice on its global
+   chain: fill_route and ccl_route decide for a single plane; on the first
+   image's planes, for each, the chain's and the cluster kernel's launches
+   in turns) and 'pallas-rounds' (B8b once on
    its block route, B8a twice on its cluster route, the window count once,
    no global chain, per image): each bit-exact against its plain version
    ('pallas-rounds' against the plain versions of all three, which launch
@@ -307,7 +313,6 @@ def kernel_cases(x: torch.Tensor, ws_in):
     """name -> (kernel call, plain call, input the bound is computed from) for one plane set."""
     from tiseg_tpu_torch.ops.flood import (ccl_plain, ccl_sweep, fill_holes_plain, fill_holes_sweep,
                                            size_filter, size_filter_plain)
-    from tiseg_tpu_torch.ops.watershed import watershed, watershed_plain
     cases = pp_cases(x)
     for conn in (1, 2):
         lab = ccl_plain(x > 0, conn)
@@ -458,8 +463,8 @@ def check_flood(flood_sets):
     and counters are held against the route functions."""
     from tiseg_tpu_torch.ops import flood
     from tiseg_tpu_torch.ops._cluster import cluster_route
-    from tiseg_tpu_torch.ops.flood import (ccl_filter_sweep, ccl_plain, ccl_route, ccl_sweep, filter_route,
-                                           size_filter, size_filter_plain)
+    from tiseg_tpu_torch.ops.flood import (ccl_filter_sweep, ccl_plain, ccl_route, ccl_sweep, fill_holes_plain,
+                                           fill_holes_sweep, fill_route, filter_route, size_filter, size_filter_plain)
 
     def same(got, want, what):
         torch.cuda.synchronize()
@@ -476,8 +481,26 @@ def check_flood(flood_sets):
             raise AssertionError(f'{what}: launches (B2 cluster, B2 global, fused, B4 tile, B4 global) {got}, '
                                  f'expected {want}')
 
+    def check_fill(x, what):
+        """B3 on the route of fill_route, its launches per route held against it, and both private
+        launches where they apply, on (B, H, W) or (H, W) planes ``x``. Returns the route."""
+        planes = x.reshape(-1, *x.shape[-2:])  # a view: the same pointer
+        want, route = fill_holes_plain(planes > 0), fill_route(*planes.shape)
+        before = (fill_holes_sweep.cluster_launches, fill_holes_sweep.global_launches)
+        same(fill_holes_sweep(x), want.reshape(x.shape), f'fill_holes_sweep {what}')
+        ran = (fill_holes_sweep.cluster_launches - before[0], fill_holes_sweep.global_launches - before[1])
+        if ran != ((1, 0) if route.route == 'cluster' else (0, 1)) or fill_holes_sweep.last_route[:3] != tuple(route):
+            raise AssertionError(f'fill_holes_sweep {what}: launches (cluster, global) {ran}, route '
+                                 f'{fill_holes_sweep.last_route}; fill_route gives {route}')
+        same(flood._launch_global_fill(planes), want, f'fill_holes_sweep {what} (global chain)')
+        if cluster_route(*planes.shape).route == 'cluster':
+            same(flood._launch_cluster_fill(planes), want, f'fill_holes_sweep {what} (cluster kernel)')
+        return route.route
+
     for set_name, x in flood_sets.items():
         shape = tuple(x.shape)
+        print(f'B3 ({check_fill(x, f"{set_name} {shape}")} route) {set_name} {shape}: bit-exact vs plain, the other '
+              f'route forced too; launches per route as fill_route gives', flush=True)
         cluster, b2_route = cluster_route(*shape), ccl_route(*shape)
         b2 = (1, 0) if b2_route.route == 'cluster' else (0, 1)
         for conn in (1, 2):
@@ -520,7 +543,8 @@ def check_flood(flood_sets):
         same(ccl_filter_sweep(view, DIAMOND_MIN_SIZE, connectivity=1),
              size_filter_plain(want, DIAMOND_MIN_SIZE).reshape(view.shape), f'ccl_filter_sweep on {what}')
         ran(before, what, (b2[0] + 1, b2[1], 1, 0, 0))
-    print('B2 and the fused ccl_filter_sweep on views 8 bytes past a 16-byte boundary (2 x 95 x 98, 95 x 98): '
+        check_fill(view, f'on {what}')
+    print('B2, the fused ccl_filter_sweep and B3 on views 8 bytes past a 16-byte boundary (2 x 95 x 98, 95 x 98): '
           'bit-exact', flush=True)
     x = flood_sets['hard64']
     labels = ccl_plain(x > 0, 1)
@@ -569,8 +593,9 @@ def mt_cases(x: torch.Tensor, seed: torch.Tensor):
 def routed_kernels():
     """name -> (wrapper, the pure function that gives its route and layout,
     the wrapper's attribute with its waves or rounds, if any) of the kernels
-    with more than one route (B1, B2, B4 at HoVer-Net's min_size, B5, B6,
-    B7, B8a, B8b)."""
+    with more than one route (B1, B2, B3, B4 at HoVer-Net's min_size, B5,
+    B6, B7, B8a, B8b)."""
+    from tiseg_tpu_torch.ops import flood
     from tiseg_tpu_torch.ops._cluster import cluster_route
     from tiseg_tpu_torch.ops.flood import ccl_route, ccl_sweep, filter_route, size_filter
     from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
@@ -579,6 +604,7 @@ def routed_kernels():
     from tiseg_tpu_torch.ops.watershed import watershed
     return {'instance_postprocess_sweep': (instance_postprocess_sweep, pp_layout, None),
             'ccl_sweep': (ccl_sweep, ccl_route, None),
+            'fill_holes_sweep': (flood.fill_holes_sweep, flood.fill_route, None),
             'size_filter': (size_filter, lambda B, H, W: filter_route(B, H, W, DIAMOND_MIN_SIZE), None),
             'instance_postprocess_vectorized': (instance_postprocess_sweep, pp_layout, None),
             'watershed': (watershed, cluster_route, 'last_waves'),
@@ -1076,7 +1102,7 @@ def hover_main_path(args):
     from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, make_nuclei
     from tiseg_tpu_torch.models import build_segmentor
     from tiseg_tpu_torch.ops import hover
-    from tiseg_tpu_torch.ops.flood import ccl_filter_sweep, ccl_sweep, fill_holes_plain, fill_holes_sweep, size_filter
+    from tiseg_tpu_torch.ops.flood import ccl_filter_sweep, ccl_sweep, fill_holes_sweep, size_filter
     from tiseg_tpu_torch.ops.hover import hover_post_proc_device
     from tiseg_tpu_torch.ops.watershed import _launch_global as ws_global
     from tiseg_tpu_torch.ops.watershed import watershed, watershed_plain
@@ -1108,15 +1134,18 @@ def hover_main_path(args):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # (wrapper, counter): the route must launch B2 twice on its cluster route, each with B4's size filter fused,
-    # B3 once and B5 once on its cluster route, and no global chain and no separate size filter
+    # B3 once and B5 once, both on their cluster routes, and no global chain and no separate size filter
     counters = {'ccl_sweep': (ccl_sweep, 'launches'), 'ccl_sweep cluster': (ccl_sweep, 'cluster_launches'),
                 'ccl_sweep global': (ccl_sweep, 'global_launches'),
                 'ccl_filter_sweep fused': (ccl_filter_sweep, 'fused_launches'),
                 'size_filter': (size_filter, 'launches'), 'fill_holes_sweep': (fill_holes_sweep, 'launches'),
+                'fill_holes_sweep cluster': (fill_holes_sweep, 'cluster_launches'),
+                'fill_holes_sweep global': (fill_holes_sweep, 'global_launches'),
                 'watershed': (watershed, 'launches'), 'watershed cluster': (watershed, 'cluster_launches'),
                 'watershed global': (watershed, 'global_launches')}
     expected = {'ccl_sweep': 2, 'ccl_sweep cluster': 2, 'ccl_sweep global': 0, 'ccl_filter_sweep fused': 2,
-                'size_filter': 0, 'fill_holes_sweep': 1, 'watershed': 1, 'watershed cluster': 1, 'watershed global': 0}
+                'size_filter': 0, 'fill_holes_sweep': 1, 'fill_holes_sweep cluster': 1, 'fill_holes_sweep global': 0,
+                'watershed': 1, 'watershed cluster': 1, 'watershed global': 0}
     for fn, c in counters.values():
         setattr(fn, c, 0)
     out = runner.dispatch(imgs, (hw, hw))
@@ -1173,60 +1202,58 @@ def hover_main_path(args):
     markers = hover.hover_markers(blb, overall)
     blb_i = blb.to(torch.int32)
     PP_PLANES[f'main path HoVer-Net foreground mask {tuple(mask.shape)}'] = (mask.cpu(), 2, 1)
-    stats = flood_main_path('HoVer main-path', mask, labels, launches['ccl_sweep'])
-    calls = {
-        'fill_holes_sweep': (lambda: fill_holes_sweep(marker), lambda: fill_holes_plain(marker > 0), marker),
-        'watershed': (lambda: watershed(dist, markers, blb_i), lambda: watershed_plain(dist, markers, blb), dist),
-    }
+    stats = flood_main_path('HoVer main-path', mask, labels, marker, launches['ccl_sweep'],
+                            launches['fill_holes_sweep'])
     # per batch: B2 with the size filter fused, twice; B3; B5
-    pp_kernel_ms = stats['ccl_sweep']['fused_ms'] * launches['ccl_filter_sweep fused']
-    for name, (call, plain, x) in calls.items():
-        extra = {}
-        if name == 'watershed':
-            # the cluster route, the earlier chain of one launch per wave, the cluster route again
-            k_ms, extra['earlier_ms'], extra['ms_turns'] = time_in_turns(
-                call, lambda: ws_global(dist, markers, blb_i))
-            # the bound keeps the definition of earlier rows: the waves the
-            # earlier chain needed on the batch (each level until no plane changes)
-            ws_global(dist, markers, blb_i)
-            waves = extra['waves_needed_chain'] = watershed.last_waves[1]
-            call()
-            extra['waves_budget'], extra['waves_needed'], extra['waves_run'] = watershed.last_waves
-            extra['waves_mean'] = watershed.last_waves.mean_needed
-            extra['plane_route'] = list(watershed.last_route)
-        else:
-            k_ms, waves = cuda_ms(call, reps=25), 0
-        b_ms, b_by = bound(name, x, waves)
-        p_ms = cuda_ms(plain, reps=3, warmup=1)
-        stats[name] = dict(launches=launches[name], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, **extra)
-        pp_kernel_ms += k_ms * launches[name]
-        print(f'HoVer main-path kernel {name} {tuple(x.shape)}: {k_ms:.4f} ms per call x {launches[name]} '
-              f'launches, plain {p_ms:.2f} ms, bound {b_ms * 1e3:.2f} us ({b_by})', flush=True)
-        if extra:
-            turns = extra['ms_turns']
-            print(f'HoVer main-path watershed: cluster route {turns[0]:.4f} / {turns[1]:.4f} ms, earlier chain '
-                  f'{extra["earlier_ms"]:.4f} ms ({extra["earlier_ms"] / k_ms:.2f}x); route {extra["plane_route"]} '
-                  f'(route, cluster size, shared bytes per block, clusters resident); waves budget '
-                  f'{extra["waves_budget"]}, needed {extra["waves_needed"]} (mean per plane '
-                  f'{extra["waves_mean"]:.2f}), run {extra["waves_run"]}; the earlier chain needed {waves} waves '
-                  f'on the batch (the bound\'s count)', flush=True)
+    pp_kernel_ms = (stats['ccl_sweep']['fused_ms'] * launches['ccl_filter_sweep fused']
+                    + stats['fill_holes_sweep']['ms'] * launches['fill_holes_sweep'])
+
+    # B5: the cluster route, the earlier chain of one launch per wave, the cluster route again
+    def call():
+        return watershed(dist, markers, blb_i)
+
+    extra = {}
+    k_ms, extra['earlier_ms'], extra['ms_turns'] = time_in_turns(call, lambda: ws_global(dist, markers, blb_i))
+    # the bound keeps the definition of earlier rows: the waves the
+    # earlier chain needed on the batch (each level until no plane changes)
+    ws_global(dist, markers, blb_i)
+    waves = extra['waves_needed_chain'] = watershed.last_waves[1]
+    call()
+    extra['waves_budget'], extra['waves_needed'], extra['waves_run'] = watershed.last_waves
+    extra['waves_mean'] = watershed.last_waves.mean_needed
+    extra['plane_route'] = list(watershed.last_route)
+    b_ms, b_by = bound('watershed', dist, waves)
+    p_ms = cuda_ms(lambda: watershed_plain(dist, markers, blb), reps=3, warmup=1)
+    n_ws = launches['watershed']
+    stats['watershed'] = dict(launches=n_ws, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, **extra)
+    pp_kernel_ms += k_ms * n_ws
+    turns = extra['ms_turns']
+    print(f'HoVer main-path kernel watershed {tuple(dist.shape)}: {k_ms:.4f} ms per call x {n_ws} launches, plain '
+          f'{p_ms:.2f} ms, bound {b_ms * 1e3:.2f} us ({b_by})', flush=True)
+    print(f'HoVer main-path watershed: cluster route {turns[0]:.4f} / {turns[1]:.4f} ms, earlier chain '
+          f'{extra["earlier_ms"]:.4f} ms ({extra["earlier_ms"] / k_ms:.2f}x); route {extra["plane_route"]} '
+          f'(route, cluster size, shared bytes per block, clusters resident); waves budget '
+          f'{extra["waves_budget"]}, needed {extra["waves_needed"]} (mean per plane '
+          f'{extra["waves_mean"]:.2f}), run {extra["waves_run"]}; the earlier chain needed {waves} waves '
+          f'on the batch (the bound\'s count)', flush=True)
     print(f'HoVer post-processing: kernels {pp_kernel_ms / n_img:.3f} ms of {pp_ms:.3f} ms per image '
           f'(CUDA events x main-path launches / {n_img}: fused B2 {stats["ccl_sweep"]["fused_ms"]:.4f} x 2, B3 '
           f'{stats["fill_holes_sweep"]["ms"]:.4f}, B5 {stats["watershed"]["ms"]:.4f})', flush=True)
     return stats
 
 
-def flood_main_path(label: str, mask: torch.Tensor, labels: torch.Tensor, launches: int):
+def flood_main_path(label: str, mask: torch.Tensor, labels: torch.Tensor, marker: torch.Tensor, launches: int,
+                    fill_launches: int):
     """B2 (4-connected), the fused ccl_filter_sweep (min_size 10) and B4's
-    tile route on a main path's mask and 4-connected labels, each in turns
-    against the earlier chains (B2's union-find chain, that chain then B4's
-    global kernel, B4's global kernel): ms per call (host time included)
-    and device_ms per launch (L2 flushed, enqueue hidden). Returns the
-    rows of B2 (with the fused call's numbers) and B4; B4 has no launch of
-    its own on the main paths."""
+    tile route on a main path's mask and 4-connected labels, and B3 on its
+    marker mask, each in turns against the earlier chains (B2's union-find
+    chain, that chain then B4's global kernel, B4's global kernel, B3's
+    chain): ms per call (host time included) and device_ms per launch (L2
+    flushed, enqueue hidden). Returns the rows of B2 (with the fused call's
+    numbers), B4 and B3; B4 has no launch of its own on the main paths."""
     from tiseg_tpu_torch.ops import flood
-    from tiseg_tpu_torch.ops.flood import (ccl_filter_sweep, ccl_plain, ccl_sweep, filter_route, size_filter,
-                                           size_filter_plain)
+    from tiseg_tpu_torch.ops.flood import (ccl_filter_sweep, ccl_plain, ccl_sweep, fill_holes_plain, fill_holes_sweep,
+                                           filter_route, size_filter, size_filter_plain)
     k = DIAMOND_MIN_SIZE
     rows = {}
     for name, call, earlier, plain, x in (
@@ -1236,9 +1263,11 @@ def flood_main_path(label: str, mask: torch.Tensor, labels: torch.Tensor, launch
              lambda: flood._launch_global_filter(flood._launch_global_ccl(mask, 1), k),
              lambda: size_filter_plain(ccl_plain(mask > 0, 1), k), mask),
             ('size_filter', lambda: size_filter(labels, k), lambda: flood._launch_global_filter(labels, k),
-             lambda: size_filter_plain(labels, k), labels)):
+             lambda: size_filter_plain(labels, k), labels),
+            ('fill_holes_sweep', lambda: fill_holes_sweep(marker), lambda: flood._launch_global_fill(marker),
+             lambda: fill_holes_plain(marker > 0), marker)):
         got = call()
-        route = list((size_filter if name == 'size_filter' else ccl_sweep).last_route)
+        route = list({'size_filter': size_filter, 'fill_holes_sweep': fill_holes_sweep}.get(name, ccl_sweep).last_route)
         torch.cuda.synchronize()
         if not (torch.equal(got, plain()) and torch.equal(earlier(), got)):
             raise AssertionError(f'{label} {name} differs from its plain version or the earlier chain')
@@ -1259,7 +1288,8 @@ def flood_main_path(label: str, mask: torch.Tensor, labels: torch.Tensor, launch
     b2 = dict(launches=launches, library_ms=None, **rows['ccl_sweep'],
               **{f'fused_{key}': v for key, v in fused.items() if key != 'plane_route'})
     b4 = dict(launches=0, library_ms=None, **rows['size_filter'])
-    return {'ccl_sweep': b2, 'size_filter': b4}
+    b3 = dict(launches=fill_launches, library_ms=None, **rows['fill_holes_sweep'])
+    return {'ccl_sweep': b2, 'size_filter': b4, 'fill_holes_sweep': b3}
 
 
 # -- phases 5 and 6: the CDNet and the multi-task eval paths ---------------------------
@@ -1490,13 +1520,14 @@ def multi_task_path(args, config: str, n_img: int, timed: bool):
 def unet_postprocess_routes(args):
     """16 images of 256^2 at CoNIC density through ``seg.inference`` once,
     then ``seg.postprocess`` per image with device_postprocess True (B1),
-    'xla' (B3 + B2 twice, on B2's global chain) and 'pallas-rounds' (B8b on its block route, B8a
+    'xla' (B3 on the route of fill_route, B2 twice on the route of
+    ccl_route) and 'pallas-rounds' (B8b on its block route, B8a
     twice on its cluster route, the window count once; no global chain).
     The 'pallas-rounds' route and its kernels on the first image's planes
     are timed in turns against the earlier design (the global chains and
     the window count's tensor ops)."""
     from tiseg_tpu_torch.models import build_segmentor
-    from tiseg_tpu_torch.ops.flood import ccl_sweep, fill_holes_sweep
+    from tiseg_tpu_torch.ops.flood import ccl_sweep, fill_holes_sweep, fill_route
     from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain, instance_postprocess_sweep
     from tiseg_tpu_torch.ops.rounds import (ccl_rounds, ccl_rounds_needed, ccl_rounds_plain, fill_holes_rounds,
                                             fill_holes_rounds_needed, fill_holes_rounds_plain,
@@ -1517,11 +1548,14 @@ def unet_postprocess_routes(args):
     fused = seg.inference(img_t)['sem'].cpu().numpy()
     sem_pred = torch.from_numpy(fused.argmax(-1).astype(np.int32)).cuda()
     want = instance_postprocess_plain(sem_pred)  # the exact per-class function, plain
-    # (wrapper, counter, launches per image): every counter the route must move, and those it must not
+    # (wrapper, counter, launches per image): every counter the route must move, and those it must not; 'xla'
+    # calls B3 and B2 per image, on the routes fill_route and ccl_route give a single plane
+    fill_cluster = int(fill_route(1, hw, hw).route == 'cluster')
     routes = {True: [(instance_postprocess_sweep, 'launches', 1), (instance_postprocess_sweep, 'cluster_launches', 1),
                      (instance_postprocess_sweep, 'global_launches', 0)],
-              'xla': [(fill_holes_sweep, 'launches', 1), (ccl_sweep, 'launches', 2), (ccl_sweep, 'cluster_launches', 0),
-                      (ccl_sweep, 'global_launches', 2)],
+              'xla': [(fill_holes_sweep, 'launches', 1), (fill_holes_sweep, 'cluster_launches', fill_cluster),
+                      (fill_holes_sweep, 'global_launches', 1 - fill_cluster), (ccl_sweep, 'launches', 2),
+                      (ccl_sweep, 'cluster_launches', 0), (ccl_sweep, 'global_launches', 2)],
               'pallas-rounds': [(fill_holes_rounds, 'launches', 1), (fill_holes_rounds, 'block_launches', 1),
                                 (fill_holes_rounds, 'global_launches', 0), (ccl_rounds, 'launches', 2),
                                 (ccl_rounds, 'cluster_launches', 2), (ccl_rounds, 'global_launches', 0),
@@ -1582,7 +1616,8 @@ def unet_postprocess_routes(args):
     filled = fill_holes_rounds(mask).to(torch.int32)
     xla_plane = fill_holes_sweep(mask).to(torch.int32)
     PP_PLANES[f"UNet.postprocess 'xla' filled plane {tuple(xla_plane.shape)}"] = (xla_plane.cpu(), 2, 1)
-    stats = {'ccl_sweep_xla': time_ccl_xla(xla_plane)}
+    stats = {'ccl_sweep_xla': time_xla_kernel('ccl_sweep', xla_plane),
+             'fill_holes_sweep_xla': time_xla_kernel('fill_holes_sweep', mask)}
     cc4 = ccl_rounds(filled, 128, 1)
     if not torch.equal(window_count_mask(cc4, 5), small_component_mask(cc4, 5)):
         raise AssertionError('window_count_mask differs from small_component_mask on the route\'s labels')
@@ -1617,30 +1652,38 @@ def unet_postprocess_routes(args):
     return stats
 
 
-def time_ccl_xla(filled: torch.Tensor):
-    """B2 as 'xla' calls it on one image: 4-connected on the filled 256^2
-    plane, where ccl_route takes the global chain. The chain's and the
+def time_xla_kernel(name: str, x: torch.Tensor):
+    """B2 or B3 as 'xla' calls it on one image: B2 4-connected on the
+    filled 256^2 plane, B3 on the class mask. The earlier chain's and the
     cluster kernel's launches (1024 threads: one cluster is resident that
-    way), the two sides of ccl_route's choice, in turns through their
-    private launches (the wrapper's own work is the same on both); ms per
-    call and device_ms per call."""
+    way), the two sides of the single-plane choice of ccl_route and
+    fill_route, in turns through their private launches (the wrapper's own
+    work is the same on both); ms per call and device_ms per call. Returns
+    the row of the route the wrapper takes and the other side's times."""
     from tiseg_tpu_torch.ops import flood
-    from tiseg_tpu_torch.ops.flood import ccl_plain, ccl_route, ccl_sweep
-    chain, cluster = (lambda: flood._launch_global_ccl(filled, 1)), (lambda: flood._launch_cluster_ccl(filled, 1))
-    want = ccl_plain(filled > 0, 1)
-    if not torch.equal(ccl_sweep(filled, connectivity=1), want):
-        raise AssertionError("ccl_sweep differs from its plain version on the 'xla' route's plane")
-    route = list(ccl_sweep.last_route)
-    if route[:3] != list(ccl_route(*filled.shape)) or not torch.equal(cluster(), want):
-        raise AssertionError(f"'xla' plane: ccl_sweep took {route}, or the cluster kernel differs from plain")
-    k_ms, cluster_ms, turns = time_in_turns(chain, cluster)
-    k_dev, cluster_dev = device_ms(chain), device_ms(cluster)
-    print(f"UNet.postprocess 'xla' kernel ccl_sweep {tuple(filled.shape)}: {route[0]} route {k_ms:.4f} ms (readings "
-          f"{turns[0]:.4f}, {turns[1]:.4f}), cluster kernel {cluster_ms:.4f} ms in turns ({cluster_ms / k_ms:.2f}x); "
-          f"device {k_dev * 1e3:.2f} us per call against {cluster_dev * 1e3:.2f} (L2 flushed); route {route}",
+    if name == 'ccl_sweep':
+        wrapper, route_of, want = flood.ccl_sweep, flood.ccl_route, flood.ccl_plain(x > 0, 1)
+        call, chain, cluster = (lambda: flood.ccl_sweep(x, connectivity=1), lambda: flood._launch_global_ccl(x, 1),
+                                lambda: flood._launch_cluster_ccl(x, 1))
+    else:
+        wrapper, route_of, want = flood.fill_holes_sweep, flood.fill_route, flood.fill_holes_plain(x > 0)
+        call, chain, cluster = (lambda: flood.fill_holes_sweep(x), lambda: flood._launch_global_fill(x),
+                                lambda: flood._launch_cluster_fill(x))
+    if not torch.equal(call(), want):
+        raise AssertionError(f"{name} differs from its plain version on the 'xla' route's plane")
+    route = list(wrapper.last_route)
+    if route[:3] != list(route_of(*x.shape)) or not (torch.equal(cluster(), want) and torch.equal(chain(), want)):
+        raise AssertionError(f"'xla' plane: {name} took {route}, or a private launch differs from plain")
+    taken, other = (cluster, chain) if route[0] == 'cluster' else (chain, cluster)
+    k_ms, other_ms, turns = time_in_turns(taken, other)
+    k_dev, other_dev = device_ms(taken), device_ms(other)
+    other_name = 'chain' if route[0] == 'cluster' else 'cluster'
+    print(f"UNet.postprocess 'xla' kernel {name} {tuple(x.shape)}: {route[0]} route {k_ms:.4f} ms (readings "
+          f"{turns[0]:.4f}, {turns[1]:.4f}), {other_name} {other_ms:.4f} ms in turns ({other_ms / k_ms:.2f}x); "
+          f"device {k_dev * 1e3:.2f} us per call against {other_dev * 1e3:.2f} (L2 flushed); route {route}",
           flush=True)
-    return dict(ms=k_ms, cluster_ms=cluster_ms, ms_turns=turns, device_ms=k_dev, cluster_device_ms=cluster_dev,
-                plane_route=route)
+    return {'ms': k_ms, f'{other_name}_ms': other_ms, 'ms_turns': turns, 'device_ms': k_dev,
+            f'{other_name}_device_ms': other_dev, 'plane_route': route}
 
 
 # -- phase 8: CUNet through the executor -------------------------------------------------
@@ -1788,7 +1831,8 @@ def main(argv=None) -> int:
                          ('tiseg_flood', 'k_diamond_tile')):
         for entry, regs, spills in ptxas_report(reports.get(name, '')):
             if kernel in entry:
-                print(f'ptxas {_build.SOURCES[name]} {entry}: {regs} registers, {spills}', flush=True)
+                what = ' (hole filling)' if name == 'tiseg_flood' and 'Lb1E' in entry else ''  # kFill = true
+                print(f'ptxas {_build.SOURCES[name]} {entry}{what}: {regs} registers, {spills}', flush=True)
 
     # -- phase 2 ---------------------------------------------------------------
     def hard(hw):
@@ -1885,7 +1929,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.save_pp_planes)), exist_ok=True)
         torch.save(PP_PLANES, args.save_pp_planes)
 
-    stats['ccl_sweep'].update({f'xla_{k}': v for k, v in stats.pop('ccl_sweep_xla').items()})
+    for name in ('ccl_sweep', 'fill_holes_sweep'):
+        stats[name].update({f'xla_{k}': v for k, v in stats.pop(f'{name}_xla').items()})
     keys = ('launches', 'ms', 'plain_ms', 'bound_ms', 'bound_by')
     kernels = [dict(name=name, route='cuda', source=src, replaces=rep, max_abs_err=max_err[name],
                     **{k: stats[name][k] for k in keys}, library_ms=stats[name].get('library_ms'),

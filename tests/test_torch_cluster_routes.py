@@ -15,8 +15,8 @@ and of the multi-task recovery (B6, ops/mt_instance_pp.py).
   growth that stops at the first wave changing nothing) equals
   ``mt_instance_postprocess_plain`` and the JAX kernel (interpret mode) on
   the seven-class hard planes.
-- On a card (``gpu``), both routes of both kernels against the plain
-  versions on ragged planes."""
+- On a card, both routes of both kernels against the plain versions on
+  ragged planes, in test_torch_gpu_watershed.py."""
 import importlib
 
 import jax.numpy as jnp
@@ -26,14 +26,13 @@ import torch
 
 from tiseg_tpu.ops.pallas_postproc import watershed_pallas
 from tiseg_tpu.ops.pallas_sweep import mt_instance_postprocess_sweep as jax_mt_pp
-from tiseg_tpu_torch.datasets.synthetic import (CONIC_NUCLEI_PER_PATCH, hard_planes_multiclass, hover_maps,
-                                                make_nuclei, multiclass_nuclei)
+from tiseg_tpu_torch.datasets.synthetic import hard_planes_multiclass, multiclass_nuclei
 from tiseg_tpu_torch.ops._cluster import SMEM_PER_BLOCK, cluster_route
-from tiseg_tpu_torch.ops.hover import foreground, hover_energy, hover_markers
 from tiseg_tpu_torch.ops.instance_pp import _N4, _component_sizes, _linear_index, _min_labels
-from tiseg_tpu_torch.ops.mt_instance_pp import (align_foreground_plain, mt_instance_postprocess_plain,
-                                                mt_instance_postprocess_sweep)
-from tiseg_tpu_torch.ops.watershed import watershed, watershed_plain
+from tiseg_tpu_torch.ops.mt_instance_pp import align_foreground_plain, mt_instance_postprocess_plain
+from tiseg_tpu_torch.ops.watershed import watershed
+from torch_cases import hover_inputs as _hover_inputs
+from torch_cases import long_basin as _long_basin
 
 # the modules (the package exports functions of the same names)
 ws_mod = importlib.import_module('tiseg_tpu_torch.ops.watershed')
@@ -67,25 +66,6 @@ def test_256_batches_fit_two_blocks_per_sm():
 
 
 # -- B5: the plain watershed's early exit against the JAX kernel -----------------------
-def _hover_inputs(n=2, hw=64, seed=40):
-    fore, hv = zip(*[hover_maps(make_nuclei(seed + i, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2)[2],
-                                seed=seed + i) for i in range(n)])
-    blb = foreground(torch.from_numpy(np.stack(fore)))
-    overall, dist = hover_energy(blb, torch.from_numpy(np.stack(hv)))
-    return dist.numpy(), hover_markers(blb, overall).numpy(), blb.numpy()
-
-
-def _long_basin(hw=32):
-    """A 1 px serpentine corridor on a flat image, one marker at its start."""
-    mask = np.zeros((hw, hw), bool)
-    mask[::2] = True
-    for r in range(1, hw, 2):
-        mask[r, hw - 1 if r % 4 == 1 else 0] = True
-    markers = np.zeros((hw, hw), np.int32)
-    markers[0, 0] = 1
-    return np.zeros((1, hw, hw), np.float32), markers[None], mask[None]
-
-
 WS_CASES = {'hover': _hover_inputs, 'long_basin': _long_basin,
             'ragged': lambda: tuple(np.ascontiguousarray(a[:, :61, :37]) for a in _hover_inputs(1, 64, 7))}
 
@@ -165,41 +145,3 @@ def test_b6_decomposition_matches_plain_and_jax(seven64, num_classes, align_time
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     assert len(np.unique(np.asarray(want_s))) == num_classes
-
-
-# -- both routes on the card ----------------------------------------------------------------
-def _ragged_sets():
-    dist, markers, blb = _hover_inputs(3, 128, 11)
-    sem = np.stack([multiclass_nuclei(20 + i, 128, 25)[0] for i in range(3)])
-    seed = np.stack([multiclass_nuclei(20 + i, 128, 25)[1] for i in range(3)])
-    for b, h, w in ((3, 101, 77), (1, 61, 127)):
-        yield (tuple(np.ascontiguousarray(a[:b, :h, :w]) for a in (dist, markers, blb)),
-               tuple(np.ascontiguousarray(a[:b, :h, :w]) for a in (sem, seed)))
-
-
-@pytest.mark.gpu
-def test_both_routes_match_plain_on_ragged_planes():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
-    for ws_in, mt_in in _ragged_sets():
-        image, markers, mask = (torch.from_numpy(a).cuda() for a in ws_in)
-        for conn in (1, 2):
-            for rounds, cleanup in ((4, 64), (None, None)):
-                before = watershed.cluster_launches
-                got = watershed(image, markers, mask, connectivity=conn, rounds_per_level=rounds,
-                                cleanup_rounds=cleanup)
-                assert watershed.cluster_launches == before + 1
-                assert watershed.last_route[:3] == tuple(cluster_route(*image.shape))  # the C layout's bytes
-                chain = ws_mod._launch_global(image, markers, mask.to(torch.int32), conn, 64, rounds, cleanup)
-                want = watershed_plain(image, markers, mask, conn, 64, rounds, cleanup)
-                assert torch.equal(got, want) and torch.equal(chain, want)
-        sem, seed = (torch.from_numpy(a).cuda() for a in mt_in)
-        for nc, at in ((7, 20), (2, 2)):
-            before = mt_instance_postprocess_sweep.cluster_launches
-            got = mt_instance_postprocess_sweep(sem, seed, num_classes=nc, align_time=at)
-            assert mt_instance_postprocess_sweep.cluster_launches == before + 1
-            assert mt_instance_postprocess_sweep.last_route[:3] == tuple(cluster_route(*sem.shape))
-            chain = mt_mod._launch_global(sem, seed, nc, 5, at)
-            want = mt_instance_postprocess_plain(sem, seed, nc, 5, at)
-            for g, c, w in zip(got, chain, want):
-                assert torch.equal(g, w) and torch.equal(c, w)

@@ -5,24 +5,19 @@ the CPU).
 On a CPU tensor each wrapper runs its plain PyTorch version, which must
 equal the JAX kernel bit for bit wherever the JAX sweep caps suffice; the
 JAX side gets caps of 64 for that (the port is exact for every geodesic).
-The CUDA kernels are held to the plain versions on the card (the ``gpu``
-test here and chip_smoke.py)."""
+The CUDA kernels are held to the plain versions on the card
+(test_torch_gpu_flood.py and chip_smoke.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tiseg_tpu.ops import pallas_sweep as jps
-from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, hard_planes, make_nuclei
-from tiseg_tpu_torch.ops.flood import (ccl_filter_sweep, ccl_plain, ccl_sweep, fill_holes_plain, fill_holes_sweep,
-                                       size_filter, size_filter_plain)
+from tiseg_tpu_torch.datasets.synthetic import hard_planes
+from tiseg_tpu_torch.ops.flood import ccl_filter_sweep, ccl_sweep, fill_holes_sweep, size_filter
+from torch_cases import nuclei as _nuclei
 
 CAPS = 64
-
-
-def _nuclei(n=4, hw=64):
-    return np.stack([make_nuclei(30 + i, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2)[1]
-                     for i in range(n)]).astype(np.int32)
 
 
 # one (4, 64, 64) shape, so that each JAX program compiles once for both cases
@@ -107,16 +102,3 @@ def test_two_dim_inputs_and_argument_checks():
         fill_holes_sweep(plane[None, None])
     with pytest.raises(ValueError, match='min_size'):
         size_filter(plane, -1)
-
-
-@pytest.mark.gpu
-def test_cuda_kernels_match_plain():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
-    planes = np.concatenate([hard_planes(256), _nuclei(4, 256)])
-    x = torch.from_numpy(planes).cuda()
-    for conn in (1, 2):
-        lab = ccl_sweep(x, connectivity=conn)
-        assert torch.equal(lab, ccl_plain(x > 0, conn))
-        assert torch.equal(size_filter(lab, 10), size_filter_plain(lab, 10))
-    assert torch.equal(fill_holes_sweep(x), fill_holes_plain(x > 0))

@@ -18,19 +18,19 @@ csrc/flood.cu.
 - A plain emulation of B4's tile kernel (tiles with their halo, wrapped or
   masked, the count ring by ring with its early stop) equals
   ``size_filter_plain``, the 8-connected diagonal chain included.
-- On a card (``gpu``): every route against the plain versions, with the
-  counters."""
+- On a card: every route against the plain versions, with the counters,
+  in test_torch_gpu_flood.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tiseg_tpu.ops import pallas_sweep as jps
-from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, hard_planes, make_nuclei, spiral
-from tiseg_tpu_torch.ops import flood
+from tiseg_tpu_torch.datasets.synthetic import hard_planes, spiral
 from tiseg_tpu_torch.ops._cluster import SMEM_PER_BLOCK, STATIC_BYTES, cluster_route, layout_bytes
-from tiseg_tpu_torch.ops.flood import (ccl_filter_sweep, ccl_plain, ccl_route, ccl_sweep, filter_route, size_filter,
-                                       size_filter_plain)
+from tiseg_tpu_torch.ops.flood import ccl_filter_sweep, ccl_plain, ccl_route, filter_route, size_filter_plain
+from torch_cases import nuclei as _nuclei
+from torch_cases import ragged as _ragged
 from torch_port_utils import UnionFind, label_blocks
 
 CAPS = 64
@@ -113,15 +113,6 @@ def _emulate_ccl(planes, connectivity, min_size=0):
             keep &= np.vectorize(lambda g: sizes.get(g, 0))(root) >= min_size
         out.append(np.where(keep, root + 1, 0))
     return np.stack(out).astype(np.int32)
-
-
-def _nuclei(n, hw, seed=30):
-    return np.stack([make_nuclei(seed + i, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2)[1]
-                     for i in range(n)]).astype(np.int32)
-
-
-def _ragged():
-    return np.ascontiguousarray(_nuclei(17, 128, 70)[:, :101, :77])
 
 
 CCL_SETS = {
@@ -260,72 +251,3 @@ def test_tile_design_matches_size_filter_plain(name):
         assert rings[0, 21, 21] < 9 and rings[0, 5, 3] == 9
     if name == 'eye20':  # the corners reach 7 same-label pixels only through the wrap
         assert got[0, -1, -1] > 0
-
-
-# -- every route on the card -----------------------------------------------------------------
-def _needs_card():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
-
-
-@pytest.mark.gpu
-def test_every_route_matches_plain_on_the_card():
-    _needs_card()
-    sets = {'hard256': hard_planes(256), 'nuclei16x256': _nuclei(16, 256), 'ragged': _ragged(),
-            'one256': _nuclei(1, 256), '480': _nuclei(1, 480),
-            'small': (np.random.default_rng(1).random((3, 5, 9)) < 0.6).astype(np.int32)}
-    for name, planes in sets.items():
-        x = torch.from_numpy(planes).cuda()
-        route, cluster = ccl_route(*x.shape).route, cluster_route(*x.shape).route
-        for conn in (1, 2):
-            want = ccl_plain(x > 0, conn)
-            before = (ccl_sweep.cluster_launches, ccl_sweep.global_launches)
-            got = ccl_sweep(x, connectivity=conn)
-            torch.cuda.synchronize()
-            ran = (ccl_sweep.cluster_launches - before[0], ccl_sweep.global_launches - before[1])
-            assert ran == ((1, 0) if route == 'cluster' else (0, 1)) and ccl_sweep.last_route[0] == route, name
-            assert torch.equal(got, want) and torch.equal(flood._launch_global_ccl(x, conn), want), name
-            if cluster == 'cluster':
-                assert torch.equal(flood._launch_cluster_ccl(x, conn), want), name
-            for min_size in (0, 1, 2, 10):
-                fused = ccl_filter_sweep.fused_launches
-                filtered = size_filter.launches
-                got = ccl_filter_sweep(x, min_size, connectivity=conn)
-                torch.cuda.synchronize()
-                assert torch.equal(got, size_filter_plain(want, min_size)), (name, conn, min_size)
-                one = conn == 1 and cluster == 'cluster'
-                assert ccl_filter_sweep.fused_launches - fused == int(one), name
-                assert size_filter.launches - filtered == int(not one), name
-                before = size_filter.tile_launches
-                tile = size_filter(want, min_size)
-                assert size_filter.tile_launches - before == 1 and size_filter.last_route[0] == 'tile'
-                assert size_filter.last_route[1:] == filter_route(*x.shape, min_size)[1:]
-                assert torch.equal(tile, size_filter_plain(want, min_size))
-                assert torch.equal(flood._launch_global_filter(want, min_size), tile)
-    x = torch.from_numpy(hard_planes(64)).cuda()
-    labels = ccl_plain(x > 0, 1)
-    before = size_filter.global_launches
-    assert torch.equal(size_filter(labels, 106), size_filter_plain(labels, 106))
-    assert size_filter.global_launches - before == 1 and size_filter.last_route[0] == 'global'
-
-
-@pytest.mark.gpu
-def test_views_off_a_16_byte_boundary_on_the_card():
-    """A contiguous int32 view that starts 8 bytes past a 16-byte boundary
-    of its storage (plane 1 of 2 x 95 x 98): the cluster kernel's 16-byte
-    loads of the mask must not take it."""
-    _needs_card()
-    m = torch.from_numpy(_nuclei(3, 128, 60)[:, :95, :98].copy()).cuda()
-    for view in (m[1:], m[1]):
-        assert view.is_contiguous() and view.data_ptr() % 16 == 8
-        want = ccl_plain(view.reshape(-1, 95, 98) > 0, 1)
-        fused = ccl_filter_sweep.fused_launches
-        got = ccl_filter_sweep(view, 10, connectivity=1)
-        assert ccl_filter_sweep.fused_launches - fused == 1
-        assert torch.equal(got, size_filter_plain(want, 10).reshape(view.shape))
-        cluster = ccl_sweep.cluster_launches
-        got = ccl_sweep(view, connectivity=1)
-        assert ccl_sweep.cluster_launches - cluster == int(view.dim() == 3)
-        assert torch.equal(got, want.reshape(view.shape))
-        if view.dim() == 3:
-            assert torch.equal(flood._launch_cluster_ccl(view, 2), ccl_plain(view > 0, 2))

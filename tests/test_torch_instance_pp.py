@@ -4,17 +4,17 @@ JAX Pallas kernel instance_postprocess_sweep (interpret mode on the CPU).
 On a CPU tensor the port's wrapper runs its plain PyTorch version, which
 must equal the JAX kernel bit for bit (sem and inst) wherever the JAX
 kernel's sweep caps suffice; the hard planes get caps of 64 for that. The
-CUDA kernel is held to the plain version on the card (``gpu`` tests here
-and chip_smoke.py)."""
+CUDA kernel is held to the plain version on the card
+(test_torch_gpu_instance_pp.py and chip_smoke.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tiseg_tpu.ops.pallas_sweep import instance_postprocess_sweep as jax_pp
-from tiseg_tpu_torch.datasets.synthetic import blob_planes, hard_planes, make_nuclei
+from tiseg_tpu_torch.datasets.synthetic import blob_planes, hard_planes
 from tiseg_tpu_torch.models.segmentors.unet import instance_postprocess
-from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain, instance_postprocess_sweep
+from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
 
 CASES = {
     'blobs': lambda: blob_planes(0, 2, 64),
@@ -112,32 +112,3 @@ def test_partition_matches_host_postprocess(case):
         host_s, host_i = instance_postprocess(planes[b].astype(np.uint8), radius=1)
         np.testing.assert_array_equal(got_s[b].numpy(), host_s)
         assert _partition_bijective(host_i, got_i[b].numpy())
-
-
-@pytest.mark.gpu
-def test_cuda_kernel_matches_plain():
-    """Two classes: the cluster route on 256^2 and ragged planes, the strip
-    route on 1000^2 planes (two groups of planes for three), and the global
-    chain of the per-class loop, each against the plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device: the kernel has no CPU mode')
-    from tiseg_tpu_torch.ops.instance_pp import _launch_global, pp_route
-    fn = instance_postprocess_sweep
-    planes = np.concatenate([hard_planes(256), blob_planes(0, 4, 256, n=150),
-                             np.stack([make_nuclei(i)[1] for i in range(4)]).astype(np.int32)])
-    big = np.stack([make_nuclei(20 + i, 1000, 2288)[1] for i in range(3)]).astype(np.int32)
-    for x, route in ((planes, 'cluster'), (np.ascontiguousarray(planes[:, 3:104, 5:82]), 'cluster'),
-                     (big[:1], 'strip'), (big, 'strip')):
-        x = torch.from_numpy(x).cuda()
-        want = pp_route(*x.shape, sms=torch.cuda.get_device_properties(0).multi_processor_count)
-        before = (fn.launches, fn.cluster_launches, fn.strip_launches, fn.global_launches)
-        s, i = fn(x)
-        torch.cuda.synchronize()
-        after = (fn.launches, fn.cluster_launches, fn.strip_launches, fn.global_launches)
-        n = want.launches
-        assert want.route == route and fn.last_route[0] == route
-        assert tuple(a - b for a, b in zip(after, before)) == ((n, n, 0, 0) if route == 'cluster' else (n, 0, n, 0))
-        ps, pi = instance_postprocess_plain(x)
-        assert torch.equal(s, ps) and torch.equal(i, pi)
-        cs, ci = _launch_global(x)
-        assert torch.equal(cs, ps) and torch.equal(ci, pi) and fn.last_route[0] == 'global'

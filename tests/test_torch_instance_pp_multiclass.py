@@ -6,7 +6,8 @@ mode on the CPU.
 On a CPU tensor the port's wrapper runs its plain PyTorch version, which
 must equal the JAX kernel bit for bit (sem and inst); the JAX sweep caps
 are 64, as in test_torch_instance_pp.py. The CUDA kernel is held to the
-plain version on the card (the ``gpu`` test here and chip_smoke.py)."""
+plain version on the card (test_torch_gpu_instance_pp_multiclass.py and
+chip_smoke.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,35 +143,3 @@ def test_two_dim_input_and_launch_counts_untouched_on_cpu():
     assert s2.shape == i2.shape == (HW, HW)
     assert torch.equal(s2, s3[0]) and torch.equal(i2, i3[0])
     assert before == (instance_postprocess_sweep.launches, instance_postprocess_sweep.vectorized_launches)
-
-
-@pytest.mark.gpu
-def test_cuda_kernel_matches_plain():
-    """Seven classes: the cluster route on 256^2 and ragged planes, the
-    strip route on a 1000^2 plane, and the global chain; the per-class loop
-    (multiclass_vectorized=False) takes the global chain."""
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device: the kernel has no CPU mode')
-    from tiseg_tpu_torch.ops.instance_pp import _launch_global
-    fn = instance_postprocess_sweep
-    planes = np.concatenate([hard_planes_multiclass(256)[0],
-                             np.stack([multiclass_nuclei(i)[0] for i in range(4)])])
-    big = multiclass_nuclei(9, 1000, 2288)[0][None]
-    for x, route in ((planes, 'cluster'), (np.ascontiguousarray(planes[:, 7:108, 2:79]), 'cluster'),
-                     (big, 'strip')):
-        x = torch.from_numpy(x).cuda()
-        before = (fn.vectorized_launches, fn.cluster_launches, fn.strip_launches)
-        s, i = fn(x, radius=3, num_classes=7)
-        torch.cuda.synchronize()
-        assert fn.last_route[0] == route
-        after = (fn.vectorized_launches, fn.cluster_launches, fn.strip_launches)
-        assert tuple(a - b for a, b in zip(after, before)) == ((1, 1, 0) if route == 'cluster' else (1, 0, 1))
-        ps, pi = instance_postprocess_vectorized_plain(x, 3, 5, 7)
-        assert torch.equal(s, ps) and torch.equal(i, pi)
-        cs, ci = _launch_global(x, 3, 5, 7, True)
-        assert torch.equal(cs, ps) and torch.equal(ci, pi)
-    before = fn.global_launches
-    s, i = fn(x, radius=3, num_classes=7, multiclass_vectorized=False)
-    assert fn.global_launches == before + 1 and fn.last_route[0] == 'global'
-    ps, pi = instance_postprocess_plain(x, 3, 5, 7)
-    assert torch.equal(s, ps) and torch.equal(i, pi)

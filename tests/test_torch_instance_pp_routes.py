@@ -17,20 +17,19 @@ tiseg_tpu_torch/ops/instance_pp.py, csrc/instance_pp.cu).
   (interpret mode) bit for bit.
 - With two classes the class-vectorized plain version equals the
   per-class one, which is why one kernel serves both.
-- On a card (``gpu``): every route against the plain versions, with the
-  route counters."""
+- On a card: every route against the plain versions, with the route
+  counters, in test_torch_gpu_instance_pp.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tiseg_tpu.ops.pallas_sweep import instance_postprocess_sweep as jax_pp
-from tiseg_tpu_torch.datasets.synthetic import (CONIC_NUCLEI_PER_PATCH, blob_planes, hard_planes,
-                                                hard_planes_multiclass, make_nuclei, multiclass_nuclei)
-from tiseg_tpu_torch.ops import instance_pp as ipp
+from tiseg_tpu_torch.datasets.synthetic import blob_planes, hard_planes, hard_planes_multiclass, make_nuclei
 from tiseg_tpu_torch.ops._cluster import SMEM_PER_BLOCK, cluster_route
-from tiseg_tpu_torch.ops.instance_pp import (disk_offsets, instance_postprocess_plain, instance_postprocess_sweep,
+from tiseg_tpu_torch.ops.instance_pp import (disk_offsets, instance_postprocess_plain,
                                              instance_postprocess_vectorized_plain, pp_route)
+from torch_cases import conic7 as _conic7
 from torch_port_utils import UnionFind as _UF
 from torch_port_utils import label_blocks as _label
 
@@ -146,11 +145,6 @@ def _emulate(planes, num_classes, radius, min_size=5, rows_per_block=None):
     return np.stack([o[0] for o in out]), np.stack([o[1] for o in out])
 
 
-def _conic7(n, hw, seed):
-    return np.stack([multiclass_nuclei(seed + i, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2)[0]
-                     for i in range(n)])
-
-
 PLANE_SETS = {
     # name: (planes, num_classes, radius)
     'hard': (lambda: hard_planes(64), 2, 1),
@@ -208,37 +202,3 @@ def test_two_classes_vectorized_equals_per_class(case):
         vs, vi = instance_postprocess_vectorized_plain(x, radius, 5, 2)
         ps, pi = instance_postprocess_plain(x, radius, 5, 2)
         assert torch.equal(vs, ps) and torch.equal(vi, pi)
-
-
-# -- every route on the card -----------------------------------------------------------------
-def _gpu_sets():
-    """(name, planes, num_classes, radius, route): hard, ragged and 1000^2
-    planes."""
-    ragged = np.ascontiguousarray(_conic7(3, 128, 50)[:, :101, :77])
-    nuclei = np.stack([make_nuclei(i, 1000, 2288)[1] for i in range(3)]).astype(np.int32)
-    return [('hard', hard_planes(256), 2, 1, 'cluster'), ('hard7', hard_planes_multiclass(256)[0], 7, 3, 'cluster'),
-            ('ragged7', ragged, 7, 3, 'cluster'), ('ragged2', (ragged > 0).astype(np.int32), 2, 1, 'cluster'),
-            ('480', (_conic7(1, 480, 9) > 0).astype(np.int32), 2, 1, 'strip'),
-            ('1000x3', nuclei, 2, 1, 'strip'), ('1000 7 classes', _conic7(1, 1000, 7), 7, 3, 'strip')]
-
-
-@pytest.mark.gpu
-def test_every_route_matches_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
-    fn = instance_postprocess_sweep
-    for name, planes, nc, r, route in _gpu_sets():
-        x = torch.from_numpy(planes).cuda()
-        want = (instance_postprocess_vectorized_plain if nc > 2 else instance_postprocess_plain)(x, r, 5, nc)
-        expected = pp_route(*x.shape, sms=torch.cuda.get_device_properties(0).multi_processor_count)
-        before = (fn.cluster_launches, fn.strip_launches, fn.global_launches)
-        got = fn(x, radius=r, num_classes=nc)
-        torch.cuda.synchronize()
-        counts = (fn.cluster_launches - before[0], fn.strip_launches - before[1], fn.global_launches - before[2])
-        assert expected.route == route and fn.last_route[0] == route
-        assert counts == ((1, 0, 0) if route == 'cluster' else (0, expected.launches, 0)), name
-        chain = ipp._launch_global(x, r, 5, nc, nc > 2)
-        for g, c, w in zip(got, chain, want):
-            assert torch.equal(g, w) and torch.equal(c, w), name
-    with pytest.raises(ValueError, match='no route'):
-        fn(torch.zeros((1, 8, 40000), dtype=torch.int32, device='cuda'))

@@ -6,7 +6,8 @@ take the JAX package's XLA route).
 On a CPU tensor the port's wrapper runs its plain PyTorch version, which
 must equal the JAX kernel bit for bit (canvas and instances); the JAX sweep
 caps are 64, as in test_torch_instance_pp.py. The CUDA kernel is held to the
-plain version on the card (the ``gpu`` test here and chip_smoke.py). The
+plain version on the card (test_torch_gpu_mt_instance_pp.py and
+chip_smoke.py). The
 host route (``_mt_postprocess``) is held to the JAX package's with the
 numpy ``align_foreground`` on both sides. The JAX kernel's interpret-mode
 runs take minutes each, and ``--dist loadfile`` gives a file one worker, so
@@ -24,8 +25,8 @@ from tiseg_tpu_torch.datasets.synthetic import hard_planes_multiclass
 from tiseg_tpu_torch.models.segmentors.multi_task_unet import _mt_postprocess
 from tiseg_tpu_torch.models.utils.postprocess import align_foreground
 from tiseg_tpu_torch.ops.mt_instance_pp import mt_instance_postprocess_plain, mt_instance_postprocess_sweep
+from torch_cases import mt_planes as _planes
 from torch_port_utils import check_two_class_mt_pp
-from torch_port_utils import mt_planes as _planes
 from torch_port_utils import port_mt_pp as _port
 
 
@@ -65,24 +66,3 @@ def test_host_postprocess_matches_jax(plane, monkeypatch):
     np.testing.assert_array_equal(dev_s, got_s)
     pairs = set(zip(dev_i.ravel().tolist(), got_i.ravel().tolist()))
     assert len(pairs) == len(np.unique(dev_i)) == len(np.unique(got_i))
-
-
-@pytest.mark.gpu
-def test_cuda_kernel_matches_plain():
-    """Both routes of the kernel against the plain version: the cluster
-    route that the wrapper takes for these planes, and the global chain."""
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device: the kernel has no CPU mode')
-    from tiseg_tpu_torch.ops.mt_instance_pp import _launch_global
-    sem, seed = _planes(256)
-    x, d = torch.from_numpy(sem).cuda(), torch.from_numpy(seed).cuda()
-    for num_classes, align_time in ((7, 20), (2, 1), (2, 2)):
-        before = (mt_instance_postprocess_sweep.launches, mt_instance_postprocess_sweep.cluster_launches)
-        s, i = mt_instance_postprocess_sweep(x, d, num_classes=num_classes, align_time=align_time)
-        torch.cuda.synchronize()
-        assert (mt_instance_postprocess_sweep.launches, mt_instance_postprocess_sweep.cluster_launches) == \
-            (before[0] + 1, before[1] + 1)
-        gs, gi = _launch_global(x, d, num_classes, 5, align_time)
-        ps, pi = mt_instance_postprocess_plain(x, d, num_classes, 5, align_time)
-        assert torch.equal(s, ps) and torch.equal(i, pi)
-        assert torch.equal(gs, ps) and torch.equal(gi, pi)

@@ -9,8 +9,8 @@ file one worker."""
 import numpy as np
 import pytest
 
+from torch_cases import mt_planes as _planes
 from torch_port_utils import jax_mt_pp as _jax
-from torch_port_utils import mt_planes as _planes
 from torch_port_utils import port_mt_pp as _port
 
 HW = 96  # the planes' size (mt_planes' default)

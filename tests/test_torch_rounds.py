@@ -7,34 +7,19 @@ Everything is bit-exact, and that includes what the round budget leaves
 unfinished: a snake longer than ``rounds`` keeps several labels, and
 background further than ``rounds`` steps from the border is filled. On a CPU
 tensor each wrapper runs its plain version; the CUDA kernels are held to the
-plain versions on the card (chip_smoke.py)."""
+plain versions on the card (test_torch_gpu_rounds.py and chip_smoke.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from tiseg_tpu.ops import pallas_postproc as jpp
-from tiseg_tpu_torch.datasets.synthetic import blob_planes, hard_planes, spiral
 from tiseg_tpu_torch.ops import rounds as R
 from tiseg_tpu_torch.ops.flood import ccl_sweep, fill_holes_sweep
+from torch_cases import ROUND_CASES as CASES
+from torch_cases import snake as _snake
 
 ROUNDS = 24
-
-
-def _snake(hw=48):
-    """A one-pixel serpentine of ~500 px: far longer than ROUNDS."""
-    p = np.zeros((hw, hw), np.int32)
-    for k, y in enumerate(range(2, hw - 2, 2)):
-        p[y, 2:hw - 2] = 1
-        p[y + 1, hw - 3 if k % 2 == 0 else 2] = 1
-    return p
-
-
-# (B, 48, 48) planes each: one JAX program per (function, static arguments)
-CASES = {
-    'blobs': lambda: (blob_planes(5, 2, 48, n=10, rmax=5) > 0).astype(np.int32),
-    'snake': lambda: np.stack([_snake(), spiral(48).astype(np.int32)]),
-}
 
 
 @pytest.mark.parametrize('conn', [1, 2])
@@ -125,40 +110,3 @@ def test_planes_above_512_squared_take_the_exact_route(monkeypatch):
     below = R.instance_postprocess_rounds(torch.from_numpy(sem), rounds=4)[1]
     assert len(np.unique(below.numpy())) > 2
     assert R.MAX_ROUNDS_PLANE == 512 * 512
-
-
-@pytest.mark.gpu
-def test_cuda_kernels_match_plain():
-    """Both routes of each kernel against the plain version on every case:
-    the route the wrapper takes (B8a's cluster route, B8b's block route) and
-    the global chain, both connectivities and both budgets, with the route
-    counters and the rounds the kernels counted; and the window count."""
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
-    from tiseg_tpu_torch.ops._cluster import cluster_route
-    cases = [hard_planes(64), CASES['snake'](), np.ascontiguousarray(blob_planes(7, 3, 128, n=40)[:, :101, :77])]
-    for m in (torch.from_numpy(c).cuda() for c in cases):
-        for conn in (1, 2):
-            for rounds in (32, 128):
-                before = (R.ccl_rounds.cluster_launches, R.ccl_rounds.global_launches)
-                got = R.ccl_rounds(m, rounds, conn)
-                assert (R.ccl_rounds.cluster_launches, R.ccl_rounds.global_launches) == (before[0] + 1, before[1])
-                assert R.ccl_rounds.last_route[:3] == tuple(cluster_route(*m.shape))
-                needed = R.ccl_rounds_needed(m > 0, rounds, conn)
-                assert tuple(R.ccl_rounds.last_rounds) == (rounds, needed, min(needed + 1, rounds))
-                want = R.ccl_rounds_plain(m > 0, rounds, conn)
-                assert torch.equal(got, want) and torch.equal(R._launch_global_ccl(m, rounds, conn), want)
-        for rounds in (None, 16):
-            before = (R.fill_holes_rounds.block_launches, R.fill_holes_rounds.global_launches)
-            got = R.fill_holes_rounds(m, rounds)
-            assert (R.fill_holes_rounds.block_launches, R.fill_holes_rounds.global_launches) == \
-                (before[0] + 1, before[1])
-            assert R.fill_holes_rounds.last_route == tuple(R.fill_route(*m.shape))
-            budget = sum(m.shape[1:]) if rounds is None else rounds
-            needed = R.fill_holes_rounds_needed(m > 0, rounds)
-            assert tuple(R.fill_holes_rounds.last_rounds) == (budget, needed, min(needed + 1, budget))
-            want = R.fill_holes_rounds_plain(m > 0, rounds)
-            assert torch.equal(got, want) and torch.equal(R._launch_global_fill(m, budget), want)
-        lab = R.ccl_rounds(m, 16, 1)
-        for k in (1, 2, 5):
-            assert torch.equal(R.window_count_mask(lab, k), R.small_component_mask(lab, k))

@@ -6,7 +6,7 @@ Everything is bit-exact: the functions only select values. The inputs hold
 negative values, so that a wrong edge fill (0 in place of the dtype's least
 or largest value) shows at the plane border. On a CPU tensor the wrapper
 runs its plain version; the CUDA kernel is held to it on the card
-(chip_smoke.py)."""
+(test_torch_gpu_stencil.py and chip_smoke.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,13 +17,7 @@ from tiseg_tpu.ops import pallas_kernels as jpk
 from tiseg_tpu_torch.ops import morph
 from tiseg_tpu_torch.ops.stencil import (neighborhood_3x3, neighborhood_3x3_plain, neighborhood_max_3x3,
                                          neighborhood_min_3x3)
-
-
-def _plane(dtype, shape, seed=0):
-    rng = np.random.default_rng(seed)
-    if dtype == np.int32:
-        return rng.integers(-50, 50, shape).astype(np.int32)
-    return rng.standard_normal(shape).astype(np.float32) - 0.5
+from torch_cases import stencil_plane as _plane
 
 
 @pytest.mark.parametrize('minimum', [False, True], ids=['max', 'min'])
@@ -79,22 +73,3 @@ def test_edges_use_the_dtype_extremes():
 def test_rejects_bad_shapes():
     with pytest.raises(ValueError, match='plane'):
         neighborhood_3x3(torch.zeros(2, 3, 4, 5))
-
-
-@pytest.mark.gpu
-def test_cuda_kernel_matches_plain():
-    """Widths that are multiples of 4 (16-byte loads), ragged widths (130,
-    257: element loads), a plane smaller than one tile and a 2-D plane, on
-    int32 and float32 planes with negative values; one launch per call."""
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
-    for shape in ((3, 65, 130), (2, 37, 257), (4, 64, 256), (5, 9), (1, 3, 2)):
-        for dtype in (np.int32, np.float32):
-            x = torch.from_numpy(_plane(dtype, shape, seed=3)).cuda()
-            for minimum in (False, True):
-                before = neighborhood_3x3.launches
-                got = neighborhood_3x3(x, minimum)
-                assert neighborhood_3x3.launches == before + 1
-                assert got.shape == x.shape and torch.equal(got, neighborhood_3x3_plain(x, minimum))
-    with pytest.raises(TypeError, match='int64'):
-        neighborhood_3x3(torch.zeros(4, 4, dtype=torch.int64).cuda())

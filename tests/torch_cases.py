@@ -1,0 +1,107 @@
+"""Seeded planes shared by the port's CPU tests and its card tests.
+
+Imports no JAX and nothing of the JAX package: the ``gpu`` tests
+(``tests/test_torch_gpu_*.py``) import it on a card machine that has
+neither, which ``tests/test_torch_no_jax_imports.py`` checks."""
+import numpy as np
+import pytest
+import torch
+
+from tiseg_tpu_torch.datasets.synthetic import (CONIC_NUCLEI_PER_PATCH, blob_planes, hard_planes_multiclass,
+                                                hover_maps, make_nuclei, multiclass_nuclei, spiral)
+from tiseg_tpu_torch.ops.hover import foreground, hover_energy, hover_markers
+
+
+def needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+
+
+# -- binary and seven-class planes at CoNIC nucleus density ------------------------------------
+def nuclei(n=4, hw=64, seed=30):
+    """(n, hw, hw) int32 foreground planes."""
+    return np.stack([make_nuclei(seed + i, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2)[1]
+                     for i in range(n)]).astype(np.int32)
+
+
+def ragged():
+    """17 planes of 101 x 77: H no multiple of the cluster size, odd W."""
+    return np.ascontiguousarray(nuclei(17, 128, 70)[:, :101, :77])
+
+
+def conic7(n, hw, seed):
+    """(n, hw, hw) seven-class semantic planes."""
+    return np.stack([multiclass_nuclei(seed + i, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2)[0]
+                     for i in range(n)])
+
+
+def mt_planes(hw: int = 96):
+    """Seven-class semantic and seed planes: the hand-made hard planes and
+    one plane at CoNIC density."""
+    sem, seed = hard_planes_multiclass(hw)
+    nsem, nseed = multiclass_nuclei(5, hw, 100 * hw * hw // 256 ** 2)
+    return np.concatenate([sem, nsem[None]]), np.concatenate([seed, nseed[None]])
+
+
+# -- the watershed's inputs (B5) ---------------------------------------------------------------
+WS_MODES = {'bounded': (4, 64), 'fixpoint': (None, None)}  # (rounds_per_level, cleanup_rounds)
+
+
+def hover_inputs(n=2, hw=64, seed=40):
+    """(dist, markers, blb) of the HoVer pipeline on synthetic maps."""
+    fore, hv = zip(*[hover_maps(make_nuclei(seed + i, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2)[2],
+                                seed=seed + i) for i in range(n)])
+    blb = foreground(torch.from_numpy(np.stack(fore)))
+    overall, dist = hover_energy(blb, torch.from_numpy(np.stack(hv)))
+    markers = hover_markers(blb, overall)
+    return dist.numpy(), markers.numpy(), blb.numpy()
+
+
+def long_basin(hw=32):
+    """A serpentine 1 px corridor of ~hw^2/2 pixels on a flat image, one
+    marker at its start: every pixel is level 0, so the bounded mode grows
+    64*4 + 64 = 320 pixels along it and leaves the rest unlabelled."""
+    mask = np.zeros((hw, hw), bool)
+    mask[::2] = True
+    for r in range(1, hw, 2):
+        mask[r, hw - 1 if r % 4 == 1 else 0] = True
+    markers = np.zeros((hw, hw), np.int32)
+    markers[0, 0] = 1
+    return np.zeros((1, hw, hw), np.float32), markers[None], mask[None]
+
+
+def half_even_row():
+    """Markers 1 and 2 at the ends of the row A P Q B; lo = 0 and hi = 63 make
+    the scale exactly 1, so P = 2.5 is level 2 (half to even; 3 if rounded
+    away from zero) and Q = 3.0 is level 3. P joins marker 1 at level 2 and
+    hands it to Q at level 3; with P at level 3 both fill in one wave and Q
+    would take marker 2."""
+    image = np.array([[[0.0, 2.5, 3.0, 63.0]]], np.float32)
+    markers = np.array([[[1, 0, 0, 2]]], np.int32)
+    return image, markers, np.ones_like(markers, bool)
+
+
+# -- the round kernels' planes (B8a, B8b) ------------------------------------------------------
+def snake(hw=48):
+    """A one-pixel serpentine of ~500 px: far longer than the tests' 24 rounds."""
+    p = np.zeros((hw, hw), np.int32)
+    for k, y in enumerate(range(2, hw - 2, 2)):
+        p[y, 2:hw - 2] = 1
+        p[y + 1, hw - 3 if k % 2 == 0 else 2] = 1
+    return p
+
+
+# (B, 48, 48) planes each: one JAX program per (function, static arguments)
+ROUND_CASES = {
+    'blobs': lambda: (blob_planes(5, 2, 48, n=10, rmax=5) > 0).astype(np.int32),
+    'snake': lambda: np.stack([snake(), spiral(48).astype(np.int32)]),
+}
+
+
+def stencil_plane(dtype, shape, seed=0):
+    """A plane of B9's tests with negative values: int32 in [-50, 50) or
+    float32 around -0.5."""
+    rng = np.random.default_rng(seed)
+    if dtype == np.int32:
+        return rng.integers(-50, 50, shape).astype(np.int32)
+    return rng.standard_normal(shape).astype(np.float32) - 0.5

@@ -5,6 +5,8 @@ kernels."""
 import jax
 import numpy as np
 
+from torch_cases import mt_planes
+
 
 def _random_tree(shapes, seed: int):
     """Every leaf of a flax ``{'params', 'batch_stats'}`` shape tree drawn
@@ -104,15 +106,6 @@ def standardize_head(model_cfg, variables, img, head, conv_path, shifts, scale=2
 
 
 # -- the multi-task recovery's and HoVer-Net's test planes -------------------------
-def mt_planes(hw: int = 96):
-    """Seven-class semantic and seed planes: the hand-made hard planes and
-    one plane at CoNIC density."""
-    from tiseg_tpu_torch.datasets.synthetic import hard_planes_multiclass, multiclass_nuclei
-    sem, seed = hard_planes_multiclass(hw)
-    nsem, nseed = multiclass_nuclei(5, hw, 100 * hw * hw // 256 ** 2)
-    return np.concatenate([sem, nsem[None]]), np.concatenate([seed, nseed[None]])
-
-
 def jax_mt_pp(sem, seed, **kw):
     """The JAX package's ``mt_instance_postprocess_sweep`` (sweep caps 64) as numpy."""
     import jax.numpy as jnp

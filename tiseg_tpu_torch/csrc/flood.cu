@@ -46,6 +46,16 @@
 // exactly when the component does. With 8-connectivity the two rules differ
 // (a diagonal chain of 10 pixels has at most 9 in any radius-9 diamond).
 //
+// Hole filling, cluster route (tiseg_fill_holes_cluster, the same kernel
+// with kFill), every batch that cluster_route admits, a single plane
+// included (ops/flood.py:fill_route): the key is the mask's complement
+// (mask <= 0), labelled as above; after the block's own labelling each
+// complement pixel on the plane border marks its piece root (pieces.cuh:
+// mark_border_pieces, as B1's hole fill does), each piece root adds its
+// mark at its region's root, and one coalesced store writes the bool plane
+// mask > 0 || the region has no mark. One launch and one output allocation
+// per batch.
+//
 // Size filter, tile route (tiseg_size_filter_tile, k_diamond_tile), any
 // int32 labels: a block loads a 32 x 32 output tile with its halo of
 // r = min_size - 1 into shared memory (read modulo H and W in wrap mode, 0
@@ -56,10 +66,13 @@
 // stops after a few rings instead of (2r+1)^2/2 compares. A halo that does
 // not fit a block's shared memory takes the global route.
 //
-// Global routes (tiseg_ccl, tiseg_size_filter, and hole filling): the
+// Global routes (tiseg_ccl, tiseg_size_filter, tiseg_fill_holes): the
 // earlier chains over device memory, one thread per pixel, every pass a
-// launch of its own (uf.cuh): the CCL of planes the cluster route does not
-// admit, the size filter of halos no block holds.
+// launch of its own (uf.cuh): the CCL and hole filling of planes the
+// cluster route does not admit (above 408^2), the size filter of halos no
+// block holds. Hole filling's chain is five launches and a memset.
+#include <type_traits>
+
 #include "pieces.cuh"
 #include "uf.cuh"
 
@@ -127,11 +140,15 @@ constexpr int kLoadDepth = 4;  // 16-byte loads a thread keeps in flight: 16 pix
 
 // One cluster of kCluster blocks of T threads per plane; block `rank` holds
 // rows [rank * R, (rank + 1) * R). Pixel p = tid + k * T is bit k of the
-// piece-root mask. min_size > 1 (4-connected only): labels of regions
-// under min_size pixels are 0.
-template <int T, int kBlocksPerSM>
+// piece-root mask. CCL (kFill false): int32 labels; min_size > 1
+// (4-connected only): labels of regions under min_size pixels are 0. Hole
+// filling (kFill true): the key is the mask's complement, pieces on the
+// plane border mark their roots, the marks meet at the region roots, and
+// the bool output is set wherever the complement's region has no mark.
+template <int T, int kBlocksPerSM, bool kFill>
 __global__ void __launch_bounds__(T, kBlocksPerSM)
-    k_ccl_cluster(const int* __restrict__ mask, int* __restrict__ out, int H, int W, int R, int conn8, int min_size) {
+    k_ccl_cluster(const int* __restrict__ mask, std::conditional_t<kFill, uint8_t, int>* __restrict__ out, int H,
+                  int W, int R, int conn8, int min_size) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem[];
   const int rank = (int)cluster.block_rank();
@@ -142,18 +159,19 @@ __global__ void __launch_bounds__(T, kBlocksPerSM)
   const int i0 = pl.i0;
   uint8_t* key = smem;
   int* P = (int*)(smem + (kSmallPlanes * pl.RW + 15) / 16 * 16);
-  int* Q = P + pl.RW;  // run_starts' scratch; then the sizes at the roots
+  int* Q = P + pl.RW;  // run_starts' scratch; then the sizes (CCL) or the border marks (fill) at the roots
   // this block's row above, in the block that owns it
   const int up = rank > 0 ? rank - 1 : rank;
   const uint8_t* up_key = cluster.map_shared_rank(key, up) + (R - 1) * W;
   const int* up_P = cluster.map_shared_rank(P, up) + (R - 1) * W;
   const int top = y0 > 0 ? min(W, n) : 0;  // pixels of the first row that have a row above
-  const bool sized = min_size > 1;
+  const bool sized = !kFill && min_size > 1;
+  const bool rooted = kFill || sized;  // a count per piece that the region roots sum
   const size_t base = (size_t)(blockIdx.x / kCluster) * H * W + (size_t)y0 * W;
 
-  // the block's rows of the mask, all of a thread's loads in flight at once
-  // (16 bytes each where the rows start on 16 bytes: a view may start
-  // anywhere in its storage)
+  // the block's rows of the key (the mask, or its complement), all of a
+  // thread's loads in flight at once (16 bytes each where the rows start on
+  // 16 bytes: a view may start anywhere in its storage)
   if (((uintptr_t)(mask + base) & 15) == 0 && (n & 3) == 0) {
     const int4* src = reinterpret_cast<const int4*>(mask + base);
     for (int q0 = tid; q0 < n / 4; q0 += kLoadDepth * T) {
@@ -164,24 +182,31 @@ __global__ void __launch_bounds__(T, kBlocksPerSM)
 #pragma unroll
       for (int u = 0; u < kLoadDepth; ++u)
         if (q0 + u * T < n / 4)
-          reinterpret_cast<uchar4*>(key)[q0 + u * T] = make_uchar4(v[u].x > 0, v[u].y > 0, v[u].z > 0, v[u].w > 0);
+          reinterpret_cast<uchar4*>(key)[q0 + u * T] = make_uchar4(
+              (v[u].x > 0) != kFill, (v[u].y > 0) != kFill, (v[u].z > 0) != kFill, (v[u].w > 0) != kFill);
     }
   } else {
 #pragma unroll 4
-    for (int p = tid; p < n; p += T) key[p] = mask[base + p] > 0;
+    for (int p = tid; p < n; p += T) key[p] = (mask[base + p] > 0) != kFill;
   }
   __syncthreads();
   run_starts<T>(key, P, Q, n, W, i0);
-  if (sized) {
+  if (rooted) {
     for (int p = tid; p < n; p += T) Q[p] = 0;
     __syncthreads();
   }
-  const unsigned long long root = label_pieces<T>(pl, key, up_key, P, up_P, sized ? Q : nullptr, n, W, top);
+  // label_pieces, with the border marks of the fill between the block's own
+  // labelling and the unions across block borders
+  const unsigned long long root = label_local<T>(pl, key, P, sized ? Q : nullptr, n, W);
+  if (kFill) mark_border_pieces<T>(key, P, Q, n, W, H, y0, i0);
+  cluster.sync();
+  unite_up<T>(pl, key, up_key, P, up_P, top);
+  cluster.sync();
 
   // 8-connectivity: diagonal unions of set pixels that no 4-path joins (a
   // common 4-neighbour that is set joins them already), from the pieces'
   // entries
-  if (conn8) {
+  if (!kFill && conn8) {
     // marked first (bit k: pixel tid + k * T), then made, as label_local's unions
     unsigned long long west = 0, east = 0;
     RowWalk walk(tid, T, W);
@@ -199,36 +224,39 @@ __global__ void __launch_bounds__(T, kBlocksPerSM)
     cluster.sync();
   }
 
-  // each piece root finds its region's root (and adds its size there)
+  // each piece root finds its region's root and adds its count there: a
+  // size, or a mark (a region is marked where its sum is not 0)
   for (unsigned long long m = root; m; m &= m - 1) {
     const int p = tid + (__ffsll(m) - 1) * T;
     if (!key[p]) continue;
     const int g = dfind(pl, P, i0 + p);
     P[p] = g;
-    if (sized && g != i0 + p && Q[p]) atomicAdd(pl.at(Q, g), Q[p]);
+    if (rooted && g != i0 + p && Q[p]) atomicAdd(pl.at(Q, g), Q[p]);
   }
   cluster.sync();
-  if (sized) {
+  if (rooted) {
     for (unsigned long long m = root; m; m &= m - 1) {
       const int p = tid + (__ffsll(m) - 1) * T;
-      if (key[p]) Q[p] = ld_relaxed(pl.at(Q, P[p]));  // the region's size
+      if (key[p]) Q[p] = ld_relaxed(pl.at(Q, P[p]));  // the region's size or mark
     }
-    cluster.sync();  // and no block leaves while a peer reads its sizes
+    cluster.sync();  // and no block leaves while a peer reads its sums
   }
 
-  // one coalesced store: root + 1 of the pixel's piece
+  // one coalesced store: root + 1 of the pixel's piece, or whether it is filled
 #pragma unroll 4
   for (int k = 0, p = tid; p < n; ++k, p += T) {
-    int v = 0;
-    if (key[p]) {
-      const int piece = ((root >> k) & 1) ? p : P[p] - i0;
-      if (!sized || Q[piece] >= min_size) v = P[piece] + 1;
+    const int piece = ((root >> k) & 1) ? p : P[p] - i0;
+    if (kFill) {
+      out[base + p] = !key[p] || !Q[piece];
+    } else {
+      int v = 0;
+      if (key[p] && (!sized || Q[piece] >= min_size)) v = P[piece] + 1;
+      out[base + p] = v;
     }
-    out[base + p] = v;
   }
 }
 
-ClusterCache g_ccl_cache = {}, g_ccl_wide_cache = {};
+ClusterCache g_ccl_cache = {}, g_ccl_wide_cache = {}, g_fill_cache = {}, g_fill_wide_cache = {};
 
 // -- size filter, tile route --------------------------------------------------------------
 
@@ -340,8 +368,9 @@ int tiseg_ccl_cluster(const int* mask, int* out, int B, int H, int W, int conn8,
   const int smem = cluster_smem_bytes(R, W);
   if (smem == 0 || (conn8 && min_size > 1)) return (int)cudaErrorInvalidValue;
   info_out[0] = smem;
-  return cluster_launch_widths(k_ccl_cluster<1024, 1>, k_ccl_cluster<512, 2>, g_ccl_wide_cache, g_ccl_cache, B, 0,
-                               smem, (cudaStream_t)stream_ptr, info_out, mask, out, H, W, R, conn8, min_size);
+  return cluster_launch_widths(k_ccl_cluster<1024, 1, false>, k_ccl_cluster<512, 2, false>, g_ccl_wide_cache,
+                               g_ccl_cache, B, 0, smem, (cudaStream_t)stream_ptr, info_out, mask, out, H, W, R, conn8,
+                               min_size);
 }
 
 // Global route. labels: (B, H, W) int32; out: int32. Zeroes every label
@@ -385,8 +414,20 @@ int tiseg_size_filter_tile(const int* labels, int* out, int B, int H, int W, int
   return (int)cudaGetLastError();
 }
 
-// mask: (B, H, W) int32; out: bool (one byte) with the holes filled.
-// par, flag: int32 scratch; m: uint8 scratch; each of B*H*W.
+// Cluster route of hole filling: the output of tiseg_fill_holes, with the
+// widths, info_out and errors of tiseg_ccl_cluster.
+int tiseg_fill_holes_cluster(const int* mask, uint8_t* out, int B, int H, int W, int* info_out, void* stream_ptr) {
+  const int R = (H + kCluster - 1) / kCluster;
+  if (B <= 0 || R * W <= 0) return 0;
+  const int smem = cluster_smem_bytes(R, W);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  info_out[0] = smem;
+  return cluster_launch_widths(k_ccl_cluster<1024, 1, true>, k_ccl_cluster<512, 2, true>, g_fill_wide_cache,
+                               g_fill_cache, B, 0, smem, (cudaStream_t)stream_ptr, info_out, mask, out, H, W, R, 0, 0);
+}
+
+// Global route. mask: (B, H, W) int32; out: bool (one byte) with the holes
+// filled. par, flag: int32 scratch; m: uint8 scratch; each of B*H*W.
 int tiseg_fill_holes(const int* mask, uint8_t* out, int* par, int* flag, uint8_t* m, int B, int H, int W,
                      void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;

@@ -408,16 +408,7 @@ __device__ __forceinline__ void pp_plane(Net& net, unsigned char* smem, unsigned
     for (int p = tid; p < n; p += T) Q[p] = 0;
     __syncthreads();
     // complement pixels on the plane border mark their piece root
-    for (int j = tid; j < 2 * rows; j += T) {
-      const int p = (j >> 1) * W + (j & 1) * (W - 1);
-      if (key[p]) Q[P[p] - i0] = 1;
-    }
-    if (y0 == 0)
-      for (int p = tid; p < min(W, n); p += T)
-        if (key[p]) Q[P[p] - i0] = 1;
-    if (y0 + rows == H && rows > 0)
-      for (int p = n - W + tid; p < n; p += T)
-        if (key[p]) Q[P[p] - i0] = 1;
+    mark_border_pieces<T>(key, P, Q, n, W, H, y0, i0);
     __syncthreads();
     net.publish(key, P, Q, pieces, n);
     net.sync();

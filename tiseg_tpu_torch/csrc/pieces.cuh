@@ -1,6 +1,6 @@
 // Local-first labelling of a plane's rows held in a block's shared memory,
 // shared by the cluster kernels of mt_instance_pp.cu (B6), instance_pp.cu
-// (B1, B7) and flood.cu (B2).
+// (B1, B7) and flood.cu (B2, B3).
 //
 // A block holds rows [y0, y0 + rows) of an (H, W) plane, n = rows * W
 // pixels, as arrays of R*W entries; in-plane indices i = y * W + x, this
@@ -306,6 +306,26 @@ __device__ __forceinline__ unsigned long long label_local(const Plane& pl, const
   }
   __syncthreads();
   return root;
+}
+
+// After label_local: each pixel of nonzero `key` on the plane border marks
+// its piece root in `marks` (1; `marks` holds 0 at every root before). The
+// block holds rows [y0, y0 + n / W) of a plane of H rows; P[p] is p's piece
+// root. A barrier must follow before a root reads its mark.
+template <int T = kClusterThreads>
+__device__ __forceinline__ void mark_border_pieces(const uint8_t* key, const int* P, int* marks, int n, int W, int H,
+                                                   int y0, int i0) {
+  const int rows = n / W;
+  for (int j = threadIdx.x; j < 2 * rows; j += T) {  // the first and last column
+    const int p = (j >> 1) * W + (j & 1) * (W - 1);
+    if (key[p]) marks[P[p] - i0] = 1;
+  }
+  if (y0 == 0)
+    for (int p = threadIdx.x; p < min(W, n); p += T)
+      if (key[p]) marks[P[p] - i0] = 1;
+  if (y0 + rows == H && rows > 0)
+    for (int p = n - W + threadIdx.x; p < n; p += T)
+      if (key[p]) marks[P[p] - i0] = 1;
 }
 
 // Unions of the pieces across the border with the row above (`up_key`,

@@ -1,8 +1,8 @@
 """Route choice for the plane-resident kernels (``csrc/cluster.cuh``).
 
 The watershed (B5), the multi-task recovery (B6), the round-bounded
-labels (B8a), the instance recovery (B1, B7) and the connected components
-(B2, ``flood.py``) hold a plane in the
+labels (B8a), the instance recovery (B1, B7), the connected components
+(B2) and the hole filling (B3, both ``flood.py``) hold a plane in the
 distributed shared memory of one thread-block cluster when its rows fit: block ``r`` of ``CLUSTER`` keeps
 rows ``[r*R, (r+1)*R)``, ``R = ceil(H / CLUSTER)``, as ``SMALL_PLANES``
 uint8 arrays and ``WORD_PLANES`` int32 arrays, the same layout in every

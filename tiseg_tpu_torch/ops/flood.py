@@ -28,7 +28,13 @@ A CUDA batch takes a route chosen by a pure function of the shapes:
 - :func:`size_filter`: :func:`filter_route` gives ``'tile'`` (32 x 32
   output tiles with their halo in shared memory, counting ring by ring
   until ``min_size``: ``.tile_launches``) or, for a halo no block holds,
-  ``'global'`` (one thread per pixel over device memory).
+  ``'global'`` (one thread per pixel over device memory);
+- :func:`fill_holes_sweep`: :func:`fill_route` gives ``'cluster'`` (one
+  launch per batch of B2's cluster kernel on the mask's complement, whose
+  pieces on the plane border mark their regions; every batch up to 408^2,
+  a single plane included: ``.cluster_launches``) or, above, ``'global'``
+  (the chain of five union-find launches and a memset:
+  ``.global_launches``).
 
 ``.launches`` counts every route of a wrapper; ``.last_route`` holds the
 last call's route and layout.
@@ -103,7 +109,7 @@ def ccl_route(B: int, H: int, W: int) -> Route:
     for two planes or more; 'global' for a single plane, which the chain
     spreads over every SM where the cluster route holds it on 8 (one
     256^2 plane: 22.4-24.1 us of device time for the chain against
-    25.8-26.3 for the cluster on an H100; ``chip_smoke.py:time_ccl_xla``
+    25.8-26.3 for the cluster on an H100; ``chip_smoke.py:time_xla_kernel``
     times both)."""
     if B == 1:
         return Route('global', 0, 0)
@@ -135,12 +141,24 @@ def filter_route(B: int, H: int, W: int, min_size: int) -> FilterRoute:
     return FilterRoute('tile', TILE, smem)
 
 
+def fill_route(B: int, H: int, W: int) -> Route:
+    """Route of :func:`fill_holes_sweep` on a (B, H, W) batch:
+    :func:`cluster_route`, a single plane included. Unlike B2's, the chain
+    of hole filling is five launches and a memset, and it loses per call
+    on one 256^2 plane too (the ``'xla'`` class mask on an H100: 0.0470 ms
+    per call for the cluster kernel against 0.0675 for the chain, device
+    time 36.5 against 40.4 us; ``chip_smoke.py:time_xla_kernel`` times
+    both private launches in turns)."""
+    return cluster_route(B, H, W)
+
+
 # -- launches ---------------------------------------------------------------------
 _ARGS_CCL_GLOBAL = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGS_CCL_CLUSTER = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 _ARGS_FILTER_GLOBAL = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _ARGS_FILTER_TILE = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-_ARGS_FILL = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS_FILL_GLOBAL = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS_FILL_CLUSTER = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
 
 
 def _launch_global_ccl(x: torch.Tensor, connectivity: int) -> torch.Tensor:
@@ -206,6 +224,40 @@ def _launch_tile_filter(x: torch.Tensor, min_size: int) -> torch.Tensor:
     size_filter.launches += 1
     size_filter.tile_launches += 1
     size_filter.last_route = ('tile', TILE, info[0])
+    return out
+
+
+def _launch_global_fill(x: torch.Tensor) -> torch.Tensor:
+    """The earlier chain: union-find over device memory on the mask's
+    complement, border flags at the roots, one thread per pixel and pass."""
+    entry = bind('tiseg_flood', 'tiseg_fill_holes', _ARGS_FILL_GLOBAL)
+    B, H, W = x.shape
+    out = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    par, flag = torch.empty_like(x), torch.empty_like(x)
+    m = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    with device_guard(x.device):
+        err = entry(x.data_ptr(), out.data_ptr(), par.data_ptr(), flag.data_ptr(), m.data_ptr(), B, H, W,
+                    raw_stream(x.device))
+    raise_on_error('tiseg_flood', err, 'fill_holes_sweep (global route)')
+    fill_holes_sweep.launches += 1
+    fill_holes_sweep.global_launches += 1
+    fill_holes_sweep.last_route = ('global', 0, 0, 0, 0)
+    return out
+
+
+def _launch_cluster_fill(x: torch.Tensor) -> torch.Tensor:
+    """One launch, one cluster per plane, at the widths of
+    :func:`_launch_cluster_ccl`."""
+    entry = bind('tiseg_flood', 'tiseg_fill_holes_cluster', _ARGS_FILL_CLUSTER)
+    B, H, W = x.shape
+    out = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    info = (ctypes.c_int * 3)()  # shared bytes per block, clusters resident, threads per block
+    with device_guard(x.device):
+        err = entry(x.data_ptr(), out.data_ptr(), B, H, W, ctypes.cast(info, ctypes.c_void_p), raw_stream(x.device))
+    raise_on_error('tiseg_flood', err, 'fill_holes_sweep (cluster route)')
+    fill_holes_sweep.launches += 1
+    fill_holes_sweep.cluster_launches += 1
+    fill_holes_sweep.last_route = ('cluster', CLUSTER, *info)
     return out
 
 
@@ -289,23 +341,19 @@ def ccl_filter_sweep(mask: torch.Tensor, min_size: int = 10, connectivity: int =
 
 def fill_holes_sweep(mask: torch.Tensor, sweeps: int = 32) -> torch.Tensor:
     """Fill the background of an (H, W) or (B, H, W) mask (> 0 is set) that
-    is not 4-connected to the plane border. Returns bool. ``sweeps`` is
-    accepted for the JAX signature and not needed."""
+    is not 4-connected to the plane border, on the route of
+    :func:`fill_route`. Returns bool. ``sweeps`` is accepted for the JAX
+    signature and not needed. ``last_route``: as :func:`ccl_sweep`'s."""
     del sweeps
     x, squeeze = _planes(mask, 'fill_holes_sweep')
-    if x.is_cuda:
-        entry = bind('tiseg_flood', 'tiseg_fill_holes', _ARGS_FILL)
-        B, H, W = x.shape
-        out = torch.empty(x.shape, dtype=torch.bool, device=x.device)
-        par, flag = torch.empty_like(x), torch.empty_like(x)
-        m = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
-        with device_guard(x.device):
-            err = entry(x.data_ptr(), out.data_ptr(), par.data_ptr(), flag.data_ptr(), m.data_ptr(), B, H, W,
-                        raw_stream(x.device))
-        raise_on_error('tiseg_flood', err, 'fill_holes_sweep')
-        fill_holes_sweep.launches += 1
-    else:
+    if not x.is_cuda:
         out = fill_holes_plain(x > 0)
+    elif x.numel() == 0:
+        out = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    elif fill_route(*x.shape).route == 'cluster':
+        out = _launch_cluster_fill(x)
+    else:
+        out = _launch_global_fill(x)
     return out[0] if squeeze else out
 
 
@@ -315,4 +363,5 @@ size_filter.launches = size_filter.tile_launches = size_filter.global_launches =
 size_filter.last_route = ('', 0, 0)
 ccl_filter_sweep.fused_launches = 0
 ccl_filter_sweep.last_route = ('',)
-fill_holes_sweep.launches = 0
+fill_holes_sweep.launches = fill_holes_sweep.cluster_launches = fill_holes_sweep.global_launches = 0
+fill_holes_sweep.last_route = ('', 0, 0, 0, 0)

@@ -48,7 +48,7 @@ from tiseg_tpu_torch.ops._cluster import cluster_route  # noqa: E402
 
 MIN_SIZE = 10  # HoVer-Net's size filter
 START = '  const size_t base = (size_t)(blockIdx.x / kCluster) * H * W + (size_t)y0 * W;\n'
-END = '    out[base + p] = v;\n  }\n}\n'
+END = '      out[base + p] = v;\n    }\n  }\n}\n'
 
 
 def build(root: str):
