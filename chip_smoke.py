@@ -76,6 +76,20 @@
    fused maps must agree within 1e-4 and the predictions outside near-ties;
    each result is checked against the plain post-processor, the default
    route's also against the host scipy pipeline.
+   Then trains the same recipe: UNet from the config on the card, the
+   config's Adam (L2 5e-4) and step LR with linear warmup through the port's
+   engine (build_train_state, make_train_step), batches of 8 x 256^2
+   synthetic nuclei images with their 1px-eroded instances as targets and a
+   weight map of ones. First the loss and every gradient leaf on 2 of the
+   images on the card against the port's CPU path (float64: the loss within
+   rtol 1e-10, each leaf within 1e-8; float32: the loss within rtol 1e-5,
+   each leaf as close to the float64 gradient as 4 x the CPU float32 path's
+   error, or 1e-4). Then 13 train steps, the last 10 timed (ms per step,
+   images/s, peak memory, the first and last step's logs). Then one of the
+   images through seg.inference (the executor must match the unfolded net
+   and differ from its output before training) and seg.postprocess with
+   device_postprocess True: one launch of B1 on its cluster route, the
+   instances equal to the host pipeline's partition.
 4. Drives the HoVer-Net eval path once through InferenceRunner at the full
    width of the CoNIC recipe (ResNetExt50 + three dense decoders, 7 classes,
    float32, seeded weights and BN statistics): 16 images of 256^2 at CoNIC
@@ -1027,6 +1041,191 @@ def unet_main_path(args):
     return stats
 
 
+# -- phase 3b: the UNet train step ----------------------------------------------------
+TRAIN_BATCH, TRAIN_HW = 8, 256  # the main recipe's samples_per_gpu and crop (configs/unet/monuseg.py)
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+TRAIN_CHECK_BATCH = 2  # images of the card-against-CPU check
+# 12 MoNuSeg training images x 9 windows of 512^2 at stride 256 (tools/convert_dataset/monuseg.py), batches of 8
+# with drop_last: 13 iterations per epoch, so the step decay of epoch 200 falls on iteration 2600
+TRAIN_ITERS_PER_EPOCH = 13
+# card against CPU on the same weights and batch. float64 on both sides checks the card's path (cuDNN, BN,
+# losses) with little rounding. In float32 the gradients of the seeded net carry ~1% of rounding noise on
+# either device (the check prints the CPU float32 path's largest error against its float64 path, on the deep
+# BN leaves of the 2 x 256^2 check batch): the card's float32 gradient must be about as close to the float64 one
+# as the CPU's. tests/test_torch_train_step.py holds the port's CPU float32 gradient against JAX's
+F64_LOSS_RTOL, F64_GRAD_RTOL = 1e-10, 1e-8
+F32_LOSS_RTOL, F32_GRAD_FACTOR, F32_GRAD_FLOOR = 1e-5, 4.0, 1e-4
+TRAIN_LOGS = ('loss', 'sem_ce_loss', 'sem_dice_loss', 'sem_tdice', 'sem_mdice')
+
+
+def train_batch(seed: int, n: int, hw: int, device) -> dict:
+    """Synthetic nuclei images at MoNuSeg density, their 1px-eroded
+    instances as ``sem_gt_inner``, and a weight map of ones (UNetLabelMake's
+    border weights come with the data layer)."""
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei, multiclass_nuclei, nuclei_density
+    imgs = np.stack([make_nuclei(seed + i, hw, nuclei_density(hw))[0] for i in range(n)])
+    inner = np.stack([multiclass_nuclei(seed + i, hw, nuclei_density(hw), num_classes=2)[1] for i in range(n)])
+    return {'data': {'img': torch.from_numpy(imgs).to(device)},
+            'label': {'sem_gt_inner': torch.from_numpy(inner).to(device),
+                      'loss_weight_map': torch.ones(inner.shape, device=device)}}
+
+
+def loss_and_grads(seg, batch):
+    for p in seg.net.parameters():
+        p.grad = None
+    total, _ = seg.loss(batch)
+    total.backward()
+    grads = {k: p.grad.cpu().double() for k, p in seg.net.named_parameters() if p.requires_grad}
+    for p in seg.net.parameters():
+        p.grad = None
+    return float(total.detach()), grads
+
+
+def relative_errors(grads, want):
+    return {k: float((grads[k] - g).norm() / g.norm()) for k, g in want.items()}
+
+
+def check_train_gradients(cfg, seed: int, batch: dict) -> None:
+    """The loss and every gradient leaf of UNet.loss on the card against
+    the port's CPU path, on the same seeded weights and batch, in float64
+    and in float32."""
+    from tiseg_tpu_torch.models import build_segmentor
+    got = {}
+    for device in ('cuda', 'cpu'):
+        seg = build_segmentor(cfg.model, device=device, seed=seed)
+        for dtype in (torch.float64, torch.float32):
+            seg.net.to(dtype)
+            got[device, dtype] = loss_and_grads(seg, {
+                'data': {'img': batch['data']['img'].to(device, dtype)},
+                'label': {'sem_gt_inner': batch['label']['sem_gt_inner'].to(device),
+                          'loss_weight_map': batch['label']['loss_weight_map'].to(device, dtype)}})
+    (l64, g64), (l32, g32) = got['cpu', torch.float64], got['cpu', torch.float32]
+    (c64, gc64), (c32, gc32) = got['cuda', torch.float64], got['cuda', torch.float32]
+    e64, e32, e_cpu32 = relative_errors(gc64, g64), relative_errors(gc32, g64), relative_errors(g32, g64)
+    bound32 = {k: max(F32_GRAD_FACTOR * e_cpu32[k], F32_GRAD_FLOOR) for k in g64}
+    w64, w32 = max(e64, key=e64.get), max(e32, key=lambda k: e32[k] / bound32[k])
+    w_cpu = max(e_cpu32, key=e_cpu32.get)
+    ok = (len(g64) == len(gc64) == len(gc32) and abs(c64 - l64) <= F64_LOSS_RTOL * abs(l64)
+          and abs(c32 - l32) <= F32_LOSS_RTOL * abs(l32) and e64[w64] <= F64_GRAD_RTOL
+          and all(e32[k] <= bound32[k] for k in g64))
+    print(f'UNet train, card against CPU ({batch["data"]["img"].shape[0]} x {TRAIN_HW}^2, {len(g64)} gradient '
+          f'leaves): float64 loss {c64!r} / {l64!r} (bound rtol {F64_LOSS_RTOL}), worst leaf {w64} at '
+          f'{e64[w64]:.3e} (bound {F64_GRAD_RTOL}); float32 loss {c32!r} / {l32!r} (bound rtol {F32_LOSS_RTOL}), '
+          f'against the float64 gradient the card\'s worst leaf relative to its bound is {w32} at {e32[w32]:.3e} '
+          f'(the CPU\'s float32 path {e_cpu32[w32]:.3e}; bound max({F32_GRAD_FACTOR} x the CPU\'s, '
+          f'{F32_GRAD_FLOOR})), medians card {statistics.median(e32.values()):.3e}, CPU '
+          f'{statistics.median(e_cpu32.values()):.3e}, largest card {max(e32.values()):.3e}, CPU '
+          f'{e_cpu32[w_cpu]:.3e} ({w_cpu}); card against CPU in float32: worst '
+          f'{max(relative_errors(gc32, g32).values()):.3e}', flush=True)
+    if not ok:
+        raise AssertionError('UNet train: the card\'s loss or gradients differ from the CPU\'s beyond the bounds above')
+
+
+def unet_train_path(args):
+    """The main recipe's train step on the card: UNet from the config,
+    Adam with its L2 and the step LR with linear warmup through the port's
+    engine, batches of 8 x 256^2. Checks the loss and every gradient leaf
+    against the port's CPU path on 2 images, times the step, then evaluates
+    one of the batch's images through ``seg.inference`` and
+    ``seg.postprocess`` (B1) with the trained weights."""
+    from tiseg_tpu_torch.apis import build_train_state
+    from tiseg_tpu_torch.engine import make_train_step, trainable_parameters
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.models.segmentors.unet import instance_postprocess
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
+    from tiseg_tpu_torch.utils import Config
+
+    cfg = Config.fromfile(os.path.join(ROOT, UNET_CONFIG))
+    cfg.model.test_cfg = dict(cfg.model.test_cfg, device_postprocess=True)
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+    batch = train_batch(args.seed + 20000, TRAIN_BATCH, TRAIN_HW, 'cuda')
+    n_params = sum(p.numel() for p in trainable_parameters(seg.net))
+    print(f'UNet train: {UNET_CONFIG}, optimizer {dict(cfg.optimizer)}, lr_config {dict(cfg.lr_config)}, '
+          f'{TRAIN_ITERS_PER_EPOCH} iterations per epoch; batch {TRAIN_BATCH} x {TRAIN_HW}^2, float32, TF32 off; '
+          f'{n_params} trained parameters', flush=True)
+
+    # check 1: loss and gradients on the card against the port's CPU path, same weights and batch
+    t0 = time.perf_counter()
+    check_train_gradients(cfg, args.seed, {part: {k: v[:TRAIN_CHECK_BATCH] for k, v in items.items()}
+                                           for part, items in batch.items()})
+    print(f'UNet train, gradient check: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    img = batch['data']['img'][:1]
+    before = seg.inference(img)['sem']
+    state = build_train_state(seg, cfg, iters_per_epoch=TRAIN_ITERS_PER_EPOCH, seed=args.seed)
+    train_step = make_train_step(seg)
+    logs_first = None
+    for _ in range(TRAIN_WARMUP):
+        state, logs = train_step(state, batch)
+        logs_first = logs_first or {k: float(logs[k]) for k in TRAIN_LOGS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the optimizer's share of each step: CUDA events and the host clock around ChainOptimizer.step
+    opt_spans = []
+
+    def opt_pre(*_):
+        opt_spans.append([torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True),
+                          time.perf_counter()])
+        opt_spans[-1][0].record()
+
+    def opt_post(*_):
+        opt_spans[-1][1].record()
+        opt_spans[-1][2] = (time.perf_counter() - opt_spans[-1][2]) * 1e3
+
+    hooks = [state.tx.register_step_pre_hook(opt_pre), state.tx.register_step_post_hook(opt_post)]
+    times = []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        state, logs = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    for h in hooks:
+        h.remove()
+    opt_device_ms = statistics.median(a.elapsed_time(b) for a, b, _ in opt_spans)
+    opt_host_ms = statistics.median(host for _, _, host in opt_spans)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    logs_last = {k: float(logs[k]) for k in TRAIN_LOGS}
+    step_ms = statistics.median(times)
+    if not all(np.isfinite(v) for v in (*logs_first.values(), *logs_last.values())):
+        raise AssertionError(f'UNet train: logs not finite: {logs_first} {logs_last}')
+    print(f'UNet train step: {step_ms:.2f} ms per step (median of {TRAIN_TIMED} after {TRAIN_WARMUP} warm-ups, '
+          f'each ended by a synchronize; min {min(times):.2f}, max {max(times):.2f}), '
+          f'{TRAIN_BATCH / step_ms * 1e3:.1f} images/s, peak memory {peak_gib:.3f} GiB; steps {state.step}, '
+          f'lr of the last {state.tx.lr_schedule(state.step - 1)!r}', flush=True)
+    print(f'UNet train step, optimizer (ChainOptimizer.step, {len(trainable_parameters(seg.net))} leaves): '
+          f'{opt_device_ms:.3f} ms on the card\'s stream from the end of the backward to the end of the update '
+          f'({opt_device_ms / step_ms:.1%} of the step), {opt_host_ms:.3f} ms on the host clock (medians of '
+          f'{len(opt_spans)} steps)', flush=True)
+    print(f'UNet train logs, step 0: {json.dumps(logs_first)}', flush=True)
+    print(f'UNet train logs, step {state.step - 1}: {json.dumps(logs_last)}', flush=True)
+
+    # check 2: evaluate the trained net; the executor folds the trained weights and statistics
+    if seg.net.training:
+        raise AssertionError('UNet train: the net is not back in eval mode')
+    fused = seg.inference(img)['sem']
+    seg.test_cfg['fast_eval'] = False
+    unfolded = seg.inference(img)['sem']
+    del seg.test_cfg['fast_eval']
+    diff, moved = float((fused - unfolded).abs().max()), float((fused - before).abs().max())
+    if not (diff <= MAP_TOL < moved):
+        raise AssertionError(f'UNet train: executor against unfolded net {diff:.3e} (bound {MAP_TOL}), '
+                             f'against the executor before training {moved:.3e} (must exceed {MAP_TOL})')
+    instance_postprocess_sweep.launches = instance_postprocess_sweep.cluster_launches = 0
+    out = seg.postprocess({'sem': fused[0].cpu().numpy()})
+    launches = (instance_postprocess_sweep.launches, instance_postprocess_sweep.cluster_launches)
+    sem_pred = fused[0].argmax(-1).cpu().numpy().astype(np.uint8)
+    host_s, host_i = instance_postprocess(sem_pred, radius=cfg.model.test_cfg['radius'])
+    n_inst = len(np.unique(out['inst_pred'])) - 1
+    if not (launches == (1, 1) and np.array_equal(host_s, out['sem_pred'])
+            and partition_bijective(host_i, out['inst_pred']) and n_inst > 0):
+        raise AssertionError(f'UNet train, eval: B1 launches (all, cluster) {launches}, {n_inst} instances, '
+                             f'equal to the host pipeline: {np.array_equal(host_s, out["sem_pred"])}')
+    print(f'UNet train, eval of the trained net on one image: executor within {diff:.3e} of the unfolded net '
+          f'(bound {MAP_TOL}), {moved:.3e} from the executor before training; B1 launches {launches[0]} '
+          f'(cluster route), foreground {float((sem_pred > 0).mean()):.4f}, {n_inst} instances, equal to the host '
+          f"pipeline's partition", flush=True)
+
+
 def time_pp_main_path(model: str, sem_pred: torch.Tensor, radius: int, num_classes: int, launches: int):
     """B1 or B7 on a main path's semantic planes: the route, the earlier
     global chain and the route again, each the median of 25 calls; the
@@ -1899,6 +2098,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     stats = unet_main_path(args)
     print(f'UNet phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    t0 = time.perf_counter()
+    unet_train_path(args)
+    print(f'UNet train phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     stats.update(hover_main_path(args))
     print(f'HoVer-Net phase: {time.perf_counter() - t0:.1f} s', flush=True)

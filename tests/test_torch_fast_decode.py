@@ -173,11 +173,11 @@ def test_prep_follows_a_later_load_state_dict(nets):
 
 def test_int8_is_not_ported(nets):
     _, port, _, _ = nets
-    with pytest.raises(NotImplementedError, match='item 5'):
+    with pytest.raises(NotImplementedError, match='heads/quant_decode.py'):
         port.calibrate_int8(torch.zeros(1, 32, 32, 3))
     port.test_cfg['int8_eval'] = True
     try:
-        with pytest.raises(NotImplementedError, match='int8_eval'):
+        with pytest.raises(NotImplementedError, match='int8_eval.*heads/quant_decode.py'):
             port.inference(torch.zeros(1, 32, 32, 3))
     finally:
         del port.test_cfg['int8_eval']

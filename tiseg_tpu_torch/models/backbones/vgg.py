@@ -5,7 +5,11 @@ at strides (1, 2, 4, 8, 16, 32) with channels (64, 128, 256, 512, 512, 512).
 Stage s > 0 starts with a 2x2 max-pool; the last stage is pool-only.
 Module names follow the reference's torchvision slices
 (``stages.{s}.{seq}``, tiseg/models/backbones/torch_vgg.py:44-60), so the
-convs carry the reference's biases (zero unless loaded).
+convs carry the reference's biases. The JAX package's convs under BN have
+none, so the port's stay zero and out of training (``requires_grad``
+False): before a train-mode BN their gradient is float noise, which Adam
+would turn into steps of ~lr. A loaded bias folds into the BN's running
+mean (``backbones/torch_port.py``).
 """
 from __future__ import annotations
 
@@ -32,9 +36,9 @@ class VGG(nn.Module):
             layers = [nn.MaxPool2d(2, 2)] if s > 0 else []
             for _ in range(n_convs):
                 out_ch = VGG_STAGE_CHANNELS[s]
-                layers += [nn.Conv2d(in_ch, out_ch, 3, padding=1, device=device),
-                           BatchNorm2d(out_ch, eps=1e-5, momentum=0.1, device=device),
-                           nn.ReLU()]
+                conv = nn.Conv2d(in_ch, out_ch, 3, padding=1, device=device)
+                conv.bias.requires_grad_(False)
+                layers += [conv, BatchNorm2d(out_ch, eps=1e-5, momentum=0.1, device=device), nn.ReLU()]
                 in_ch = out_ch
             stages.append(nn.Sequential(*layers))
         stages.append(nn.Sequential(nn.MaxPool2d(2, 2)))

@@ -1,10 +1,14 @@
-"""BaseSegmentor: the shared inference engine (port of
-tiseg_tpu/models/segmentors/base.py).
+"""BaseSegmentor: the shared inference engine and the train-time forward
+(port of tiseg_tpu/models/segmentors/base.py).
 
 A segmentor owns ``self.net``, an ``nn.Module`` on ``self.device`` whose
 forward takes an NHWC image batch and returns ``{head: NHWC logits}``. Where
 the JAX segmentor is given its variables on every call, the port's net holds
-its weights.
+its weights, and a train forward updates its BN statistics in place.
+
+Training-time loss dicts follow the reference convention: every key
+containing 'loss' sums into the total; other keys are logged metrics
+(reference base.py:13-47 ``_parse_losses``).
 """
 from __future__ import annotations
 
@@ -16,9 +20,18 @@ from ...ops.sliding import resize_bilinear, reverse_tta_transform, tta_forward_v
 from ...utils.device import resolve_device
 
 
+def parse_losses(losses: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Sum every entry whose key contains 'loss'; return (total, log_vars)
+    with ``log_vars['loss']`` the total."""
+    log_vars = dict(losses)
+    total = sum(v for k, v in losses.items() if 'loss' in k)
+    log_vars['loss'] = total
+    return total, log_vars
+
+
 class BaseSegmentor:
     """Common inference plumbing. Subclasses set ``self.net`` and implement
-    ``postprocess``."""
+    ``loss`` and ``postprocess``."""
 
     # softmax-fused heads under TTA; others are mean-fused raw, except the
     # first-view heads, taken from the first (identity) view alone
@@ -45,6 +58,33 @@ class BaseSegmentor:
         self.net.eval()
         with torch.inference_mode():
             return self.net(img)
+
+    def forward_train(self, img) -> Dict[str, torch.Tensor]:
+        """Train-mode forward of an NHWC batch, recorded by autograd: BN
+        normalises with the batch statistics and updates its running ones
+        in place (the JAX package's ``forward_heads(train=True,
+        mutable=True)``). The net is back in ``.eval()`` on return."""
+        self.net.train()
+        try:
+            return self.net(torch.as_tensor(img, device=self.device))
+        finally:
+            self.net.eval()
+
+    # -- losses (abstract) ----------------------------------------------------
+    def loss(self, batch: Dict, generator: Optional[torch.Generator] = None):
+        """``batch``: ``{'data': {'img'}, 'label': {...}}``. Returns
+        (total, log_vars) of a train forward; the gradients are the caller's
+        (``engine.train_state.make_train_step``). ``generator`` is the step's
+        random stream, for nets with dropout."""
+        raise NotImplementedError
+
+    def training_metrics(self, sem_logit, sem_gt) -> Dict[str, torch.Tensor]:
+        from ..losses import mdice, tdice
+        sem_logit = sem_logit.detach()
+        return {
+            'sem_tdice': tdice(sem_logit, sem_gt, self.num_classes),
+            'sem_mdice': mdice(sem_logit, sem_gt, self.num_classes),
+        }
 
     # -- TTA head fusion hooks ------------------------------------------------
     def reverse_head(self, name: str, logit: torch.Tensor, rotate_degree: int, flip_direction: str):

@@ -102,8 +102,7 @@ class CDNet(BaseSegmentor):
                  seed: int = 0):
         super().__init__(num_classes, train_cfg, test_cfg, device=device)
         if self.test_cfg.get('int8_eval', False):
-            raise NotImplementedError('CDNet int8_eval (heads/quant_cdnet.py) is not ported (ROADMAP queue A '
-                                      'item 5)')
+            raise NotImplementedError('CDNet int8_eval is not ported (tiseg_tpu/models/heads/quant_cdnet.py)')
         self.num_angles = num_angles
         self.net = CDNetNet(num_classes, num_angles, device=self.device)
         he_init_(self.net, torch.Generator().manual_seed(seed))

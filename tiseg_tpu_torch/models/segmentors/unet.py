@@ -1,11 +1,13 @@
-"""UNet segmentor, evaluation path (port of
-tiseg_tpu/models/segmentors/unet.py; reference tiseg/models/segmentors/unet.py).
+"""UNet segmentor (port of tiseg_tpu/models/segmentors/unet.py; reference
+tiseg/models/segmentors/unet.py).
 
-VGG16-BN encoder + UNet decoder; instances recovered at eval by per-class
-fill-holes -> remove-small -> CCL -> disk dilation, on the device
-(``device_postprocess``) or on the host. The eval forward runs through the
-BN-folded phase-space executor (``heads/fast_decode.py``) unless
-``test_cfg['fast_eval']`` is False.
+VGG16-BN encoder + UNet decoder; trained on the 1px-eroded semantic target
+(``sem_gt_inner``) with the UNet border weight map; instances recovered at
+eval by per-class fill-holes -> remove-small -> CCL -> disk dilation, on the
+device (``device_postprocess``) or on the host. The eval forward runs
+through the BN-folded phase-space executor (``heads/fast_decode.py``)
+unless ``test_cfg['fast_eval']`` is False; the train forward always runs the
+unfolded net.
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ from ...utils import morphology as m
 from ..backbones.vgg import VGG16BN
 from ..builder import SEGMENTORS
 from ..heads.unet_head import UNetHead
+from ..losses import batch_multiclass_dice_loss, cross_entropy
 from ..nn import he_init_
-from .base import BaseSegmentor
+from .base import BaseSegmentor, parse_losses
 
 
 class UNetNet(nn.Module):
@@ -75,14 +78,14 @@ class FastVGGUNetEval:
         """Fold BN and build the phase-space weights from the net's present
         weights: once per ``inference`` call, not once per patch chunk."""
         if self.test_cfg.get('int8_eval', False):
-            raise NotImplementedError('int8_eval is not ported (ROADMAP queue A item 5)')
+            raise NotImplementedError('int8_eval is not ported (tiseg_tpu/models/heads/quant_decode.py)')
         if not self._fast_eval_enabled():
             return None
         from ..heads.fast_decode import build_fast_unet_head_params, build_fast_vgg16_params
         return {'vgg': build_fast_vgg16_params(self.net.backbone), 'head': build_fast_unet_head_params(self.net.head)}
 
     def calibrate_int8(self, calib_img, margin: float = 1.0):
-        raise NotImplementedError('the int8 eval path is not ported (ROADMAP queue A item 5)')
+        raise NotImplementedError('the int8 eval path is not ported (tiseg_tpu/models/heads/quant_decode.py)')
 
     def forward_heads(self, img, prep=None):
         if not self._fast_eval_enabled() or not self._fast_eval_ok(img.shape[1:3]):
@@ -107,6 +110,18 @@ class UNet(FastVGGUNetEval, BaseSegmentor):
         self.net = UNetNet(num_classes, device=self.device)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
+
+    def loss(self, batch, generator=None):
+        """5 x CE on ``sem_gt_inner`` weighted by ``loss_weight_map`` plus
+        0.5 x batch dice, and the training metrics, of a train forward of
+        the unfolded net (never the executor, which folds BN)."""
+        sem_logit = self.forward_train(batch['data']['img'])['sem']
+        sem_gt = torch.as_tensor(batch['label']['sem_gt_inner'], device=self.device)
+        weight_map = torch.as_tensor(batch['label']['loss_weight_map'], device=self.device)
+        losses = {'sem_ce_loss': 5.0 * cross_entropy(sem_logit, sem_gt, weight=weight_map),
+                  'sem_dice_loss': 0.5 * batch_multiclass_dice_loss(sem_logit, sem_gt, self.num_classes)}
+        losses.update(self.training_metrics(sem_logit, sem_gt))
+        return parse_losses(losses)
 
     def postprocess(self, fused):
         sem_pred = np.argmax(np.asarray(fused['sem']), axis=-1)
