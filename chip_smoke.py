@@ -90,6 +90,24 @@
    and differ from its output before training) and seg.postprocess with
    device_postprocess True: one launch of B1 on its cluster route, the
    instances equal to the host pipeline's partition.
+   Then UNet-S2D on the committed trained weights (bench_fixture.npz, read by
+   utils/fixture.py) from its config with bench.py's test_cfg (whole image,
+   device post-processing, radius 1): the held-out workload of
+   bench.py:_heldout_aji (16 x 256^2, seeds 200-215) through
+   seg.inference_and_postprocess on four routes (float32, bf16, int8-resident
+   with bf16 and with float32 around the int8 convs; the int8 routes take
+   out='pred' into B1), each with B1 once on its cluster route and 23 + 4
+   int8 convs (or none), scored by the port's binary AJI, PQ, instance Dice
+   and foreground Dice (and the device metrics' AJI), the AJI gated as
+   bench.py:469-472 gates it against the fixture's recorded scores. Every
+   int8 conv of the executor on that batch bit-exact against its plain
+   version; on 2 images the float32 executor within 1e-4 + 1e-4 x |logit| of
+   the port's CPU path, the int8 executor's activations equal to the CPU's
+   and its argmax equal outside near-ties. Then, at the bench's batch of 128
+   x 256^2, the bf16 and int8 executors timed forward only and forward +
+   argmax + B1 (patches/s, peak memory), and each int8 conv site (the
+   wrapper, torch._int_mm alone on operands of its shape, cuDNN's bf16
+   convolution of the same shape, the bound).
 4. Drives the HoVer-Net eval path once through InferenceRunner at the full
    width of the CoNIC recipe (ResNetExt50 + three dense decoders, 7 classes,
    float32, seeded weights and BN statistics): 16 images of 256^2 at CoNIC
@@ -1226,6 +1244,257 @@ def unet_train_path(args):
           f"pipeline's partition", flush=True)
 
 
+# -- phase 3c: UNet-S2D on the committed trained weights --------------------------------
+S2D_CONFIG = 'configs/unet_s2d/unet-s2d_adam-lr1e-4_bs8_256x256_300e_monuseg.py'
+S2D_TEST_CFG = dict(mode='whole', device_postprocess=True, radius=1)  # bench.py's test_cfg
+S2D_SEED0, S2D_HELDOUT = 200, 16  # bench.py:_heldout_aji: held-out seeds 200-215, 256^2 each
+S2D_BATCH, S2D_TIMED = 128, 25  # bench.py's throughput batch; CUDA-event-timed calls per median
+S2D_CHECK = 2  # images of the card-against-CPU check
+S2D_F32_ATOL, S2D_F32_RTOL = 1e-4, 1e-4  # float32 executor, card against CPU: sums in other orders
+# (route, the executors' dtype, int8-resident); the bench's int8 route keeps bfloat16 around the int8 convs
+S2D_ROUTES = (('float32', torch.float32, False), ('bf16', torch.bfloat16, False),
+              ('int8', torch.bfloat16, True), ('int8, float32 around', torch.float32, True))
+S2D_GATE_TOL = 0.5  # bench.py:469-472: AJI points (x 100) the bf16 and int8 routes may lose
+INT8_OPS_PER_S = 1979e12  # H100 SXM tensor cores, int8, dense (data sheet)
+# the int8 convs of the executor in call order: stem, stages, per decoder the tconv and the split concat
+# conv's two halves, decode0's two halves
+S2D_SITES = (['stem0', 'stem1'] + [f's{s}c{c}' for s, n in zip(range(1, 5), (2, 3, 3, 3)) for c in range(n)]
+             + [f'dec{i}.{p}' for i in range(4, 0, -1) for p in ('pt', 'pc/up', 'pc/skip')]
+             + ['dec0.c/up', 'dec0.c/skip'])
+
+
+def s2d_segs(device, sd, fpq):
+    """UNet-S2D from its config with bench.py's test_cfg, one per executor
+    dtype, holding the fixture's weights and int8 tree."""
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.utils import Config
+    cfg = Config.fromfile(os.path.join(ROOT, S2D_CONFIG))
+    segs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        seg = segs[dtype] = build_segmentor(dict(cfg.model, test_cfg=dict(S2D_TEST_CFG)), device=device, dtype=dtype)
+        seg.net.load_state_dict(sd)
+        seg._int8_fpq = fpq
+    return segs
+
+
+def s2d_scores(seg, data, int8: bool):
+    """``seg.inference_and_postprocess`` on the held-out images (``ori_hw``
+    None, as bench.py:_heldout_aji calls it) and the port's metrics of the
+    instance maps against the synthetic ground truth: binary AJI x 100 (the
+    bench's reducer), binary PQ, instance Dice, the foreground's Dice, and
+    the AJI of the device metrics (ops/inst_metrics.py)."""
+    from tiseg_tpu_torch.ops.inst_metrics import pre_eval_all_device
+    from tiseg_tpu_torch.utils.metrics import (pre_eval_all_semantic_metric, pre_eval_bin_aji, pre_eval_bin_pq,
+                                               pre_eval_to_bin_aji, pre_eval_to_bin_pq, pre_eval_to_inst_dice,
+                                               pre_eval_to_sem_metrics)
+    seg.test_cfg['int8_eval'] = int8
+    img = torch.from_numpy(np.stack([d[0] for d in data])).to(seg.device)
+    out = seg.inference_and_postprocess(img)
+    sem, inst = out['sem_pred'], out['inst_pred']
+    if inst.shape != img.shape[:3] or inst.dtype != torch.int32 or sem.dtype != torch.uint8:
+        raise AssertionError(f'UNet-S2D: inst_pred {inst.dtype} {tuple(inst.shape)}, sem_pred {sem.dtype}')
+    inst_np, sem_np = inst.cpu().numpy(), sem.cpu().numpy()
+    aji = [pre_eval_bin_aji(inst_np[i], d[2]) for i, d in enumerate(data)]
+    pq = [pre_eval_bin_pq(inst_np[i], d[2]) for i, d in enumerate(data)]
+    sem_pre = [pre_eval_all_semantic_metric(sem_np[i], d[1], 2) for i, d in enumerate(data)]
+    dev = [pre_eval_all_device(sem[i], inst[i], torch.from_numpy(d[1]).to(seg.device),
+                               torch.from_numpy(d[2]).to(seg.device), 2)[1] for i, d in enumerate(data)]
+    return inst_np, {'aji': round(float(pre_eval_to_bin_aji(aji)['Aji']) * 100, 3),
+                     'pq': float(pre_eval_to_bin_pq(pq)['PQ']), 'inst_dice': float(pre_eval_to_inst_dice(pq)['InstDice']),
+                     'dice': float(pre_eval_to_sem_metrics(sem_pre, ['Dice'])['Dice'][0]),
+                     'device_aji': float(sum(float(i) for i, _ in dev) / sum(float(u) for _, u in dev)) * 100}
+
+
+def s2d_int8_calls(seg, img):
+    """Every int8 convolution of one int8-resident forward of ``img``:
+    [(site, input, kernel, output, plain version)] in call order."""
+    from tiseg_tpu_torch.models.heads import s2d_exec
+    from tiseg_tpu_torch.ops import int8_conv
+    calls = []
+
+    def rec(fn, plain):
+        def call(x, W):
+            y = fn(x, W)
+            calls.append((S2D_SITES[len(calls)], x, W, y, plain))
+            return y
+        return call
+
+    conv, tconv = s2d_exec._conv_i8, s2d_exec._tconv
+    s2d_exec._conv_i8 = rec(conv, int8_conv.conv2d_i8_plain)
+    s2d_exec._tconv = rec(tconv, int8_conv.conv_transpose2x_i8_plain)
+    try:
+        prep = seg.prepare_inference()
+        s2d_exec.apply_s2d_q8(prep['s2d'], seg._int8_fpq, img, dtype=seg.dtype, out='pred')
+    finally:
+        s2d_exec._conv_i8, s2d_exec._tconv = conv, tconv
+    if len(calls) != len(S2D_SITES):
+        raise AssertionError(f'UNet-S2D: {len(calls)} int8 convolutions, expected {len(S2D_SITES)}')
+    return calls
+
+
+def int8_conv_shape(x: torch.Tensor, W: torch.Tensor):
+    """(M, K, N, products) of the ``torch._int_mm`` calls of one int8 conv:
+    channels padded to multiples of 8; a transposed conv is four products
+    of 2 x 2 taps."""
+    Cp, Np = -(-W.shape[2] // 8) * 8, -(-W.shape[3] // 8) * 8
+    M = x.shape[0] * x.shape[1] * x.shape[2]
+    if W.shape[0] == 4:
+        return M, 4 * Cp, Np, 4
+    return M, W.shape[0] * W.shape[1] * Cp, Np, 1
+
+
+def time_int8_site(site, x, W):
+    """One int8 conv site at the main path's shape: the wrapper (im2col and
+    torch._int_mm), torch._int_mm alone on operands of the same shape,
+    cuDNN's bf16 convolution of the same shape, and the bound (the product's
+    operations at the int8 tensor-core rate, or the input, kernel and int32
+    output bytes, whichever is longer)."""
+    import torch.nn.functional as F
+
+    from tiseg_tpu_torch.ops import int8_conv
+    tconv = W.shape[0] == 4
+    fn = int8_conv.conv_transpose2x_i8 if tconv else int8_conv.conv2d_i8
+    M, K, N, n_mm = int8_conv_shape(x, W)
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device='cuda')
+    b = torch.randint(-127, 128, (N, K), dtype=torch.int8, device='cuda').t()
+    xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+    if tconv:
+        wb = W.to(torch.bfloat16).flip(0, 1).permute(2, 3, 0, 1).contiguous()
+        ref = lambda: F.conv_transpose2d(xb, wb, stride=2, padding=1)  # noqa: E731
+    else:
+        wb = W.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        ref = lambda: F.conv2d(xb, wb, padding=W.shape[0] // 2)  # noqa: E731
+    out_px = x.shape[0] * x.shape[1] * x.shape[2] * (4 if tconv else 1)
+    ops = 2.0 * M * K * N * n_mm
+    n_bytes = x.numel() + W.numel() + 4 * out_px * W.shape[3]
+    op_ms, byte_ms = ops / INT8_OPS_PER_S * 1e3, bytes_ms(n_bytes)
+    return {'site': site, 'x': list(x.shape), 'w': list(W.shape), 'mm': [M, K, N, n_mm],
+            'ms': cuda_ms(lambda: fn(x, W), S2D_TIMED),
+            'int_mm_ms': cuda_ms(lambda: [torch._int_mm(a, b) for _ in range(n_mm)], S2D_TIMED),
+            'cudnn_bf16_ms': cuda_ms(ref, S2D_TIMED),
+            'bound_ms': max(op_ms, byte_ms), 'bound_by': 'operations' if op_ms >= byte_ms else 'bytes'}
+
+
+def time_s2d_executor(seg, img, int8: bool):
+    """ms per batch (median of S2D_TIMED CUDA-event-timed calls after 3
+    warm-ups) and peak GiB of the executor alone (``forward_heads`` with the
+    folded weights built once) and of the whole eval step
+    (``inference_and_postprocess``: the fold, the executor, argmax or the
+    pred route, B1)."""
+    seg.test_cfg['int8_eval'] = int8
+    prep = seg.prepare_inference()
+    out = {}
+    for what, fn in (('forward', lambda: seg.forward_heads(img, prep=prep)),
+                     ('e2e', lambda: seg.inference_and_postprocess(img))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(fn, S2D_TIMED)
+        out[f'{what}_ms'] = ms
+        out[f'{what}_patches_per_s'] = img.shape[0] / ms * 1e3
+        out[f'{what}_peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def unet_s2d_path(args):
+    """UNet-S2D on the fixture's trained weights: the held-out AJI of the
+    float32, bf16 and int8-resident routes, gated as bench.py gates it live;
+    every int8 conv bit-exact against its plain version; the float32 and
+    int8 executors against the CPU; the executors and each int8 conv site
+    timed at the bench's batch."""
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei
+    from tiseg_tpu_torch.ops import int8_conv
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
+    from tiseg_tpu_torch.utils.fixture import FIXTURE_PATH, load_fixture
+
+    t0 = time.perf_counter()
+    sd, fpq, meta = load_fixture(device='cuda')
+    segs = s2d_segs('cuda', sd, fpq)
+    rec = meta['s2d']
+    print(f'UNet-S2D: {S2D_CONFIG} on {os.path.relpath(FIXTURE_PATH, ROOT)} ({len(sd)} tensors, '
+          f'{len(fpq["wq"])} int8 sites) read in {time.perf_counter() - t0:.1f} s; recorded {json.dumps(rec)}',
+          flush=True)
+    data = [make_nuclei(S2D_SEED0 + i) for i in range(S2D_HELDOUT)]
+    img = torch.from_numpy(np.stack([d[0] for d in data])).cuda()
+    scores, insts = {}, {}
+    for name, dtype, int8 in S2D_ROUTES:
+        seg = segs[dtype]
+        before = pp_launches(instance_postprocess_sweep)
+        int8_conv.conv2d_i8.launches = int8_conv.conv_transpose2x_i8.launches = 0
+        insts[name], scores[name] = s2d_scores(seg, data, int8)
+        check_pp_launches(instance_postprocess_sweep, before, img.shape[:3])
+        convs = (int8_conv.conv2d_i8.launches, int8_conv.conv_transpose2x_i8.launches)
+        if convs != ((23, 4) if int8 else (0, 0)):
+            raise AssertionError(f'UNet-S2D {name}: int8 conv launches {convs}')
+        s = scores[name]
+        print(f'UNet-S2D held-out, {name}: binary AJI x 100 {s["aji"]:.3f} (device metrics {s["device_aji"]:.3f}), '
+              f'PQ {s["pq"]:.4f}, instance Dice {s["inst_dice"]:.4f}, foreground Dice {s["dice"]:.4f}; B1 '
+              f'{route_note(instance_postprocess_sweep, pp_layout, None, img.shape[:3])[2:]}; int8 conv launches '
+              f'{convs[0]} + {convs[1]} transposed', flush=True)
+    bf16, int8 = scores['bf16']['aji'], scores['int8']['aji']
+    gates = {'bf16 >= std_bf16_aji - 0.5': bf16 >= rec['std_bf16_aji'] - S2D_GATE_TOL,
+             'bf16 >= s2d_bf16_aji - 1.0': bf16 >= rec['s2d_bf16_aji'] - 2 * S2D_GATE_TOL,
+             'int8 >= bf16 - 0.5': int8 >= bf16 - S2D_GATE_TOL,
+             'int8 >= std_bf16_aji - 0.5': int8 >= rec['std_bf16_aji'] - S2D_GATE_TOL}
+    print(f'UNet-S2D gates (bench.py:469-472): {json.dumps(gates)}', flush=True)
+    if not all(gates.values()):
+        raise AssertionError(f'UNet-S2D: a held-out AJI gate failed: {scores}')
+
+    # every int8 conv of the executor on the held-out batch against its plain version (float64) on the card
+    calls = s2d_int8_calls(segs[torch.bfloat16], img)
+    bad = [site for site, x, W, y, plain in calls if not torch.equal(y, plain(x, W))]
+    if bad:
+        raise AssertionError(f'UNet-S2D: int8 convs differ from their plain version at {bad}')
+    print(f'UNet-S2D int8 convs: {len(calls)} calls on {S2D_HELDOUT} x 256^2 bit-exact against the plain '
+          f'version: {", ".join(f"{s} {tuple(x.shape)}x{tuple(W.shape)}" for s, x, W, _, _ in calls)}', flush=True)
+    del calls
+
+    # the card against the port's CPU path on S2D_CHECK images: the float32 executor's logits, and the int8
+    # executor's activations (exact sums, one rounding per float operation on both devices) and argmax
+    cpu_segs = s2d_segs('cpu', {k: v.cpu() for k, v in sd.items()},
+                        {'act': {k: v.cpu() for k, v in fpq['act'].items()},
+                         'wq': {k: (w.cpu(), s.cpu()) for k, (w, s) in fpq['wq'].items()}})
+    pair = (segs[torch.float32], cpu_segs[torch.float32])
+    x = [img[:S2D_CHECK].to(seg.device) for seg in pair]
+    logits, q8 = [], []
+    for seg, xi in zip(pair, x):
+        seg.test_cfg['int8_eval'] = False
+        logits.append(seg.forward_heads(xi)['sem'].cpu())
+        seg.test_cfg['int8_eval'] = True
+        q8.append(seg.forward_heads(xi)['sem'].cpu())
+    f32_err = (logits[0] - logits[1]).abs()
+    f32_ok = bool((f32_err <= S2D_F32_ATOL + S2D_F32_RTOL * logits[1].abs()).all())
+    acts = [[c[1].cpu() for c in s2d_int8_calls(seg, xi)] for seg, xi in zip(pair, x)]
+    act_diff = sum(int((a != b).sum()) for a, b in zip(*acts))
+    flips = q8[0].argmax(-1) != q8[1].argmax(-1)
+    far = flips & ((q8[1][..., 1] - q8[1][..., 0]).abs() > S2D_F32_ATOL)
+    print(f'UNet-S2D card against CPU on {S2D_CHECK} images: float32 logits within {float(f32_err.max()):.3e} '
+          f'(bound {S2D_F32_ATOL} + {S2D_F32_RTOL} x |logit|, largest {float(logits[1].abs().max()):.2f}); int8 '
+          f'activations differing {act_diff} of {sum(a.numel() for a in acts[1])}; int8 argmax pixels differing '
+          f'{int(flips.sum())}, {int(far.sum())} of them outside near-ties', flush=True)
+    if not (f32_ok and act_diff == 0 and not far.any()):
+        raise AssertionError('UNet-S2D: the card differs from the CPU beyond the bounds')
+    del cpu_segs
+
+    # timing at the bench's batch: the executors, then each int8 conv site
+    imgs = torch.from_numpy(np.stack([d[0] for d in data] * (S2D_BATCH // S2D_HELDOUT))).cuda()
+    timing = {name: time_s2d_executor(segs[dtype], imgs, int8) for name, dtype, int8 in S2D_ROUTES[1:3]}
+    for name, t in timing.items():
+        print(f'UNet-S2D {name} at {S2D_BATCH} x 256^2: forward {t["forward_ms"]:.3f} ms '
+              f'({t["forward_patches_per_s"]:.1f} patches/s, peak {t["forward_peak_gib"]:.3f} GiB); forward + argmax '
+              f'+ B1 {t["e2e_ms"]:.3f} ms ({t["e2e_patches_per_s"]:.1f} patches/s, peak {t["e2e_peak_gib"]:.3f} GiB)',
+              flush=True)
+    sites = [time_int8_site(site, x, W) for site, x, W, _, _ in s2d_int8_calls(segs[torch.bfloat16], imgs)]
+    for s in sites:
+        print(f'UNet-S2D int8 site {s["site"]}: {s["x"]} x {s["w"]}: {s["ms"]:.4f} ms (torch._int_mm alone '
+              f'{s["int_mm_ms"]:.4f}, cuDNN bf16 conv {s["cudnn_bf16_ms"]:.4f}, bound {s["bound_ms"]:.4f} by '
+              f'{s["bound_by"]})', flush=True)
+    print(json.dumps({'unet_s2d': {'heldout': scores, 'gates': gates, 'timing': timing, 'int8_sites': sites,
+                                   'card_vs_cpu': {'f32_max_abs': float(f32_err.max()),
+                                                   'int8_acts_differing': act_diff,
+                                                   'int8_argmax_differing': int(flips.sum())}}}), flush=True)
+
+
 def time_pp_main_path(model: str, sem_pred: torch.Tensor, radius: int, num_classes: int, launches: int):
     """B1 or B7 on a main path's semantic planes: the route, the earlier
     global chain and the route again, each the median of 25 calls; the
@@ -2101,6 +2370,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     unet_train_path(args)
     print(f'UNet train phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    unet_s2d_path(args)
+    print(f'UNet-S2D phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     stats.update(hover_main_path(args))

@@ -69,16 +69,20 @@ def _conv_module(sd, prefix, params, stats):
     _bn(sd, f'{prefix}.bn', params['BatchNorm_0'], stats['BatchNorm_0'])
 
 
+def _unet_layer(sd, pre, params, stats):
+    """One UNet decode layer (``UNetLayer``, one conv) under ``pre``."""
+    up_p, up_s = params['TransposedConvModule_0'], stats['TransposedConvModule_0']
+    sd[f'{pre}.up_conv.0.weight'] = _tconv(up_p['ConvTranspose_0']['kernel'])
+    _bn(sd, f'{pre}.up_conv.1', up_p['BatchNorm_0'], up_s['BatchNorm_0'])
+    _conv_module(sd, f'{pre}.convs.0', params['ConvModule_0'], stats['ConvModule_0'])
+
+
 def _decode_stack(sd, params, stats):
     """The five UNet decode layers under ``head.decode_layers``, from the
     flax tree that holds ``decode0..decode4``."""
     for j in range(_NUM_DECODE):
         name = f'decode{_NUM_DECODE - 1 - j}'
-        pre = f'head.decode_layers.{j}'
-        up_p, up_s = params[name]['TransposedConvModule_0'], stats[name]['TransposedConvModule_0']
-        sd[f'{pre}.up_conv.0.weight'] = _tconv(up_p['ConvTranspose_0']['kernel'])
-        _bn(sd, f'{pre}.up_conv.1', up_p['BatchNorm_0'], up_s['BatchNorm_0'])
-        _conv_module(sd, f'{pre}.convs.0', params[name]['ConvModule_0'], stats[name]['ConvModule_0'])
+        _unet_layer(sd, f'head.decode_layers.{j}', params[name], stats[name])
 
 
 def _biased_conv(sd, prefix, params):
@@ -94,6 +98,24 @@ def unet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     _vgg16(sd, params['backbone'], stats['backbone'])
     _decode_stack(sd, params['head'], stats['head'])
     _biased_conv(sd, 'head.postprocess', params['head']['cls'])
+    return sd
+
+
+def unet_s2d_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``UNetS2DNet`` from the flax tree of
+    ``tiseg_tpu``'s ``UNetS2DNet``: the JAX module names (no reference
+    analog), each ConvModule's ``Conv_0``/``BatchNorm_0`` under
+    ``.conv``/``.bn``, each decoder's ``TransposedConvModule_0`` under
+    ``.up_conv.{0,1}`` and ``ConvModule_0`` under ``.convs.0``."""
+    params, stats = variables['params'], variables['batch_stats']
+    sd = OrderedDict()
+    names = ['stem_conv0', 'stem_conv1'] + [f'stage{s}_conv{c}' for s in range(1, 5)
+                                            for c in range(_VGG16_STAGE_CONVS[s])]
+    for name in names + ['decode0_conv']:
+        _conv_module(sd, name, params[name], stats[name])
+    for i in range(4, 0, -1):
+        _unet_layer(sd, f'decode{i}', params[f'decode{i}'], stats[f'decode{i}'])
+    _biased_conv(sd, 'cls', params['cls'])
     return sd
 
 
@@ -190,6 +212,7 @@ def hovernet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]
 # cfg.model.type -> carrier
 CARRIERS: Dict[str, Callable[[Mapping], Dict[str, torch.Tensor]]] = {
     'UNet': unet_state_dict_from_flax,
+    'UNetS2D': unet_s2d_state_dict_from_flax,
     'CUNet': unet_state_dict_from_flax,  # the same tree; the classifier has num_classes + 1 channels
     'HoverNet': hovernet_state_dict_from_flax,
     'CDNet': cdnet_state_dict_from_flax,
