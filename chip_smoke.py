@@ -108,6 +108,18 @@
    argmax + B1 (patches/s, peak memory), and each int8 conv site (the
    wrapper, torch._int_mm alone on operands of its shape, cuDNN's bf16
    convolution of the same shape, the bound).
+   Then the data layer and the eval loop (dataset_paths), on files written in
+   the MoNuSeg layout under build/dev/datasets/: UNet-S2D's held-out images as
+   a dataset through single_device_test and evaluate (bAji within 0.02 of the
+   direct batch of the same uint8 images, every device pre-eval package equal
+   to the host one); the UNet config at full width over 3 x 1000^2 tiles of
+   720 nuclei (predictions equal to direct InferenceRunner calls, B1 once per
+   image, the device and host pre-eval of each image, the loop's ms per image
+   pipelined and serial in turns, the dispatch's host time with and without a
+   spin kernel queued first and the launches and waits the profiler sees in
+   it); the recipe's train pipeline on 108 windows of 512^2 through the
+   loader (a batch equal to the mapper on the same seeds, samples/s, loader-fed
+   train steps against pre-staged ones in turns, the card's idle share).
 4. Drives the HoVer-Net eval path once through InferenceRunner at the full
    width of the CoNIC recipe (ResNetExt50 + three dense decoders, 7 classes,
    float32, seeded weights and BN statistics): 16 images of 256^2 at CoNIC
@@ -173,6 +185,7 @@ numbers, then the card line; the last line is
 Needs one CUDA card; imports nothing of the JAX package.
 """
 import argparse
+import collections
 import contextlib
 import json
 import os
@@ -1495,6 +1508,287 @@ def unet_s2d_path(args):
                                                    'int8_argmax_differing': int(flips.sum())}}}), flush=True)
 
 
+# -- phase 3d: the data layer and the eval loop ------------------------------------------
+DATA_DIR = os.path.join(ROOT, 'build', 'dev', 'datasets')  # gitignored; written anew on every run
+LOOP_HW, LOOP_TILES = 1000, 3  # the converter's w0_s0 eval images
+# MoNuSeg 2018's training set: ~21,600 nuclei in 30 images of 1000^2, ~720 per tile (nuclei_density(1000),
+# 2,288, would send every tile past the device metrics' cap of 1024 instances)
+LOOP_NUCLEI = 720
+WINDOW_HW, WINDOW_NUCLEI = 512, 189  # the converter's w512_s256 windows: 720 x (512 / 1000)^2 nuclei
+WINDOWS = 108  # 12 training images x 9 windows: 13 batches of 8 per epoch, as TRAIN_ITERS_PER_EPOCH
+LOADER_WARMUP, LOADER_TIMED = 3, 10  # loader-fed train steps of one epoch: warm-ups, then timed
+LOOP_FOREGROUND = (0.1, 0.2, 0.3, 0.4, 0.5, 0.6)  # the seeded classifier's foreground shares tried
+SPIN_CYCLES = 10 ** 9  # torch.cuda._sleep: ~0.5 s at the H100's 1.98 GHz
+S2D_AJI_TOL = 0.02  # AJI points: the dataset loop (batch 1) against the direct batch of 16
+PQ_IOU_RTOL = 1e-6  # the device PQ's float32 sum of paired IoUs against the host's float64 one
+
+
+def write_tiles(name: str, seeds, hw: int, n_inst: int):
+    """``make_nuclei`` images, uint8-quantized, in the MoNuSeg layout under
+    DATA_DIR/name; returns the dataset's keyword arguments and the data."""
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei, write_monuseg_layout
+    root = os.path.join(DATA_DIR, name)
+    data = [make_nuclei(s, hw, n_inst) for s in seeds]
+    write_monuseg_layout(root, [f'{name}_{s}' for s in seeds], [np.round(d[0] * 255) for d in data],
+                         [d[1] for d in data], [d[2] for d in data])
+    return dict(type='MoNuSegDataset', data_root=root, img_dir='', ann_dir='', split='split.txt'), data
+
+
+def packages_equal(device, host) -> bool:
+    """A device pre-eval package against the host one of the same prediction:
+    the semantic histograms and the AJI and PQ counts equal, the PQ's IoU
+    sum within PQ_IOU_RTOL."""
+    d_pq, h_pq = device['bin_pq_pre_eval_res'], host['bin_pq_pre_eval_res']
+    return (tuple(device['bin_aji_pre_eval_res']) == tuple(host['bin_aji_pre_eval_res'])
+            and tuple(d_pq[:3]) == tuple(h_pq[:3]) and abs(d_pq[3] - h_pq[3]) <= PQ_IOU_RTOL * abs(h_pq[3])
+            and all(np.array_equal(a, b) for a, b in zip(device['sem_pre_eval_res'], host['sem_pre_eval_res'])))
+
+
+def check_pre_eval_routes(label, ds, preds, cap=1024):
+    """Every prediction's device pre-eval package against its host one;
+    prints the route each image took (the device, or the host past the cap)."""
+    routes = []
+    for i, pred in enumerate(preds):
+        n = max(len(np.unique(pred['inst_pred'])) - 1, len(np.unique(ds._load_gts(i)[1])) - 1)
+        routes.append(f'{n} instances, {"device" if n <= cap else "host (cap)"}')
+        device, host = ds.pre_eval_device(pred, i, max_instances=cap, device='cuda')[0], ds.pre_eval(pred, i)[0]
+        if not packages_equal(device, host):
+            raise AssertionError(f'{label}, image {i}: device pre-eval {device} differs from host {host}')
+    print(f'{label}: every device pre-eval package equals the host one; routes {routes}', flush=True)
+
+
+def serial_test(seg, ds):
+    """The loop without the pipeline: dispatch, wait, consume, image by image."""
+    from tiseg_tpu_torch.apis.test import InferenceRunner, fetch_later
+    runner, results = InferenceRunner(seg), []
+    for i in range(len(ds)):
+        item = ds[i]
+        out = fetch_later(runner.dispatch(item['data']['img'][None], item['metas']['ori_hw']))()
+        results.extend(ds.pre_eval_device({k: v[0] for k, v in out.items()}, i, device=seg.device))
+    return results
+
+
+def dataset_paths(args):
+    """The data layer and the eval loop on the card (``single_device_test``,
+    datasets, pipelines, loader): UNet-S2D's held-out images as a dataset,
+    the main recipe's eval over 1000^2 tiles, and its train pipeline feeding
+    the train step through the loader."""
+    import shutil
+    from tiseg_tpu_torch.apis import InferenceRunner, build_train_state, single_device_test
+    from tiseg_tpu_torch.datasets import build_dataloader, build_dataset, collate, sample_seed
+    from tiseg_tpu_torch.engine import make_train_step
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
+    from tiseg_tpu_torch.utils import Config
+    from tiseg_tpu_torch.utils.fixture import load_fixture
+    from tiseg_tpu_torch.utils.metrics import pre_eval_bin_aji, pre_eval_to_bin_aji
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    print(f'datasets: host {os.cpu_count()} cores; files under {os.path.relpath(DATA_DIR, ROOT)} (MoNuSeg layout: '
+          f'.tif, _sem.png, _inst.npy, split.txt; PIL writes and reads them)', flush=True)
+
+    # part 1: UNet-S2D on the fixture's weights over its held-out images as a dataset
+    t0 = time.perf_counter()
+    s2d_cfg = Config.fromfile(os.path.join(ROOT, S2D_CONFIG))
+    kw, data = write_tiles('heldout', range(S2D_SEED0, S2D_SEED0 + S2D_HELDOUT), 256, 150)
+    ds = build_dataset(dict(kw, processes=s2d_cfg.data.test.processes))
+    sd, fpq, _ = load_fixture(device='cuda')
+    seg = s2d_segs('cuda', sd, fpq)[torch.float32]
+    seg.test_cfg['device_metrics'] = True
+    results = single_device_test(seg, ds, progress=False)
+    loop_aji = ds.evaluate(results)[0]['bAji']
+    img = torch.from_numpy(np.stack([np.round(d[0] * 255).astype(np.float32) / 255. for d in data])).cuda()
+    inst = seg.inference_and_postprocess(img)['inst_pred'].cpu().numpy()
+    direct_aji = pre_eval_to_bin_aji([pre_eval_bin_aji(inst[i], d[2]) for i, d in enumerate(data)])['Aji'] * 100
+    print(f'datasets, UNet-S2D held-out as a dataset ({S2D_HELDOUT} x 256^2 uint8, test_processes '
+          f'{[p["type"] for p in s2d_cfg.data.test.processes]}, float32, device metrics): '
+          f'evaluate bAji {loop_aji:.2f}; the direct batch of the same images {direct_aji:.3f}; PR 13 on float '
+          f'images 65.379', flush=True)
+    if abs(loop_aji - direct_aji) > S2D_AJI_TOL:
+        raise AssertionError(f'UNet-S2D dataset loop bAji {loop_aji} against the direct batch {direct_aji:.3f}')
+    preds = single_device_test(seg, ds, pre_eval=False, progress=False)
+    check_pre_eval_routes('datasets, UNet-S2D held-out', ds, preds)
+    del seg, sd, fpq
+    torch.cuda.empty_cache()
+    print(f'datasets, part 1: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # part 2: the main recipe's eval at full width over 1000^2 tiles, seeded weights
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(os.path.join(ROOT, UNET_CONFIG))
+    cfg.model.test_cfg = dict(cfg.model.test_cfg, device_postprocess=True, device_metrics=True,
+                              patch_batch=args.patch_batch)
+    kw, _ = write_tiles('w0_s0', range(args.seed + 30000, args.seed + 30000 + LOOP_TILES), LOOP_HW, LOOP_NUCLEI)
+    ds = build_dataset(dict(kw, processes=cfg.data.test.processes))
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+    # classifier bias: of the biases that put a share of view 0's pixels on the foreground side, the one whose
+    # instance count through the whole eval path comes nearest to the tiles' nuclei
+    runner = InferenceRunner(seg)
+    item = ds[0]
+    margin = seg.forward_heads(torch.from_numpy(item['data']['img'][None]).cuda())['sem'].diff(dim=-1).flatten()[::7]
+    scan = {}
+    for fg in LOOP_FOREGROUND:
+        bias = -float(torch.quantile(margin, 1 - fg))
+        with torch.no_grad():
+            seg.net.head.postprocess.bias.copy_(torch.tensor([0.0, bias]))
+        out = runner.dispatch(item['data']['img'][None], item['metas']['ori_hw'])
+        scan[fg] = (bias, len(torch.unique(out['inst_pred'])) - 1)
+    fg = min(scan, key=lambda f: abs(scan[f][1] - LOOP_NUCLEI))
+    with torch.no_grad():
+        seg.net.head.postprocess.bias.copy_(torch.tensor([0.0, scan[fg][0]]))
+    print(f'datasets, UNet seeded classifier: instances of tile 0 per foreground share of view 0 '
+          f'{ {f: n for f, (_, n) in scan.items()} }; bias {scan[fg][0]:.4f} ({fg:.0%})', flush=True)
+    del margin
+    before = (instance_postprocess_sweep.launches, instance_postprocess_sweep.strip_launches)
+    preds = single_device_test(seg, ds, pre_eval=False, progress=False)
+    launches = (instance_postprocess_sweep.launches - before[0], instance_postprocess_sweep.strip_launches - before[1])
+    if launches != (LOOP_TILES, LOOP_TILES):
+        raise AssertionError(f'UNet loop: B1 launches (all, strip route) {launches}, expected one per image')
+    for i, pred in enumerate(preds):
+        item = ds[i]
+        want = runner(item['data']['img'][None], item['metas']['ori_hw'])
+        if not (np.array_equal(pred['inst_pred'], want['inst_pred'][0])
+                and np.array_equal(pred['sem_pred'], want['sem_pred'][0])):
+            raise AssertionError(f'UNet loop, image {i}: the loop prediction differs from a direct InferenceRunner call')
+        if pred['inst_pred'].max() <= 0:
+            raise AssertionError(f'UNet loop, image {i}: no instance')
+    print(f'datasets, UNet {UNET_CONFIG} over {LOOP_TILES} x {LOOP_HW}^2 tiles ({LOOP_NUCLEI} nuclei each), test_cfg '
+          f'{dict(seg.test_cfg)}: inst_pred equal to direct InferenceRunner calls; B1 launches {launches[0]} '
+          f'(strip route), one per image', flush=True)
+    check_pre_eval_routes('datasets, UNet 1000^2', ds, preds)
+    # a host sync inside dispatch would make it wait for a spin kernel queued before it
+    spans = {}
+    for spin in (0, 0, SPIN_CYCLES):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(spin)
+        t1 = time.perf_counter()
+        runner.dispatch(item['data']['img'][None], item['metas']['ori_hw'])
+        t2 = time.perf_counter()
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        torch.cuda.synchronize()
+        spans[spin] = ((t2 - t1) * 1e3, start.elapsed_time(end))
+    # what the host does inside dispatch behind the spin kernel: the CUDA runtime calls the profiler sees
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function('dispatch'):
+            runner.dispatch(item['data']['img'][None], item['metas']['ori_hw'])
+    torch.cuda.synchronize()
+    span = next(e.time_range for e in prof.events() if e.name == 'dispatch')
+    calls = collections.Counter(e.name for e in prof.events() if span.start <= e.time_range.start <= span.end
+                                and (e.name.startswith('cuda') or e.name == 'Command Buffer Full'))
+    launches = sum(n for name, n in calls.items() if name.startswith('cudaLaunch'))
+    waits = {name: n for name, n in calls.items() if 'ynchronize' in name or 'Alloc' in name or 'Full' in name}
+    print(f'datasets, UNet dispatch: returns after {spans[0][0]:.2f} ms of a {spans[0][1]:.2f} ms image; behind a '
+          f'spin kernel of {spans[SPIN_CYCLES][1] - spans[0][1]:.2f} ms queued first, after {spans[SPIN_CYCLES][0]:.2f} '
+          f'ms; inside it (torch.profiler, behind the spin kernel) {launches} kernel launches and the calls that wait '
+          f'{waits}', flush=True)
+    loops = {'pipelined': lambda: single_device_test(seg, ds, progress=False), 'serial': lambda: serial_test(seg, ds)}
+    ms = {name: [] for name in loops}
+    for name in ('pipelined', 'serial', 'serial', 'pipelined'):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        results = loops[name]()
+        ms[name].append((time.perf_counter() - t1) * 1e3 / LOOP_TILES)
+    res = ds.evaluate(results)[0]
+    print(f'datasets, UNet loop ms per {LOOP_HW}^2 image with device metrics, in turns: pipelined '
+          f'{ms["pipelined"][0]:.2f}, {ms["pipelined"][1]:.2f}; serial {ms["serial"][0]:.2f}, {ms["serial"][1]:.2f} '
+          f'(PERF.md section 5, InferenceRunner alone: 438-463); bAji of the seeded net {res["bAji"]}', flush=True)
+    del seg, runner
+    torch.cuda.empty_cache()
+    print(f'datasets, part 2: {time.perf_counter() - t0:.1f} s', flush=True)
+
+    # part 3: the recipe's train pipeline feeding the train step through the loader
+    t0 = time.perf_counter()
+    kw, _ = write_tiles('w512_s256', range(args.seed + 40000, args.seed + 40000 + WINDOWS), WINDOW_HW, WINDOW_NUCLEI)
+    ds = build_dataset(dict(kw, processes=cfg.data.train.processes))
+    loader = build_dataloader(ds, samples_per_gpu=cfg.data.samples_per_gpu, workers_per_gpu=cfg.data.workers_per_gpu,
+                              seed=args.seed)
+    print(f'datasets, train: {len(ds)} windows of {WINDOW_HW}^2 ({WINDOW_NUCLEI} nuclei each) written in '
+          f'{time.perf_counter() - t0:.1f} s; processes {[p["type"] for p in cfg.data.train.processes]}; batches of '
+          f'{loader.batch_size}, {loader.num_workers} worker threads, {len(loader)} per epoch', flush=True)
+    t1 = time.perf_counter()
+    for i in range(8):
+        ds.sample(i, i)
+    serial_ms = (time.perf_counter() - t1) * 1e3 / 8
+    t1 = time.perf_counter()
+    batches = list(loader)
+    loader_s = time.perf_counter() - t1
+    n = sum(len(b['metas']) for b in batches)
+    idx = loader.batches()[0]
+    want = collate([ds.sample(int(i), sample_seed(args.seed, 0, int(i))) for i in idx])
+    got = batches[0]
+    same = all(np.array_equal(got[g][k], want[g][k]) and got[g][k].dtype == want[g][k].dtype
+               for g in ('data', 'label') for k in want[g]) and got['metas'] == want['metas']
+    shapes = {f'{g}/{k}': (tuple(v.shape), str(v.dtype)) for g in ('data', 'label') for k, v in got[g].items()}
+    if not (same and shapes == {'data/img': ((8, 256, 256, 3), 'float32'), 'label/sem_gt': ((8, 256, 256), 'int32'),
+                                'label/sem_gt_inner': ((8, 256, 256), 'int32'),
+                                'label/loss_weight_map': ((8, 256, 256), 'float32')}):
+        raise AssertionError(f'datasets, train: loader batch equal to the mapper on the same seeds: {same}; {shapes}')
+    print(f'datasets, train: the first loader batch equals the mapper on its indices and seeds; {shapes}; one sample '
+          f'through the pipeline {serial_ms:.1f} ms on one thread; the loader alone {n / loader_s:.1f} samples/s '
+          f'({n} samples in {loader_s:.2f} s)', flush=True)
+
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+    state = build_train_state(seg, cfg, iters_per_epoch=len(loader), seed=args.seed)
+    step = make_train_step(seg)
+    staged = [{g: {k: torch.from_numpy(v).cuda() for k, v in b[g].items()} for g in ('data', 'label')}
+              for b in batches]
+
+    def run_epoch(epoch, source):
+        """One epoch of steps; ms per timed step (host clock, one synchronize at the end) and the summed
+        CUDA-event time of the timed steps."""
+        loader.set_epoch(epoch)
+        events = []
+        it = iter(loader) if source == 'loader' else iter(staged)
+        for k in range(LOADER_WARMUP):
+            state_box[0], _ = step(state_box[0], next(it))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for k in range(LOADER_TIMED):
+            batch = next(it)
+            events.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
+            state_box[0], logs = step(state_box[0], batch)
+            events[-1][1].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        for _ in it:  # the rest of the epoch: the loader's threads end with it
+            pass
+        if not np.isfinite(float(logs['loss'])):
+            raise AssertionError(f'datasets, train: loss not finite {logs}')
+        return wall / LOADER_TIMED, sum(a.elapsed_time(b) for a, b in events) / wall
+
+    state_box = [state]
+    read = {'loader': [], 'staged': []}
+    for epoch, source in enumerate(('loader', 'staged', 'staged', 'loader')):
+        read[source].append(run_epoch(epoch + 1, source))
+    steps = state_box[0].step
+    # the card's work per step: the pre-staged steps' CUDA-event time (the host runs ahead of them); the events of a
+    # loader-fed step also span the gaps in which its enqueue waits for the interpreter lock
+    work_ms = statistics.median(ms * busy for ms, busy in read['staged'])
+    idle = [1 - work_ms / ms for ms, _ in read['loader']]
+    print(f'datasets, train steps ({steps} in all, {LOADER_TIMED} timed per epoch after {LOADER_WARMUP}, in turns): '
+          f'fed by the loader {read["loader"][0][0]:.2f}, {read["loader"][1][0]:.2f} ms per step '
+          f'({cfg.data.samples_per_gpu * 1e3 / read["loader"][0][0]:.1f}, '
+          f'{cfg.data.samples_per_gpu * 1e3 / read["loader"][1][0]:.1f} images/s), the card idle {idle[0]:.1%}, '
+          f'{idle[1]:.1%} of the wall time ({work_ms:.2f} ms of work per step; the CUDA events of the loader-fed steps '
+          f'span {read["loader"][0][1]:.1%}, {read["loader"][1][1]:.1%} of it); pre-staged on the card '
+          f'{read["staged"][0][0]:.2f}, {read["staged"][1][0]:.2f} ms, events {read["staged"][0][1]:.1%}, '
+          f'{read["staged"][1][1]:.1%} (PR 12: 71.42 ms, 112 images/s)', flush=True)
+    if steps < 10 + 2 * (LOADER_WARMUP + LOADER_TIMED):
+        raise AssertionError(f'datasets, train: {steps} steps')
+    print(json.dumps({'datasets': {'s2d_loop_bAji': loop_aji, 's2d_direct_aji': direct_aji,
+                                   'unet_loop_ms': ms, 'loader_samples_per_s': n / loader_s,
+                                   'pipeline_ms_per_sample_one_thread': serial_ms,
+                                   'train_ms_event_share': read, 'train_work_ms': work_ms, 'train_idle': idle,
+                                   'host_cores': os.cpu_count()}}), flush=True)
+    print(f'datasets, part 3: {time.perf_counter() - t0:.1f} s', flush=True)
+
+
 def time_pp_main_path(model: str, sem_pred: torch.Tensor, radius: int, num_classes: int, launches: int):
     """B1 or B7 on a main path's semantic planes: the route, the earlier
     global chain and the route again, each the median of 25 calls; the
@@ -2374,6 +2668,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     unet_s2d_path(args)
     print(f'UNet-S2D phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dataset_paths(args)
+    print(f'datasets phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     stats.update(hover_main_path(args))

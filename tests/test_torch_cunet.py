@@ -17,7 +17,7 @@ from tiseg_tpu_torch.apis import InferenceRunner
 from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
 from tiseg_tpu_torch.models import build_segmentor
 from tiseg_tpu_torch.utils.weights import CARRIERS, state_dict_from_flax
-from torch_port_utils import random_variables, standardize_head
+from torch_port_utils import jax_fused_and_postprocessed, random_variables, standardize_head
 
 HW = 96
 TEST_CFG = dict(mode='split', crop_size=(64, 64), overlap_size=(16, 16), rotate_degrees=[0, 90],
@@ -64,9 +64,8 @@ def slice_run(setup):
     port_out = InferenceRunner(port)(img, (HW, HW))
     jseg = build_jax_segmentor(dict(MODEL, train_cfg=dict(), test_cfg=TEST_CFG))
     jvars = jax.tree_util.tree_map(jnp.asarray, variables)
-    jax_fused = np.asarray(jax.jit(jseg.inference)(jvars, jnp.asarray(img))['sem'])
-    jax_out = jax.jit(jseg.inference_and_postprocess)(jvars, jnp.asarray(img))
-    return port, port_fused, port_out, jax_fused, {k: np.asarray(v) for k, v in jax_out.items()}
+    jax_fused, jax_out = jax_fused_and_postprocessed(jseg, jvars, img)
+    return port, port_fused, port_out, jax_fused['sem'], jax_out
 
 
 def test_slice_fused_maps_match(slice_run):

@@ -1,6 +1,6 @@
 """The port's image reader and BatchNorm against the JAX package.
 
-- ``tiseg_tpu_torch.datasets.transforms.read_image`` equals
+- ``tiseg_tpu_torch.datasets.mapper.read_image`` equals
   ``tiseg_tpu.datasets.mapper.read_image`` on a palette label PNG written as
   the dataset converters write it, on GlaS's single-channel annotation BMPs
   and on the committed RGB images (tif, png, bmp, jpg): bit for bit.
@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from tiseg_tpu.datasets.mapper import read_image as jax_read_image
-from tiseg_tpu_torch.datasets.transforms import read_image
+from tiseg_tpu_torch.datasets.mapper import read_image
 from tiseg_tpu_torch.models import UNetNet, build_segmentor
 from tiseg_tpu_torch.models.nn import BatchNorm2d
 from tools.convert_dataset._common import SEM_PALETTE, pillow_save

@@ -20,7 +20,7 @@ def test_inference_cli_runs_a_hovernet_config(tmp_path, capsys):
     """python -m tiseg_tpu_torch.tools.inference on a config derived from the
     CoNIC one (this test's windows and views, to keep the CPU time small),
     with flattened flax HoVer-Net weights from an .npz."""
-    from tiseg_tpu_torch.datasets.transforms import Normalize
+    from tiseg_tpu_torch.datasets.ops.transforms import Normalize
     from tiseg_tpu_torch.tools.inference import main
     from tiseg_tpu_torch.utils import Config
     img = hovernet_slice_input()

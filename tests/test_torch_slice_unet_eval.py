@@ -26,7 +26,7 @@ from tiseg_tpu_torch.apis import InferenceRunner
 from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
 from tiseg_tpu_torch.models import build_segmentor
 from tiseg_tpu_torch.utils.weights import unet_state_dict_from_flax
-from torch_port_utils import random_unet_variables
+from torch_port_utils import jax_fused_and_postprocessed, random_unet_variables
 
 HW = 96
 TEST_CFG = dict(mode='split', radius=1, crop_size=(64, 64), overlap_size=(16, 16), rotate_degrees=[0, 90],
@@ -56,9 +56,8 @@ def jax_run():
     variables = _fg_variables(4, img)
     jseg = build_jax_segmentor(dict(type='UNet', num_classes=2, train_cfg=dict(), test_cfg=TEST_CFG))
     jvars = jax.tree_util.tree_map(jnp.asarray, variables)
-    jax_fused = np.asarray(jax.jit(jseg.inference)(jvars, jnp.asarray(img))['sem'])
-    jax_out = jax.jit(jseg.inference_and_postprocess)(jvars, jnp.asarray(img))
-    return img, variables, jax_fused, {k: np.asarray(v) for k, v in jax_out.items()}
+    jax_fused, jax_out = jax_fused_and_postprocessed(jseg, jvars, img)
+    return img, variables, jax_fused['sem'], jax_out
 
 
 @pytest.fixture(scope='module', params=[True, False], ids=['fast_eval', 'unfolded'])

@@ -22,6 +22,7 @@ from tiseg_tpu_torch.apis import InferenceRunner
 from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
 from tiseg_tpu_torch.ops.fused_decode import fused_decode0_cls
 from test_torch_slice_unet_eval import HW, TEST_CFG, _fg_variables, _port
+from torch_port_utils import jax_fused_and_postprocessed
 
 
 @pytest.fixture(scope='module')
@@ -45,9 +46,8 @@ def fused_tail_run(setup):
         port_out = InferenceRunner(port)(img, (HW, HW))
         jseg = build_jax_segmentor(dict(type='UNet', num_classes=2, train_cfg=dict(), test_cfg=TEST_CFG))
         jvars = jax.tree_util.tree_map(jnp.asarray, variables)
-        jax_fused = np.asarray(jax.jit(jseg.inference)(jvars, jnp.asarray(img))['sem'])
-        jax_out = jax.jit(jseg.inference_and_postprocess)(jvars, jnp.asarray(img))
-        jax_out = {k: np.asarray(v) for k, v in jax_out.items()}
+        jax_fused, jax_out = jax_fused_and_postprocessed(jseg, jvars, img)
+        jax_fused = jax_fused['sem']
     finally:
         mp.undo()
     return port_fused, port_out, jax_fused, jax_out, n_calls

@@ -71,9 +71,12 @@ def _vgg_conv_biases(net):
     return [m.bias for m in net.backbone.modules() if isinstance(m, torch.nn.Conv2d)]
 
 
-def test_loss_logs_and_gradients_match_jax(start):
-    variables, seg = start
-    batch = _batch(100)
+@pytest.fixture(scope='module')
+def jax_float64_gradients():
+    """The JAX package's float64 gradients, logs and BN statistics of one
+    train forward on ``_batch(100)`` from the seed-11 weights: the reference
+    of the two gradient tests, computed once."""
+    variables = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), random_unet_variables(seed=11))
     with jax.enable_x64(True):
         jseg = JaxUNet(2, dtype=jnp.float64)
 
@@ -83,9 +86,14 @@ def test_loss_logs_and_gradients_match_jax(start):
 
         v = jax.tree_util.tree_map(jnp.asarray, variables)
         grads, (logs, new_state) = jax.jit(jax.grad(loss_fn, has_aux=True))(v['params'], v['batch_stats'],
-                                                                            _jax_batch(batch))
-        grads, logs, new_state = jax.tree_util.tree_map(np.asarray, (grads, logs, new_state))
+                                                                            _jax_batch(_batch(100)))
+        return jax.tree_util.tree_map(np.asarray, (grads, logs, new_state))
 
+
+def test_loss_logs_and_gradients_match_jax(start, jax_float64_gradients):
+    variables, seg = start
+    batch = _batch(100)
+    grads, logs, new_state = jax_float64_gradients
     net = seg.net
     total, got_logs = seg.loss(batch)
     total.backward()
@@ -110,7 +118,7 @@ def test_loss_logs_and_gradients_match_jax(start):
             np.testing.assert_allclose(b.numpy(), want_grads[name].numpy(), rtol=1e-9, err_msg=name)
 
 
-def test_float32_gradients_are_as_close_to_float64_as_jax(record_property):
+def test_float32_gradients_are_as_close_to_float64_as_jax(record_property, jax_float64_gradients):
     """In float32 the seeded net's gradients carry ~1% of rounding noise
     (the deep BN leaves at 4 x 4 pixels). Against the JAX float64 gradient,
     each leaf of the port's float32 gradient is within 2 x the JAX float32
@@ -129,9 +137,7 @@ def test_float32_gradients_are_as_close_to_float64_as_jax(record_property):
         return _carry64({'params': jax.tree_util.tree_map(np.asarray, g), 'batch_stats': variables['batch_stats']})
 
     j32 = jax_grads(JaxUNet(2), jax.tree_util.tree_map(jnp.asarray, variables), batch32)
-    with jax.enable_x64(True):
-        j64 = jax_grads(JaxUNet(2, dtype=jnp.float64),
-                        jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a, np.float64)), variables), batch)
+    j64 = _carry64({'params': jax_float64_gradients[0], 'batch_stats': variables['batch_stats']})
     seg = UNet(2, test_cfg=dict(mode='whole'), device='cpu')
     seg.net.load_state_dict(weights.unet_state_dict_from_flax(variables))
     total, _ = seg.loss(batch32)

@@ -105,3 +105,17 @@ def stencil_plane(dtype, shape, seed=0):
     if dtype == np.int32:
         return rng.integers(-50, 50, shape).astype(np.int32)
     return rng.standard_normal(shape).astype(np.float32) - 0.5
+
+
+# -- a mini dataset in the MoNuSeg file layout --------------------------------------------------
+def mini_dataset(root, n=2, hw=64, seed=50, n_inst=None):
+    """``n`` uint8 nuclei images of ``hw``^2 (``make_nuclei``, MoNuSeg
+    density unless ``n_inst``) with their semantic and instance maps, written
+    under ``root`` as ``img_<i>.tif``, ``img_<i>_sem.png``,
+    ``img_<i>_inst.npy`` and the split file ``split.txt``. Returns the
+    ``MoNuSegDataset`` keyword arguments that read them (add ``processes``)."""
+    from tiseg_tpu_torch.datasets.synthetic import nuclei_density, write_monuseg_layout
+    data = [make_nuclei(seed + i, hw, nuclei_density(hw) if n_inst is None else n_inst) for i in range(n)]
+    write_monuseg_layout(str(root), [f'img_{i}' for i in range(n)], [np.round(d[0] * 255) for d in data],
+                         [d[1] for d in data], [d[2] for d in data])
+    return dict(type='MoNuSegDataset', data_root=str(root), img_dir='', ann_dir='', split='split.txt')

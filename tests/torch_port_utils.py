@@ -5,7 +5,7 @@ kernels."""
 import jax
 import numpy as np
 
-from torch_cases import mt_planes
+from torch_cases import mini_dataset, mt_planes  # noqa: F401 (mini_dataset: the shared writer)
 
 
 def _random_tree(shapes, seed: int):
@@ -367,3 +367,12 @@ def label_blocks(key, blocks, uf):
             if v and key[y0 - 1, x] == v and not (x > 0 and key[y0, x - 1] == v and key[y0 - 1, x - 1] == v):
                 uf.unite(piece[y0, x], piece[y0 - 1, x])
     return piece
+
+
+def jax_fused_and_postprocessed(jseg, jvars, img):
+    """The JAX segmentor's fused maps (``inference``) and its
+    ``inference_and_postprocess`` outputs, as numpy, from one jitted program:
+    XLA computes the forward they share once, and the net compiles once."""
+    fused, out = jax.jit(lambda v, im: (jseg.inference(v, im), jseg.inference_and_postprocess(v, im)))(
+        jvars, jax.numpy.asarray(img))
+    return {k: np.asarray(v) for k, v in fused.items()}, {k: np.asarray(v) for k, v in out.items()}

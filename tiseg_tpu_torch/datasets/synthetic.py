@@ -235,3 +235,19 @@ def multiclass_nuclei(seed: int, hw: int = 256, n_inst: int = CONIC_NUCLEI_PER_P
     for dy, dx in ((0, 1), (2, 1), (1, 0), (1, 2)):
         inner &= pad[dy:dy + hw, dx:dx + hw] == inst
     return sem, inner.astype(np.int32)
+
+
+def write_monuseg_layout(root: str, names, imgs, sems, insts, split: str = 'split.txt') -> None:
+    """Write each sample in the MoNuSeg file layout that ``MoNuSegDataset``
+    reads: ``<name>.tif`` (uint8 RGB), ``<name>_sem.png``, ``<name>_inst.npy``
+    under ``root``, and the names one per line in ``root/split``."""
+    import os
+
+    from PIL import Image
+    os.makedirs(root, exist_ok=True)
+    for name, img, sem, inst in zip(names, imgs, sems, insts):
+        Image.fromarray(np.asarray(img, np.uint8)).save(os.path.join(root, name + '.tif'))
+        Image.fromarray(np.asarray(sem, np.uint8)).save(os.path.join(root, name + '_sem.png'))
+        np.save(os.path.join(root, name + '_inst.npy'), np.asarray(inst, np.int32))
+    with open(os.path.join(root, split), 'w') as f:
+        f.write(''.join(f'{n}\n' for n in names))

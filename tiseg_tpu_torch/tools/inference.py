@@ -35,7 +35,8 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from ..apis import InferenceRunner
-    from ..datasets.transforms import Normalize, read_image
+    from ..datasets.mapper import read_image
+    from ..datasets.ops.transforms import Normalize
     from ..models import build_segmentor
     from ..utils import Config
 

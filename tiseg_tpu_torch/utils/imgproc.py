@@ -1,0 +1,171 @@
+"""The image operations of the train pipeline without cv2: numpy and scipy
+twins of the cv2 calls that ``tiseg_tpu/datasets/ops/transforms.py`` makes.
+
+Each function reproduces what cv2 (4.11 and later, built with AVX2) computes
+for the dtype the pipeline gives it, so that the port's augmentations equal
+the JAX package's:
+
+- :func:`warp_affine`: ``cv2.warpAffine`` with ``BORDER_CONSTANT`` 0. cv2
+  inverts the matrix in float64, casts it to float32, and computes each
+  source coordinate as ``fma(M0, x, M1 * y + M2)`` in float32; nearest
+  rounds half to even, linear takes the floor and interpolates in float32
+  with fused multiply-adds, rounding to uint8 half to even. A tap outside
+  the image reads 0.
+- :func:`box_blur`: ``cv2.blur`` on uint8, the box sum rounded to nearest
+  (k^2 is odd, so there are no ties), ``BORDER_REFLECT_101``.
+- :func:`gaussian_blur`: ``cv2.GaussianBlur(img, (k, k), 0)`` on uint8 for
+  k in {3, 5, 7}: cv2's fixed tables for sigma 0 (exact in 8 fractional
+  bits), summed exactly and rounded half up, ``BORDER_REFLECT_101``.
+- :func:`median_blur`: ``cv2.medianBlur``, per-channel median,
+  ``BORDER_REPLICATE``.
+- :func:`rgb2hsv`, :func:`hsv2rgb`: ``cv2.cvtColor`` RGB2HSV / HSV2RGB on
+  uint8, H in [0, 180). RGB2HSV is integer arithmetic with cv2's division
+  tables; HSV2RGB is float32 arithmetic, truncated to uint8 on the pixels
+  cv2's vector code converts and rounded on the rest of the row.
+
+``tests/test_torch_imgproc.py`` holds each one against cv2.
+"""
+from __future__ import annotations
+
+import numpy as np
+from scipy import ndimage
+
+_F32, _F64 = np.float32, np.float64
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 ``a * b + c`` with one rounding (the product of two float32
+    values is exact in float64)."""
+    return (np.asarray(a, _F64) * np.asarray(b, _F64) + np.asarray(c, _F64)).astype(_F32)
+
+
+def _inverse_affine(M) -> list:
+    """cv2's inversion of a 2 x 3 affine matrix, in float64 and its order."""
+    m = [float(v) for v in np.asarray(M, _F64).ravel()]
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1. / d if d != 0 else 0.
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[4] = a11, a22
+    m[1] *= -d
+    m[3] *= -d
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return m
+
+
+def _gather(src: np.ndarray, sy: np.ndarray, sx: np.ndarray) -> np.ndarray:
+    """``src[sy, sx]``, 0 where the tap lies outside ``src``: a tap outside
+    is clamped onto a border of zeros around it."""
+    h, w = src.shape[:2]
+    padded = np.pad(src, [(1, 1), (1, 1)] + [(0, 0)] * (src.ndim - 2)).reshape((h + 2) * (w + 2), *src.shape[2:])
+    return np.take(padded, (np.clip(sy, -1, h) + 1) * (w + 2) + np.clip(sx, -1, w) + 1, axis=0)
+
+
+def warp_affine(src: np.ndarray, M, nearest: bool = False) -> np.ndarray:
+    """``cv2.warpAffine(src, M, (w, h), flags=INTER_LINEAR or INTER_NEAREST,
+    borderValue=0)`` of an (H, W) or (H, W, C) image: uint8 for linear,
+    any dtype for nearest (the pipeline warps its labels as float32)."""
+    h, w = src.shape[:2]
+    m = [_F32(v) for v in _inverse_affine(M)]
+    ys, xs = np.mgrid[:h, :w].astype(_F32)
+    sx = _fma32(m[0], xs, m[1] * ys + m[2])
+    sy = _fma32(m[3], xs, m[4] * ys + m[5])
+    if nearest:
+        return _gather(src, np.rint(sy).astype(np.int64), np.rint(sx).astype(np.int64)).astype(src.dtype)
+    if src.dtype != np.uint8:
+        raise TypeError(f'linear warp_affine takes uint8 images, got {src.dtype}')
+    ix, iy = np.floor(sx), np.floor(sy)
+    a, b = sx - ix, sy - iy
+    ix, iy = ix.astype(np.int64), iy.astype(np.int64)
+    if src.ndim == 3:
+        a, b = a[..., None], b[..., None]
+    p00, p01 = _gather(src, iy, ix).astype(_F32), _gather(src, iy, ix + 1).astype(_F32)
+    p10, p11 = _gather(src, iy + 1, ix).astype(_F32), _gather(src, iy + 1, ix + 1).astype(_F32)
+    v0 = _fma32(a, p01 - p00, p00)
+    v1 = _fma32(a, p11 - p10, p10)
+    return np.clip(np.rint(_fma32(b, v1 - v0, v0)), 0, 255).astype(np.uint8)
+
+
+def _reflect101(img: np.ndarray, r: int) -> np.ndarray:
+    return np.pad(img, [(r, r), (r, r)] + [(0, 0)] * (img.ndim - 2), mode='reflect')
+
+
+def box_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.blur(img, (k, k))`` of a uint8 image, k odd."""
+    h, w = img.shape[:2]
+    c = _reflect101(img.astype(np.int64), k // 2).cumsum(0).cumsum(1)
+    c = np.pad(c, [(1, 0), (1, 0)] + [(0, 0)] * (img.ndim - 2))
+    s = c[k:k + h, k:k + w] - c[:h, k:k + w] - c[k:k + h, :w] + c[:h, :w]
+    d = k * k
+    return ((2 * s + d) // (2 * d)).astype(np.uint8)
+
+
+# cv2's kernels for sigma 0 (getGaussianKernelBitExact), in 1/256
+_GAUSS_TABLES = {3: (64, 128, 64), 5: (16, 64, 96, 64, 16), 7: (8, 28, 56, 72, 56, 28, 8)}
+
+
+def gaussian_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (k, k), 0)`` of a uint8 image, k in {3, 5, 7}."""
+    if k not in _GAUSS_TABLES:
+        raise ValueError(f'gaussian_blur has the cv2 tables of k in {sorted(_GAUSS_TABLES)}, not {k}')
+    h, w = img.shape[:2]
+    taps = _GAUSS_TABLES[k]
+    p = _reflect101(img.astype(np.int64), k // 2)
+    rows = sum(t * p[:, j:j + w] for j, t in enumerate(taps))
+    out = sum(t * rows[i:i + h] for i, t in enumerate(taps))
+    return ((out + (1 << 15)) >> 16).astype(np.uint8)
+
+
+def median_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """``cv2.medianBlur(img, k)`` of a uint8 image."""
+    if img.ndim == 2:
+        return ndimage.median_filter(img, size=k, mode='nearest')
+    return np.stack([ndimage.median_filter(img[..., c], size=k, mode='nearest') for c in range(img.shape[2])], -1)
+
+
+_HSV_SHIFT = 12
+
+
+def _hsv_tables():
+    i = np.arange(1, 256, dtype=_F64)
+    sdiv, hdiv = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    sdiv[1:] = np.rint((255 << _HSV_SHIFT) / i)
+    hdiv[1:] = np.rint((180 << _HSV_SHIFT) / (6. * i))
+    return sdiv, hdiv
+
+
+_SDIV, _HDIV = _hsv_tables()
+
+
+def rgb2hsv(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2HSV)`` of a uint8 (H, W, 3) image."""
+    r, g, b = (img[..., c].astype(np.int64) for c in range(3))
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    s = (diff * _SDIV[v] + (1 << (_HSV_SHIFT - 1))) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + (1 << (_HSV_SHIFT - 1))) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+# (b, g, r) columns of (v, v(1-s), v(1-sh), v(1-s(1-h))) per sector of the hue
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+_VECTOR_PIXELS = 32  # pixels per step of cv2's AVX2 loop, which truncates; the rest of a row rounds
+
+
+def hsv2rgb(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_HSV2RGB)`` of a uint8 (H, W, 3) image."""
+    one = _F32(1.)
+    h = img[..., 0].astype(_F32) * (_F32(6.) / _F32(180.))
+    s = img[..., 1].astype(_F32) * _F32(1. / 255.)
+    v = img[..., 2].astype(_F32) * _F32(1. / 255.)
+    sector = np.floor(h)
+    h = h - sector
+    tab = np.stack([v, v * (one - s), v * _fma32(-s, h, one), v * _fma32(-s, one - h, one)], -1)
+    bgr = np.take_along_axis(tab, _SECTORS[sector.astype(np.int64) % 6], -1) * _F32(255.)
+    w = img.shape[1]
+    vector = (np.arange(w) < w // _VECTOR_PIXELS * _VECTOR_PIXELS)[:, None]
+    rgb = np.where(vector, np.floor(bgr[..., ::-1]), np.rint(bgr[..., ::-1]))
+    return np.clip(rgb, 0, 255).astype(np.uint8)

@@ -1,13 +1,22 @@
-"""Host-side (numpy/scipy) morphology for the host instance post-processor.
+"""Host-side (numpy/scipy) morphology for the host instance post-processor
+and the label makers.
 
 A copy of the subset of ``tiseg_tpu/utils/morphology.py`` that
-``models.segmentors.unet.instance_postprocess`` needs, with skimage's
-semantics (reference call site: tiseg/models/segmentors/unet.py:71-93).
+``models.segmentors.unet.instance_postprocess`` and ``datasets/`` need, with
+skimage's semantics (reference call sites: tiseg/models/segmentors/unet.py:71-93,
+tiseg/datasets/ops/unet_map.py).
 """
 from __future__ import annotations
 
 import numpy as np
 from scipy import ndimage
+
+
+def diamond(radius: int) -> np.ndarray:
+    """L1 ball: skimage.morphology.diamond."""
+    L = np.arange(-radius, radius + 1)
+    i, j = np.meshgrid(L, L, indexing='ij')
+    return (np.abs(i) + np.abs(j) <= radius).astype(np.uint8)
 
 
 def disk(radius: int) -> np.ndarray:
@@ -22,6 +31,27 @@ def dilation(image: np.ndarray, footprint: np.ndarray) -> np.ndarray:
     if image.dtype == bool:
         return ndimage.binary_dilation(image, structure=footprint.astype(bool))
     return ndimage.grey_dilation(image, footprint=footprint.astype(bool))
+
+
+def square(width: int) -> np.ndarray:
+    return np.ones((width, width), dtype=np.uint8)
+
+
+def erosion(image: np.ndarray, footprint: np.ndarray) -> np.ndarray:
+    """Grayscale (min) erosion, skimage.morphology.erosion semantics: the
+    border counts as the dtype's maximum."""
+    if image.dtype == bool:
+        return ndimage.binary_erosion(image, structure=footprint.astype(bool), border_value=1)
+    return ndimage.grey_erosion(image, footprint=footprint.astype(bool), mode='constant',
+                                cval=_dtype_max(image.dtype))
+
+
+def _dtype_max(dtype):
+    if np.issubdtype(dtype, np.integer):
+        return np.iinfo(dtype).max
+    if np.issubdtype(dtype, np.floating):
+        return np.finfo(dtype).max
+    return 1
 
 
 def binary_fill_holes(mask: np.ndarray) -> np.ndarray:
@@ -40,14 +70,18 @@ def label(mask: np.ndarray, connectivity: int = 2, return_num: bool = False):
     if mask.dtype == bool or len(np.unique(mask[mask != 0])) <= 1:
         lab, num = ndimage.label(mask != 0, structure=structure)
     else:
-        # distinct non-zero values must not merge across value boundaries
+        # distinct non-zero values must not merge across value boundaries: each
+        # value labelled on its bounding box, in value order (a box keeps the
+        # raster order of its components, so the ids are the whole plane's)
         lab = np.zeros(mask.shape, dtype=np.int32)
         num = 0
-        for v in np.unique(mask):
-            if v == 0:
-                continue
-            sub, n = ndimage.label(mask == v, structure=structure)
-            lab[sub > 0] = sub[sub > 0] + num
+        values = np.unique(mask)
+        values = values[values != 0]
+        dense = np.searchsorted(values, mask) + 1
+        dense[mask == 0] = 0
+        for v, box in zip(values, ndimage.find_objects(dense, max_label=len(values))):
+            sub, n = ndimage.label(mask[box] == v, structure=structure)
+            lab[box][sub > 0] = sub[sub > 0] + num
             num += n
     lab = lab.astype(np.int32)
     if return_num:
@@ -74,3 +108,7 @@ def remove_small_objects(ar: np.ndarray, min_size: int = 64, connectivity: int =
     too_small = component_sizes < min_size
     out[too_small[ccs]] = 0
     return out
+
+
+def distance_transform_edt(mask: np.ndarray) -> np.ndarray:
+    return ndimage.distance_transform_edt(mask)
