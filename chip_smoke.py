@@ -120,6 +120,18 @@
    it); the recipe's train pipeline on 108 windows of 512^2 through the
    loader (a batch equal to the mapper on the same seeds, samples/s, loader-fed
    train steps against pre-staged ones in turns, the card's idle share).
+   Then the training loop and its CLIs (train_cli_path): the unchanged UNet recipe
+   through tiseg_tpu_torch.tools.train on 24 windows of 512^2 (3 iterations
+   per epoch) with 2 val tiles of 1000^2, two epochs with the eval hook after
+   each (B1 once per val image, strip route), a checkpoint per epoch with
+   max_keep 1 and the best by AJI; the LR of every logged step against
+   build_lr_schedule; auto-resume for a third epoch (the restored net and
+   optimizer state equal to the checkpoint bit for bit, step 9); best.pt
+   scored by tools/test.py equal to single_device_test + evaluate on the
+   same weights; ms per iteration and per epoch, the card's idle share per
+   epoch, the eval hook's ms per image, checkpoint save and load ms and MB;
+   the loader on the C++ label maps against their numpy plain versions in
+   turns (samples/s from 8 threads, ms per sample on one).
 4. Drives the HoVer-Net eval path once through InferenceRunner at the full
    width of the CoNIC recipe (ResNetExt50 + three dense decoders, 7 classes,
    float32, seeded weights and BN statistics): 16 images of 256^2 at CoNIC
@@ -1789,6 +1801,256 @@ def dataset_paths(args):
     print(f'datasets, part 3: {time.perf_counter() - t0:.1f} s', flush=True)
 
 
+CLI_WINDOWS, CLI_VAL_TILES = 24, 2  # 3 batches of 8 per epoch; the eval hook's images
+CLI_EPOCHS, CLI_RESUMED_EPOCHS = 2, 3  # the first run, then the resumed one
+CLI_STAGED_TIMED = 5  # pre-staged train steps timed for the card's work per step
+B1_COUNTERS = ('launches', 'vectorized_launches', 'cluster_launches', 'strip_launches', 'global_launches')
+SQ_PQ_TOL = 0.01  # the PQ's float32 sum of paired IoUs, summed in another order: one rounding step of the table
+
+
+@contextlib.contextmanager
+def plain_label_maps():
+    """The recipe's label maps on their numpy plain versions in place of the C++ calls."""
+    from tiseg_tpu_torch.datasets.ops import label_maps
+    from tiseg_tpu_torch.datasets.utils import instance
+    swaps = [(label_maps, 'fix_instance', instance.fix_instance_plain),
+             (label_maps, 'instance_boxes', label_maps.instance_boxes_plain),
+             (label_maps.UNetLabelMake, '_remove_1px_boundary', label_maps.UNetLabelMake._remove_1px_boundary_plain),
+             (label_maps.UNetLabelMake, '_get_weight_map', label_maps.UNetLabelMake._get_weight_map_plain)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]
+    for obj, name, value in swaps:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def zero_b1_counters():
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
+    for name in B1_COUNTERS:
+        setattr(instance_postprocess_sweep, name, 0)
+
+
+def b1_counts() -> dict:
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
+    return {name: getattr(instance_postprocess_sweep, name) for name in B1_COUNTERS}
+
+
+def train_cli_path(args):
+    """The MoNuSeg UNet recipe through the port's train and test CLIs on the card: two epochs with the eval hook,
+    a checkpoint and the best; auto-resume for a third epoch; the best checkpoint scored by tools/test.py against
+    a direct evaluation; the loader on the C++ label maps against their numpy plain versions."""
+    import shutil
+    from tiseg_tpu_torch.apis import build_train_state, single_device_test
+    from tiseg_tpu_torch.datasets import build_dataloader, build_dataset
+    from tiseg_tpu_torch.engine import CheckpointManager, build_lr_schedule, make_train_step
+    from tiseg_tpu_torch.engine import runner as runner_mod
+    from tiseg_tpu_torch.engine.checkpoint import load_net_state
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.tools import test as test_cli, train as train_cli
+    from tiseg_tpu_torch.utils import Config, JsonlLogger
+
+    t0 = time.perf_counter()
+    train_kw, _ = write_tiles('cli_w512_s256', range(args.seed + 60000, args.seed + 60000 + CLI_WINDOWS), WINDOW_HW,
+                              WINDOW_NUCLEI)
+    val_kw, _ = write_tiles('cli_w0_s0', range(args.seed + 61000, args.seed + 61000 + CLI_VAL_TILES), LOOP_HW,
+                            LOOP_NUCLEI)
+    work = os.path.join(ROOT, 'build', 'dev', 'train_cli')
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = Config.fromfile(os.path.join(ROOT, UNET_CONFIG))
+    test_cfg = ['model.test_cfg.device_postprocess=True', 'model.test_cfg.device_metrics=True',
+                f'model.test_cfg.patch_batch={args.patch_batch}']
+    data = [f'data.{split}.{k}={kw[k]}' for split, kw in (('train', train_kw), ('val', val_kw))
+            for k in ('data_root', 'img_dir', 'ann_dir', 'split')]
+    # log_config.interval=1: a train record per iteration (the recipe's 10 is more than an epoch here)
+    hooks = ['evaluation.interval=1', 'checkpoint_config.interval=1', 'checkpoint_config.max_keep_ckpts=1',
+             'log_config.interval=1']
+    print(f'train CLI: {CLI_WINDOWS} windows of {WINDOW_HW}^2 ({WINDOW_NUCLEI} nuclei) and {CLI_VAL_TILES} val tiles '
+          f'of {LOOP_HW}^2 ({LOOP_NUCLEI} nuclei) written in {time.perf_counter() - t0:.1f} s', flush=True)
+
+    val_ds = build_dataset(dict(val_kw, processes=cfg.data.test.processes), default_args=dict(test_mode=True))
+    model = dict(cfg.model, test_cfg=dict(cfg.model.test_cfg, device_postprocess=True, device_metrics=True,
+                                          patch_batch=args.patch_batch))
+
+    # timers on the runner's hooks and the checkpoint manager (wrapped for this phase only)
+    spans = collections.defaultdict(list)
+    restored = {}
+
+    def timed(owner, name, label, after=None):
+        inner = getattr(owner, name)
+
+        def call(self, *a, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = inner(self, *a, **k)
+            torch.cuda.synchronize()
+            spans[label].append((time.perf_counter() - t1) * 1e3)
+            if after is not None:
+                after(self, out)
+            return out
+        return owner, name, inner, call
+
+    def keep_restored(runner, _):
+        sd = runner.state.net.state_dict()
+        restored['net'] = {k: v.detach().clone() for k, v in sd.items()}
+        opt = runner.state.tx.state_dict()  # its moments are the live tensors, which the next step replaces
+        restored['optimizer'] = dict(opt, state={i: {k: v.clone() if torch.is_tensor(v) else v for k, v in leaves.items()}
+                                                 for i, leaves in opt['state'].items()})
+        restored['step'] = runner.state.step
+        restored['start_epoch'] = runner.start_epoch
+
+    wraps = [timed(runner_mod.EpochBasedRunner, 'evaluate', 'eval_hook'),
+             timed(CheckpointManager, 'save', 'checkpoint_save'), timed(CheckpointManager, 'save_best', 'best_save'),
+             timed(CheckpointManager, 'restore', 'checkpoint_restore'),
+             timed(runner_mod.EpochBasedRunner, 'resume', 'resume', keep_restored)]
+    for owner, name, _, call in wraps:
+        setattr(owner, name, call)
+    argv = [UNET_CONFIG, '--work-dir', work, '--seed', str(args.seed), '--options', *data, *hooks, *test_cfg]
+    try:
+        # first run: two epochs
+        zero_b1_counters()
+        t1 = time.perf_counter()
+        state = train_cli.main(argv + [f'runner.max_epochs={CLI_EPOCHS}'])
+        torch.cuda.synchronize()
+        run1_s = time.perf_counter() - t1
+        b1_first = b1_counts()
+        ckpt_dir = os.path.join(work, 'checkpoints')
+        files = sorted(os.listdir(ckpt_dir))
+        saved = torch.load(os.path.join(ckpt_dir, f'{state.step}.pt'), map_location='cpu', weights_only=True)
+        records = JsonlLogger(os.path.join(work, 'log.jsonl')).read()
+        # the resumed run: a third epoch
+        zero_b1_counters()
+        t1 = time.perf_counter()
+        resumed = train_cli.main(argv + [f'runner.max_epochs={CLI_RESUMED_EPOCHS}', '--resume-from', 'auto'])
+        torch.cuda.synchronize()
+        run2_s = time.perf_counter() - t1
+        b1_resumed = b1_counts()
+    finally:
+        for owner, name, inner, _ in wraps:
+            setattr(owner, name, inner)
+
+    iters = len(build_dataloader(build_dataset(dict(train_kw, processes=cfg.data.train.processes)),
+                                 cfg.data.samples_per_gpu, 0, drop_last=True))
+    train = [r for r in records if r['mode'] == 'train']
+    val = [r for r in records if r['mode'] == 'val']
+    schedule = build_lr_schedule(cfg.lr_config, cfg.optimizer['lr'], iters, iters * CLI_EPOCHS)
+    want_lrs = [schedule(s) for s in range(1, iters * CLI_EPOCHS + 1)]
+    ok = (state.step == iters * CLI_EPOCHS == 6 and len(train) == 6 and [r['lr'] for r in train] == want_lrs
+          and all(np.isfinite(r['loss']) for r in train) and len(val) == CLI_EPOCHS
+          and files == [f'{state.step}.pt', 'best.pt', 'best_meta.json'])
+    expect_b1 = dict(launches=CLI_VAL_TILES * CLI_EPOCHS, strip_launches=CLI_VAL_TILES * CLI_EPOCHS)
+    print(f'train CLI, first run ({run1_s:.1f} s): step {state.step}; {len(train)} train records, LR {[r["lr"] for r in train]} '
+          f'(build_lr_schedule {want_lrs}); losses {[round(r["loss"], 4) for r in train]}; val mAji '
+          f'{[r.get("mAji") for r in val]}, mDice {[r.get("mDice") for r in val]}; checkpoints {files}; B1 {b1_first}',
+          flush=True)
+    if not ok or any(b1_first[k] != v for k, v in expect_b1.items()) or b1_first['global_launches']:
+        raise AssertionError(f'train CLI, first run: step {state.step}, records {records}, files {files}, B1 {b1_first}')
+    with open(os.path.join(ckpt_dir, 'best_meta.json')) as f:
+        meta = json.load(f)
+    if meta['metric'] != 'Aji' or not np.isfinite(meta['value']):
+        raise AssertionError(f'train CLI: best_meta.json {meta}')
+
+    # the resumed run: restored bit for bit, epoch 3 only, step 9
+    same_net = (restored['net'].keys() == saved['net'].keys()
+                and all(torch.equal(restored['net'][k].cpu(), saved['net'][k]) for k in saved['net']))
+    opt_a, opt_b = restored['optimizer'], saved['optimizer']
+    same_opt = (opt_a['count'] == opt_b['count'] and opt_a['state'].keys() == opt_b['state'].keys()
+                and all(torch.equal(opt_a['state'][i][k].cpu(), opt_b['state'][i][k])
+                        for i in opt_b['state'] for k in opt_b['state'][i]))
+    records2 = JsonlLogger(os.path.join(work, 'log.jsonl')).read()[len(records):]
+    files2 = sorted(os.listdir(ckpt_dir))
+    print(f'train CLI, resumed run ({run2_s:.1f} s): restored step {restored["step"]}, start epoch '
+          f'{restored["start_epoch"]}; net and optimizer state equal to {state.step}.pt bit for bit: {same_net}, '
+          f'{same_opt}; ends at step {resumed.step}; records {[(r["mode"], r["epoch"]) for r in records2]}; checkpoints '
+          f'{files2}; B1 {b1_resumed}', flush=True)
+    # the resumed runner keeps the best score: best.pt stays the net of the best of the three evaluations
+    vals = [r['mAji'] for r in val + records2 if r['mode'] == 'val' and np.isfinite(r['mAji'])]
+    with open(os.path.join(ckpt_dir, 'best_meta.json')) as f:
+        meta2 = json.load(f)
+    print(f'train CLI, best after the resume: {meta2} (val mAji {vals})', flush=True)
+    if not vals or meta2['metric'] != 'Aji' or meta2['value'] != max(vals):
+        raise AssertionError(f'train CLI: best_meta.json {meta2} after the resume, val mAji {vals}')
+    if not (same_net and same_opt and restored['step'] == 6 and restored['start_epoch'] == 2 and resumed.step == 9
+            and [(r['mode'], r['epoch']) for r in records2] == [('train', 3)] * iters + [('val', 3)]
+            and files2 == ['9.pt', 'best.pt', 'best_meta.json'] and b1_resumed['strip_launches'] == CLI_VAL_TILES
+            and b1_resumed['launches'] == CLI_VAL_TILES):
+        raise AssertionError('train CLI: the resumed run differs from the checkpoint or the schedule')
+
+    # score best.pt through tools/test.py against single_device_test + evaluate on the same weights
+    best = os.path.join(ckpt_dir, 'best.pt')
+    test_data = [f'data.test.{k}={val_kw[k]}' for k in ('data_root', 'img_dir', 'ann_dir', 'split')]
+    t1 = time.perf_counter()
+    got = test_cli.main([UNET_CONFIG, best, '--options', *test_data, *test_cfg])
+    test_s = time.perf_counter() - t1
+    seg = build_segmentor(model, device='cuda')
+    load_net_state(seg.net, CheckpointManager(work).load_variables(best))
+    want = val_ds.evaluate(single_device_test(seg, val_ds, progress=False))[0]
+    differ = {k: (got[k], want[k]) for k in want if not (got[k] == want[k] or (np.isnan(got[k]) and np.isnan(want[k])))}
+    print(f'train CLI, tools/test.py on best.pt ({test_s:.1f} s): {dict(got)}; keys that differ from the direct '
+          f'evaluation {differ}', flush=True)
+    if (got.keys() != want.keys() or got['mAji'] != meta2['value']
+            or any(not (k.endswith(('SQ', 'PQ')) and abs(a - b) <= SQ_PQ_TOL) for k, (a, b) in differ.items())):
+        raise AssertionError(f'train CLI: tools/test.py {got} against the direct evaluation {want}')
+
+    # the card's work per step: pre-staged loader batches on the trained net, back to back
+    train_ds = build_dataset(dict(train_kw, processes=cfg.data.train.processes))
+    loader = build_dataloader(train_ds, cfg.data.samples_per_gpu, cfg.data.workers_per_gpu, seed=args.seed)
+    staged = [{g: {k: torch.from_numpy(v).cuda() for k, v in b[g].items()} for g in ('data', 'label')} for b in loader]
+    st, step = build_train_state(seg, cfg, iters_per_epoch=iters, seed=args.seed), make_train_step(seg)
+    events = []
+    for i in range(2 + CLI_STAGED_TIMED):
+        events.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
+        events[-1][0].record()
+        st, _ = step(st, staged[i % len(staged)])
+        events[-1][1].record()
+    torch.cuda.synchronize()
+    work_ms = statistics.median(a.elapsed_time(b) for a, b in events[2:])
+    times = [r['time'] * 1e3 for r in train] + [r['time'] * 1e3 for r in records2 if r['mode'] == 'train']
+    # per epoch: the loader starts with the epoch and prefetches while the first iteration waits, so an iteration's
+    # time alone says little; the epoch's mean does. The first epoch also holds cuDNN's first calls.
+    epoch_ms = [statistics.mean(times[e * iters:(e + 1) * iters]) for e in range(len(times) // iters)]
+    idle = [1 - work_ms / ms for ms in epoch_ms]
+    eval_ms = [ms / CLI_VAL_TILES for ms in spans['eval_hook']]
+    sizes = {f: os.path.getsize(os.path.join(ckpt_dir, f)) / 2 ** 20 for f in ('9.pt', 'best.pt')}
+    t1 = time.perf_counter()
+    torch.load(os.path.join(ckpt_dir, '9.pt'), map_location='cpu', weights_only=True)
+    load_ms = (time.perf_counter() - t1) * 1e3
+    del st, staged, seg
+    torch.cuda.empty_cache()
+
+    # the loader on the recipe's pipeline: the C++ label maps and their numpy plain versions, in turns
+    rates, one_ms = collections.defaultdict(list), collections.defaultdict(list)
+    for route in ('cpp', 'numpy', 'numpy', 'cpp'):
+        with plain_label_maps() if route == 'numpy' else contextlib.nullcontext():
+            t1 = time.perf_counter()
+            for i in range(8):
+                train_ds.sample(i, i)
+            one_ms[route].append((time.perf_counter() - t1) * 1e3 / 8)
+            loader.set_epoch(len(rates[route]) + 10)
+            t1 = time.perf_counter()
+            n = sum(len(b['metas']) for b in loader)
+            rates[route].append(n / (time.perf_counter() - t1))
+    card = card_line()
+    print(f'train CLI numbers ({card}): ms per iteration (the runner\'s time field) {[round(t, 2) for t in times]}, '
+          f'per epoch {[round(ms, 2) for ms in epoch_ms]}; the card\'s work per step {work_ms:.2f} ms (pre-staged '
+          f'batches, CUDA events), idle {[f"{i:.1%}" for i in idle]} of each epoch\'s loader-fed iterations; eval hook '
+          f'{[round(ms, 2) for ms in eval_ms]} ms per {LOOP_HW}^2 image; checkpoint save {[round(ms, 1) for ms in spans["checkpoint_save"]]} '
+          f'ms, best save {[round(ms, 1) for ms in spans["best_save"]]} ms, restore {[round(ms, 1) for ms in spans["checkpoint_restore"]]} '
+          f'ms, torch.load alone {load_ms:.1f} ms; on disk {sizes} MB', flush=True)
+    print(f'train CLI loader ({card}; {os.cpu_count()} host cores; batches of {loader.batch_size}, {loader.num_workers} '
+          f'threads, {CLI_WINDOWS} windows, in turns C++, numpy, numpy, C++): samples/s C++ label maps '
+          f'{[round(r, 2) for r in rates["cpp"]]}, numpy plain versions {[round(r, 2) for r in rates["numpy"]]}; '
+          f'one sample on one thread C++ {[round(ms, 1) for ms in one_ms["cpp"]]} ms, numpy '
+          f'{[round(ms, 1) for ms in one_ms["numpy"]]} ms', flush=True)
+    print(json.dumps({'train_cli': {'iter_ms': times, 'epoch_iter_ms': epoch_ms, 'work_ms': work_ms, 'idle': idle,
+                                    'eval_hook_ms_per_image': eval_ms, 'checkpoint_ms': dict(spans),
+                                    'torch_load_ms': load_ms, 'checkpoint_mb': sizes, 'loader_samples_per_s': rates,
+                                    'pipeline_ms_per_sample_one_thread': one_ms, 'test_cli': {k: float(v) for k, v in got.items()},
+                                    'b1': [b1_first, b1_resumed], 'host_cores': os.cpu_count()}}), flush=True)
+
+
 def time_pp_main_path(model: str, sem_pred: torch.Tensor, radius: int, num_classes: int, launches: int):
     """B1 or B7 on a main path's semantic planes: the route, the earlier
     global chain and the route again, each the median of 25 calls; the
@@ -2672,6 +2934,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     dataset_paths(args)
     print(f'datasets phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_cli_path(args)
+    print(f'train CLI phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     stats.update(hover_main_path(args))

@@ -3,15 +3,17 @@ of the port against the JAX package, on instance planes with touching
 instances, fragments under 5 px, an id split into parts, a single instance,
 an empty plane and a 96^2 plane at MoNuSeg density.
 
-The JAX package runs its native C++ twins (``tiseg_tpu/native``) by default;
-they are partition-equal to its numpy loops, not id-equal. So the port is
-held two ways:
-- against JAX with the native functions made to return None (the tests'
-  monkeypatch; JAX then takes its own numpy routes): every output bit for
-  bit, ids included;
-- against JAX as it runs by default: ``inst_gt`` partition-equal, ``sem_gt``
-  and ``sem_gt_inner`` bit for bit, ``loss_weight_map`` within rtol 1e-12
-  (the C++ ``exp`` may differ in the last ulp)."""
+Both packages run their C++ label maps (``tiseg_tpu/native``,
+``tiseg_tpu_torch/native``) by default; these are partition-equal to the
+numpy loops, not id-equal. So the port is held two ways:
+- on the numpy routes: JAX with its native functions made to return None,
+  the port with its plain versions in place of its C++ calls
+  (``torch_cases.plain_label_maps``): every output bit for bit, ids
+  included;
+- as both run by default: ``inst_gt`` partition-equal, ``sem_gt`` and
+  ``sem_gt_inner`` bit for bit, ``loss_weight_map`` within rtol 1e-12 (the
+  C++ ``exp`` may differ in the last ulp from numpy's).
+``test_torch_native_labelmaps.py`` holds the two C++ libraries bit for bit."""
 import numpy as np
 import pytest
 
@@ -23,6 +25,8 @@ from tiseg_tpu_torch.datasets.ops import UNetLabelMake
 from tiseg_tpu_torch.datasets.ops.label_maps import instance_boxes
 from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
 from tiseg_tpu_torch.datasets.utils import fix_instance, re_instance
+from tiseg_tpu_torch.datasets.utils.instance import fix_instance_plain
+from torch_cases import plain_label_maps
 
 
 def _planes():
@@ -51,9 +55,11 @@ PLANES = _planes()
 
 @pytest.fixture
 def jax_numpy(monkeypatch):
-    """The JAX package with its native twins off: its numpy routes."""
+    """Both packages on their numpy routes: the JAX package with its native
+    twins off, the port on its plain versions."""
     for name in ('fix_instance', 'remove_1px_boundary', 'unet_weight_map', 'instance_bboxes'):
         monkeypatch.setattr(native, name, lambda *a, **k: None)
+    plain_label_maps(monkeypatch)
 
 
 def _partition_equal(a, b):
@@ -73,7 +79,7 @@ def test_re_instance_and_boxes(name):
 
 @pytest.mark.parametrize('name', sorted(PLANES))
 def test_fix_instance_numpy_route(name, jax_numpy):
-    got, want = fix_instance(PLANES[name]), jax_fix_instance(PLANES[name])
+    got, want = fix_instance_plain(PLANES[name]), jax_fix_instance(PLANES[name])
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
 

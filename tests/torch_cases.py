@@ -3,6 +3,8 @@
 Imports no JAX and nothing of the JAX package: the ``gpu`` tests
 (``tests/test_torch_gpu_*.py``) import it on a card machine that has
 neither, which ``tests/test_torch_no_jax_imports.py`` checks."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -119,3 +121,32 @@ def mini_dataset(root, n=2, hw=64, seed=50, n_inst=None):
     write_monuseg_layout(str(root), [f'img_{i}' for i in range(n)], [np.round(d[0] * 255) for d in data],
                          [d[1] for d in data], [d[2] for d in data])
     return dict(type='MoNuSegDataset', data_root=str(root), img_dir='', ann_dir='', split='split.txt')
+
+
+# -- the label maps' plain versions ----------------------------------------------------------------
+def plain_label_maps(monkeypatch):
+    """Put the port's label maps on their numpy plain versions in place of
+    the C++ calls (``fix_instance``, ``instance_boxes``, ``UNetLabelMake``'s
+    erosion and weight map) through ``monkeypatch.setattr``."""
+    from tiseg_tpu_torch.datasets.ops import label_maps
+    from tiseg_tpu_torch.datasets.utils import instance
+    monkeypatch.setattr(label_maps, 'fix_instance', instance.fix_instance_plain)
+    monkeypatch.setattr(label_maps, 'instance_boxes', label_maps.instance_boxes_plain)
+    monkeypatch.setattr(label_maps.UNetLabelMake, '_remove_1px_boundary',
+                        label_maps.UNetLabelMake._remove_1px_boundary_plain)
+    monkeypatch.setattr(label_maps.UNetLabelMake, '_get_weight_map', label_maps.UNetLabelMake._get_weight_map_plain)
+
+
+# -- few intra-op threads for the training tests ---------------------------------------------------
+TRAIN_TEST_THREADS = 2  # the suite runs six workers on eight cores: eight threads each would oversubscribe them
+
+
+@contextlib.contextmanager
+def torch_threads(n: int = TRAIN_TEST_THREADS):
+    """torch's intra-op threads set to ``n``, restored on exit."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)

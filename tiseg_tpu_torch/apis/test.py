@@ -5,6 +5,11 @@ tiseg/apis/test.py:7-105).
 sliding-window inference, and with ``device_postprocess`` the instance
 post-processing, run on the segmentor's device; the metric pre-eval runs
 on the host, or on the device with ``device_metrics``.
+
+``multi_process_test``: each process of an initialised ``torch.distributed``
+group evaluates a disjoint stride of the dataset (DistributedSampler
+analog); ``gather_object_shards`` all-gathers the per-image packages.
+Without a process group both are the single-process loop.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import numpy as np
 import torch
 
 from ..utils import get_logger
+from ..utils.device import world_rank
 
 
 class InferenceRunner:
@@ -108,3 +114,24 @@ def single_device_test(segmentor, dataset, pre_eval: bool = True, show: bool = F
     if pending is not None:
         consume(*pending)
     return results
+
+
+def multi_process_test(segmentor, dataset, pre_eval: bool = True, show: bool = False,
+                       show_folder: Optional[str] = None) -> List:
+    """This process's share of the evaluation: the images ``rank::world``
+    of ``dataset`` (reference multi_gpu_test, apis/test.py:47-105); merge the
+    shares with :func:`gather_object_shards`."""
+    world, rank = world_rank()
+    indices = list(range(len(dataset)))[rank::world]
+    return single_device_test(segmentor, dataset, pre_eval, show, show_folder, indices=indices)
+
+
+def gather_object_shards(shard: List) -> List:
+    """Every process's ``shard`` concatenated in rank order
+    (``all_gather_object``); the shard itself without a process group."""
+    world, _ = world_rank()
+    if world == 1:
+        return shard
+    shards = [None] * world
+    torch.distributed.all_gather_object(shards, shard)
+    return [r for s in shards for r in s]

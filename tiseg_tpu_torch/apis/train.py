@@ -1,18 +1,25 @@
-"""Training set-up from a config (port of the part of tiseg_tpu/apis/train.py
-before the runner).
+"""train_segmentor: config -> data loader -> weights -> train state -> runner
+(port of tiseg_tpu/apis/train.py; reference tiseg/apis/train.py:15-149).
 
-``train_segmentor`` itself, with its data loader and runner, is not ported
-yet; :func:`build_train_state` is the wiring it does between the loader and
-the runner: total iterations, LR schedule, gradient clip, optimizer chain.
+One process trains on one device (the segmentor's): the batch is
+``samples_per_gpu`` on that device. :func:`build_train_state` is the wiring
+between the loader and the runner: total iterations, LR schedule, gradient
+clip, optimizer chain.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
+import torch
 
+from ..datasets import build_dataloader, build_dataset
 from ..engine.optim import build_lr_schedule, build_optimizer
+from ..engine.runner import EpochBasedRunner, IterBasedRunner
 from ..engine.train_state import TrainState, trainable_parameters
+from ..models.backbones.torch_port import maybe_load_pretrained
+from ..models.nn import he_init_
+from ..utils import get_logger, set_random_seed
 
 
 def init_random_seed(seed: Optional[int] = None) -> int:
@@ -40,3 +47,52 @@ def build_train_state(segmentor, cfg, iters_per_epoch: int, seed: int = 0) -> Tr
         grad_clip = grad_clip.get('max_norm')
     tx = build_optimizer(cfg.optimizer, lr_schedule, trainable_parameters(segmentor.net), grad_clip=grad_clip)
     return TrainState.create(segmentor.net, tx, seed=seed)
+
+
+def train_segmentor(segmentor, datasets, cfg, distributed: bool = False, validate: bool = True,
+                    work_dir: Optional[str] = None, seed: int = 0) -> TrainState:
+    """Train ``segmentor`` on ``datasets[0]`` as ``cfg`` says (``data``,
+    ``optimizer``, ``lr_config``, ``runner``, ``evaluation``,
+    ``checkpoint_config``, ``log_config``) and return the final state.
+
+    The net is re-initialised from ``seed`` alone (``nn.he_init_`` with a
+    seeded generator, the segmentor's own init), then takes the cached
+    torchvision backbone weights where there are any. With ``validate`` the
+    eval hook runs on ``cfg.data.val`` built with ``test_mode=True``.
+    ``cfg.resume_from == 'auto'`` or ``cfg.auto_resume`` resume from the
+    latest checkpoint in ``work_dir``."""
+    if distributed:
+        raise NotImplementedError('data-parallel training is not ported (ROADMAP queue A item 10)')
+    logger = get_logger()
+    work_dir = work_dir or cfg.get('work_dir', './work_dirs/tmp')
+    set_random_seed(seed)
+
+    if not isinstance(datasets, (list, tuple)):
+        datasets = [datasets]
+    train_dataset = datasets[0]
+    batch = cfg.data['samples_per_gpu']
+    loader = build_dataloader(train_dataset, samples_per_gpu=batch, workers_per_gpu=cfg.data.get('workers_per_gpu', 4),
+                              shuffle=True, seed=seed, drop_last=True)
+    if len(loader) == 0:
+        raise ValueError(
+            f'empty train loader: dataset has {len(train_dataset)} items but the batch is {batch} with drop_last — '
+            f'an EpochBased/IterBased runner would spin forever on zero batches')
+    iters_per_epoch = len(loader)
+
+    he_init_(segmentor.net, torch.Generator().manual_seed(seed))
+    if maybe_load_pretrained(segmentor):
+        logger.info('initialized the backbone from cached torchvision weights')
+    state = build_train_state(segmentor, cfg, iters_per_epoch, seed=seed)
+    n_params = sum(p.numel() for p in segmentor.net.parameters())
+    logger.info(f'model params: {n_params / 1e6:.2f}M, train iters/epoch: {iters_per_epoch}')
+
+    val_dataset = None
+    if validate and 'val' in cfg.data:
+        val_dataset = build_dataset(cfg.data['val'], default_args=dict(test_mode=True))
+
+    runner_cfg = dict(cfg.get('runner', {'type': 'EpochBasedRunner', 'max_epochs': 1}))
+    runner_cls = EpochBasedRunner if runner_cfg.get('type', 'EpochBasedRunner') == 'EpochBasedRunner' else IterBasedRunner
+    runner = runner_cls(segmentor, state, loader, cfg, work_dir, val_dataset=val_dataset)
+    if cfg.get('resume_from') == 'auto' or cfg.get('auto_resume', False):
+        runner.resume()
+    return runner.run()

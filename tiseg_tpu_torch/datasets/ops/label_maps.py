@@ -1,12 +1,16 @@
 """Label-map generators (port of the part of
 tiseg_tpu/datasets/ops/label_maps.py that the MoNuSeg UNet recipe runs:
-``UNetLabelMake`` on its numpy routes; reference
+``UNetLabelMake`` and ``instance_boxes``; reference
 tiseg/datasets/ops/unet_map.py).
 
 Every op re-canonicalizes the instance map first (drop < 5 px 4-connected
 fragments, split disconnected parts, renumber) and masks ``sem_gt`` to the
-fixed instances, as the reference's ``_fix_inst`` does. BoundLabelMake,
-DirectionLabelMake, DistanceLabelMake and HVLabelMake are not ported yet
+fixed instances, as the reference's ``_fix_inst`` does. The per-instance
+work runs in the port's C++ label maps (``native/``) on the JAX package's
+conditions; the numpy routes (``instance_boxes_plain``,
+``UNetLabelMake._remove_1px_boundary_plain``, ``_get_weight_map_plain``)
+are their plain versions. BoundLabelMake, DirectionLabelMake,
+DistanceLabelMake and HVLabelMake are not ported yet
 (``datasets/ops/__init__.py`` names them).
 """
 from __future__ import annotations
@@ -16,6 +20,7 @@ import weakref
 import numpy as np
 from scipy import ndimage
 
+from ... import native
 from ...utils import morphology as m
 from ..utils.instance import fix_instance
 
@@ -37,7 +42,22 @@ def _fix_instance_cached(inst_gt: np.ndarray) -> np.ndarray:
 def instance_boxes(inst_gt: np.ndarray):
     """(id, (yslice, xslice)) bounding boxes of every instance, in ascending
     id order: every per-instance op runs on a padded bbox crop instead of
-    the full image (exact: each instance lies wholly in its crop)."""
+    the full image (exact: each instance lies wholly in its crop). Dense-ish
+    ids (at most 4 per pixel) take one C++ image pass, sparser ones the
+    plain route."""
+    mx = int(inst_gt.max(initial=0))
+    if mx <= 0:
+        return []
+    if mx <= 4 * inst_gt.size:
+        rows = native.instance_bboxes(inst_gt, mx)
+        return [(i, (slice(int(r[0]), int(r[1]) + 1), slice(int(r[2]), int(r[3]) + 1)))
+                for i, r in enumerate(rows) if i > 0 and r[1] >= 0]
+    return instance_boxes_plain(inst_gt)
+
+
+def instance_boxes_plain(inst_gt: np.ndarray):
+    """:func:`instance_boxes` in numpy and scipy (``find_objects`` over the
+    ids made dense)."""
     if int(inst_gt.max(initial=0)) <= 0:
         return []
     ids = np.unique(inst_gt)
@@ -79,6 +99,10 @@ class UNetLabelMake:
                 2.0 * sigma * sigma * np.log(max(w0, 1e-30) * 2.0**24)))))
 
     def _remove_1px_boundary(self, inst_gt):
+        """Each instance eroded by diamond(1), in C++."""
+        return native.remove_1px_boundary(inst_gt)
+
+    def _remove_1px_boundary_plain(self, inst_gt):
         new = np.zeros(inst_gt.shape[:2], np.int32)
         d1 = m.diamond(1)
         for inst_id, sl in instance_boxes(inst_gt):
@@ -88,6 +112,13 @@ class UNetLabelMake:
         return new
 
     def _get_weight_map(self, ann, inst_list):
+        """The float64 border weights of ``ann``'s instances, in C++ (zeros
+        for at most one instance)."""
+        if len(inst_list) <= 1:
+            return np.zeros(ann.shape[:2])
+        return native.unet_weight_map(ann, int(np.max(ann)), self.TRUNC, self.w0, self.sigma)
+
+    def _get_weight_map_plain(self, ann, inst_list):
         if len(inst_list) <= 1:
             return np.zeros(ann.shape[:2])
         # running nearest / second-nearest instance-border distances, each

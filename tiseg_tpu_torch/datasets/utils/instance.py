@@ -8,6 +8,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from ... import native
 from ...utils import morphology as m
 
 
@@ -24,9 +25,17 @@ def re_instance(instance_map: np.ndarray) -> np.ndarray:
 def fix_instance(inst_gt: np.ndarray, min_size: int = 5) -> np.ndarray:
     """Re-canonicalize an instance map: per original id, drop tiny 4-conn
     fragments (< min_size px) and split disconnected parts into separate
-    8-conn components, renumbering contiguously in the order of the ids and,
-    within an id, of the components' first pixels. Per-instance work runs on
-    bbox crops (exact: each id's pixels are inside its bbox)."""
+    8-conn components, renumbering contiguously. Runs the C++ union-find
+    (``native.fix_instance``), partition-equal to :func:`fix_instance_plain`;
+    the map keeps its dtype (int32 for a boolean one)."""
+    out = native.fix_instance(np.asarray(inst_gt), min_size)
+    return out.astype(inst_gt.dtype if inst_gt.dtype != bool else np.int32)
+
+
+def fix_instance_plain(inst_gt: np.ndarray, min_size: int = 5) -> np.ndarray:
+    """:func:`fix_instance` in numpy, renumbering in the order of the ids
+    and, within an id, of the components' first pixels. Per-instance work
+    runs on bbox crops (exact: each id's pixels are inside its bbox)."""
     from ..ops.label_maps import instance_boxes  # local import: avoids a cycle
 
     cur = 0

@@ -112,6 +112,11 @@ class ChainOptimizer(torch.optim.Optimizer):
         state_dict = dict(state_dict)
         self.count = state_dict.pop('count')
         super().load_state_dict(state_dict)
+        # torch casts the loaded moments to their parameter's dtype; the first moment keeps ``mu_dtype``
+        for group in self.param_groups:
+            for p in group['params'] if group['mu_dtype'] else ():
+                if 'mu' in self.state[p]:
+                    self.state[p]['mu'] = self.state[p]['mu'].to(group['mu_dtype'])
 
     def _clip(self, grads):
         """optax's clip: unchanged below ``grad_clip``, else ``g / norm *

@@ -1,0 +1,95 @@
+"""Evaluation CLI (port of tools/test.py; reference tools/test.py:33-108).
+
+Usage::
+
+    python -m tiseg_tpu_torch.tools.test <config.py> <checkpoint.pt> [--int8-calib N] [--show]
+        [--show-folder D] [--device cpu] [--options k=v ...]
+
+``checkpoint.pt`` is a file the train CLI wrote (``work_dir/checkpoints/
+best.pt`` or ``<step>.pt``), read by ``CheckpointManager.load_variables``.
+Every ``data.test`` entry is evaluated; ``eval results: {...}`` is logged
+and the metric storage pickled to ``work_dir/eval/<checkpoint stem>.p``.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import os.path as osp
+import pickle
+
+import numpy as np
+
+
+def calibrate_int8_from_dataset(segmentor, dataset, n: int, hw: int = 256):
+    """Post-training-quantize the eval forward: abs-max calibrate on ``n``
+    center crops of the test dataset, then set ``test_cfg['int8_eval']`` so
+    that the evaluation runs through the int8 executor. UNet-S2D has it; the
+    other segmentors' ``calibrate_int8`` raise ``NotImplementedError``
+    naming the JAX module that is not ported yet."""
+    if not hasattr(segmentor, 'calibrate_int8'):
+        raise SystemExit(f'{type(segmentor).__name__} has no int8 eval path')
+    imgs = [np.asarray(dataset[i]['data']['img'], np.float32) for i in range(min(n, len(dataset)))]
+    # one common /4-divisible crop size so that the batch stacks
+    s = min([hw] + [min(im.shape[:2]) for im in imgs]) // 4 * 4
+    crops = []
+    for img in imgs:
+        y0, x0 = (img.shape[0] - s) // 2, (img.shape[1] - s) // 2
+        crops.append(img[y0:y0 + s, x0:x0 + s])
+    segmentor.calibrate_int8(np.stack(crops))
+    segmentor.test_cfg['int8_eval'] = True
+
+
+def main(argv=None):
+    """Evaluate the checkpoint on every test dataset; returns the last
+    dataset's eval results."""
+    from ..apis import single_device_test
+    from ..datasets import build_dataset
+    from ..engine.checkpoint import CheckpointManager, load_net_state
+    from ..models import build_segmentor
+    from ..utils import Config, get_logger, parse_option_value
+
+    p = argparse.ArgumentParser(description='Evaluate a segmentor checkpoint (PyTorch port)')
+    p.add_argument('config')
+    p.add_argument('checkpoint')
+    p.add_argument('--show', action='store_true')
+    p.add_argument('--show-folder', default=None)
+    p.add_argument('--int8-calib', type=int, default=0, metavar='N',
+                   help='post-training-quantize the eval forward: calibrate on N test-set center crops, then '
+                        'run inference through the int8 executor')
+    p.add_argument('--device', default=None, help='torch device (default: cuda)')
+    p.add_argument('--options', nargs='+', default=[])
+    args = p.parse_args(argv)
+
+    cfg = Config.fromfile(args.config)
+    if args.options:
+        cfg.merge_from_options({kv.split('=', 1)[0]: parse_option_value(kv.split('=', 1)[1]) for kv in args.options})
+
+    logger = get_logger()
+    segmentor = build_segmentor(cfg.model, device=args.device)
+    ckpt = osp.abspath(args.checkpoint)
+    work_dir = osp.dirname(osp.dirname(ckpt))
+    load_net_state(segmentor.net, CheckpointManager(work_dir).load_variables(ckpt))
+
+    test_cfgs = cfg.data['test']
+    if not isinstance(test_cfgs, list):
+        test_cfgs = [test_cfgs]
+    calibrated = False
+    eval_results = None
+    for tc in test_cfgs:
+        dataset = build_dataset(tc, default_args=dict(test_mode=True))
+        if args.int8_calib and not calibrated:
+            calibrate_int8_from_dataset(segmentor, dataset, args.int8_calib)
+            logger.info(f'int8 eval: calibrated on {args.int8_calib} test crops')
+            calibrated = True
+        results = single_device_test(segmentor, dataset, show=args.show, show_folder=args.show_folder)
+        eval_results, storage = dataset.evaluate(results)
+        out = osp.join(work_dir, 'eval')
+        os.makedirs(out, exist_ok=True)
+        with open(osp.join(out, osp.splitext(osp.basename(ckpt))[0] + '.p'), 'wb') as f:
+            pickle.dump(storage, f)
+        logger.info(f'eval results: {eval_results}')
+    return eval_results
+
+
+if __name__ == '__main__':
+    main()

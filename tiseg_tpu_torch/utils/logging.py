@@ -1,12 +1,14 @@
-"""The package's named logger (port of ``get_logger`` of
-tiseg_tpu/utils/logging.py; reference tools/train.py:93)."""
+"""The package's named logger and the JSONL structured log (port of
+tiseg_tpu/utils/logging.py; reference tools/train.py:93 ``get_logger`` and
+the mmcv ``.log.json`` records that tools/log_analysis.py reads)."""
 from __future__ import annotations
 
+import json
 import logging
 import os
 import os.path as osp
 import sys
-from typing import Optional
+from typing import Any, Dict, List, Optional
 
 
 def get_logger(name: str = 'TisegTorch', log_file: Optional[str] = None, level: int = logging.INFO) -> logging.Logger:
@@ -27,3 +29,34 @@ def get_logger(name: str = 'TisegTorch', log_file: Optional[str] = None, level: 
         fh.setFormatter(fmt)
         logger.addHandler(fh)
     return logger
+
+
+class JsonlLogger:
+    """Append-only structured log, one JSON object per line; tensors and
+    numpy scalars are written through ``.item()``."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
+
+    def log(self, record: Dict[str, Any]):
+        def _py(v):
+            if hasattr(v, 'item'):
+                try:
+                    return v.item()
+                except Exception:
+                    return str(v)
+            if isinstance(v, dict):
+                return {k: _py(x) for k, x in v.items()}
+            if isinstance(v, (list, tuple)):
+                return [_py(x) for x in v]
+            return v
+
+        with open(self.path, 'a') as f:
+            f.write(json.dumps({k: _py(v) for k, v in record.items()}) + '\n')
+
+    def read(self) -> List[Dict[str, Any]]:
+        if not osp.exists(self.path):
+            return []
+        with open(self.path) as f:
+            return [json.loads(line) for line in f if line.strip()]
