@@ -123,18 +123,63 @@ def mini_dataset(root, n=2, hw=64, seed=50, n_inst=None):
     return dict(type='MoNuSegDataset', data_root=str(root), img_dir='', ann_dir='', split='split.txt')
 
 
+# -- a batch with every label of the CUNet and CDNet recipes --------------------------------------------
+FAMILY_CONFIGS = {  # the MoNuSeg recipes of the five nets
+    'cunet': 'configs/cunet/cunet_adam-lr0.0005_bs16_256x256_300e_monuseg.py',
+    'multi_task_unet': 'configs/multi_task_unet/multi_task_unet_adam-lr0.0001_bs8_256x256_300e_monuseg.py',
+    'multi_task_cunet': 'configs/multi_task_cunet/multi_task_cunet_adam-lr0.0005_bs16_256x256_300e_monuseg.py',
+    'cdnet': 'configs/cdnet/cdnet_adam-lr0.0005_bs16_256x256_300e_monuseg.py',
+    'multi_task_cdnet': 'configs/multi_task_cdnet/multi_task_cdnet_adam-lr0.0005_bs16_256x256_300e_monuseg.py',
+}
+
+
+def family_batch(n=2, hw=64, seed=20):
+    """``{'data': {'img'}, 'label': {...}}`` of ``n`` nuclei images (numpy)
+    with every label the family's recipes format, from the port's
+    ``BoundLabelMake``, ``DirectionLabelMake`` and ``UNetLabelMake`` (the
+    last one's ``loss_weight_map`` for MultiTaskUNet under
+    ``unet_weight_map``)."""
+    from tiseg_tpu_torch.datasets.ops import BoundLabelMake, DirectionLabelMake, UNetLabelMake
+    from tiseg_tpu_torch.datasets.synthetic import nuclei_density
+    imgs, items = [], []
+    for i in range(n):
+        img, _, inst = make_nuclei(seed + i, hw, nuclei_density(hw))
+        data = DirectionLabelMake()(BoundLabelMake()({'inst_gt': inst, 'sem_gt': (inst > 0).astype(np.int32),
+                                                      'seg_fields': []}))
+        unet = UNetLabelMake()(dict(data, seg_fields=[]))
+        items.append(dict(data, unet_weight_map=unet['loss_weight_map'], sem_gt_inner=unet['sem_gt_inner']))
+        imgs.append(img)
+    ints = ('sem_gt', 'sem_gt_w_bound', 'sem_gt_inner', 'inst_gt', 'dir_gt')
+    floats = ('point_gt', 'dist_gt', 'reg_dir_gt', 'loss_weight_map', 'unet_weight_map')
+    label = {k: np.stack([d[k] for d in items]).astype(np.int32) for k in ints}
+    label.update({k: np.stack([d[k] for d in items]).astype(np.float32) for k in floats})
+    return {'data': {'img': np.stack(imgs).astype(np.float32)}, 'label': label}
+
+
+def batch_to(batch, device, dtype=torch.float32, weight_map='loss_weight_map'):
+    """``batch`` as tensors on ``device``, its float arrays in ``dtype``;
+    ``weight_map`` names the label that goes in as ``loss_weight_map``."""
+    label = dict(batch['label'], loss_weight_map=batch['label'][weight_map])
+    return {'data': {'img': torch.from_numpy(batch['data']['img']).to(device, dtype)},
+            'label': {k: torch.from_numpy(v).to(device, dtype if v.dtype == np.float32 else None)
+                      for k, v in label.items()}}
+
+
 # -- the label maps' plain versions ----------------------------------------------------------------
 def plain_label_maps(monkeypatch):
     """Put the port's label maps on their numpy plain versions in place of
     the C++ calls (``fix_instance``, ``instance_boxes``, ``UNetLabelMake``'s
-    erosion and weight map) through ``monkeypatch.setattr``."""
+    erosion and weight map, ``BoundLabelMake``'s boundary,
+    ``DirectionLabelMake``'s point maps and weight map) through
+    ``monkeypatch.setattr``."""
     from tiseg_tpu_torch.datasets.ops import label_maps
     from tiseg_tpu_torch.datasets.utils import instance
     monkeypatch.setattr(label_maps, 'fix_instance', instance.fix_instance_plain)
     monkeypatch.setattr(label_maps, 'instance_boxes', label_maps.instance_boxes_plain)
-    monkeypatch.setattr(label_maps.UNetLabelMake, '_remove_1px_boundary',
-                        label_maps.UNetLabelMake._remove_1px_boundary_plain)
-    monkeypatch.setattr(label_maps.UNetLabelMake, '_get_weight_map', label_maps.UNetLabelMake._get_weight_map_plain)
+    for cls, name in ((label_maps.UNetLabelMake, '_remove_1px_boundary'), (label_maps.UNetLabelMake, '_get_weight_map'),
+                      (label_maps.BoundLabelMake, '_bound_map'), (label_maps.DirectionLabelMake, 'calculate_point_map'),
+                      (label_maps.DirectionLabelMake, 'calculate_weight_map')):
+        monkeypatch.setattr(cls, name, vars(cls)[f'{name}_plain'])  # the descriptor: static and class methods stay so
 
 
 # -- few intra-op threads for the training tests ---------------------------------------------------

@@ -1,5 +1,5 @@
 from .formatting import Formatting, format_img, format_reg, format_seg
-from .label_maps import UNetLabelMake
+from .label_maps import BoundLabelMake, DirectionLabelMake, UNetLabelMake
 from .transforms import (Affine, CenterCrop, ColorJitter, Identity, Normalize, Pad, RandomBlur, RandomCrop, RandomFlip,
                          Rng)
 
@@ -19,10 +19,8 @@ RandomRotate = _not_ported('RandomRotate', 'transforms.py', '4')
 RandomSparseRotate = _not_ported('RandomSparseRotate', 'transforms.py', '4')
 RandomElasticDeform = _not_ported('RandomElasticDeform', 'transforms.py', '4')
 AlbuColorJitter = _not_ported('AlbuColorJitter', 'transforms.py', '4')
-BoundLabelMake = _not_ported('BoundLabelMake', 'label_maps.py', '6')
-DirectionLabelMake = _not_ported('DirectionLabelMake', 'label_maps.py', '6')
-DistanceLabelMake = _not_ported('DistanceLabelMake', 'label_maps.py', '6')
-HVLabelMake = _not_ported('HVLabelMake', 'label_maps.py', '6')
+DistanceLabelMake = _not_ported('DistanceLabelMake', 'label_maps.py', '7')
+HVLabelMake = _not_ported('HVLabelMake', 'label_maps.py', '6c')
 
 __all__ = [
     'BoundLabelMake', 'DirectionLabelMake', 'DistanceLabelMake', 'HVLabelMake', 'UNetLabelMake', 'Affine',

@@ -78,6 +78,12 @@ class BaseSegmentor:
         random stream, for nets with dropout."""
         raise NotImplementedError
 
+    def label(self, batch: Dict, key: str) -> Optional[torch.Tensor]:
+        """``batch['label'][key]`` as a tensor on the segmentor's device;
+        None where the batch has no such label."""
+        value = batch['label'].get(key)
+        return None if value is None else torch.as_tensor(value, device=self.device)
+
     def training_metrics(self, sem_logit, sem_gt) -> Dict[str, torch.Tensor]:
         from ..losses import mdice, tdice
         sem_logit = sem_logit.detach()

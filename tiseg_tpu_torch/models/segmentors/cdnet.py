@@ -1,8 +1,10 @@
-"""CDNet: nuclei segmentor with direction maps, evaluation path (port of
+"""CDNet: nuclei segmentor with direction maps (port of
 tiseg_tpu/models/segmentors/cdnet.py; reference tiseg/models/segmentors/
 cdnet.py:18-367).
 
-VGG16-BN + CDHead (UNet decoder ending in the DGM). Eval fuses the TTA
+VGG16-BN + CDHead (UNet decoder ending in the DGM). Training supervises the
+boundary-aware semantic map, the direction classes and the centre heat
+map. Eval fuses the TTA
 views, derives a direction differential map (DDM) per view, and uses the
 mean DDM (minus the high-confidence centre regions) to enhance the
 boundary-class probability before the instance post-processing.
@@ -18,8 +20,9 @@ from ...ops.sliding import resize_bilinear, reverse_tta_transform, tta_forward_v
 from ..backbones.vgg import VGG16BN
 from ..builder import SEGMENTORS
 from ..heads.cd_head import CDHead
+from ..losses import batch_multiclass_dice_loss, cross_entropy, mdice, mse_loss, tdice
 from ..nn import he_init_
-from .base import BaseSegmentor
+from .base import BaseSegmentor, parse_losses
 from .unet import instance_postprocess
 
 
@@ -107,6 +110,35 @@ class CDNet(BaseSegmentor):
         self.net = CDNetNet(num_classes, num_angles, device=self.device)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
+
+    def loss(self, batch, generator=None):
+        """CE and batch dice on ``sem_gt_w_bound`` (``num_classes + 1``
+        classes) and on ``dir_gt`` (``num_angles + 1``), the MSE of the
+        point head against ``point_gt``; the two CEs weighted by
+        ``loss_weight_map`` when ``train_cfg['if_weighted_loss']``. Logs the
+        tdice and mdice of both maps."""
+        heads = self.forward_train(batch['data']['img'])
+        sem_logit, dir_logit, point_logit = heads['sem'], heads['dir'], heads['point']
+        sem_gt_wb, dir_gt = self.label(batch, 'sem_gt_w_bound'), self.label(batch, 'dir_gt')
+        point_gt = self.label(batch, 'point_gt')
+        if point_gt.dim() == point_logit.dim() - 1:
+            point_gt = point_gt[..., None]
+        weight_map = self.label(batch, 'loss_weight_map') if self.train_cfg.get('if_weighted_loss', False) else None
+        losses = {
+            'sem_ce_loss': cross_entropy(sem_logit, sem_gt_wb, weight=weight_map),
+            'sem_dice_loss': batch_multiclass_dice_loss(sem_logit, sem_gt_wb, self.num_classes + 1),
+            'dir_ce_loss': cross_entropy(dir_logit, dir_gt, weight=weight_map),
+            'dir_dice_loss': batch_multiclass_dice_loss(dir_logit, dir_gt, self.num_angles + 1),
+            'point_mse_loss': mse_loss(point_logit, point_gt),
+        }
+        sem_logit, dir_logit = sem_logit.detach(), dir_logit.detach()
+        losses.update({
+            'sem_tdice': tdice(sem_logit, sem_gt_wb, self.num_classes),
+            'sem_mdice': mdice(sem_logit, sem_gt_wb, self.num_classes),
+            'dir_tdice': tdice(dir_logit, dir_gt, self.num_angles + 1),
+            'dir_mdice': mdice(dir_logit, dir_gt, self.num_angles + 1),
+        })
+        return parse_losses(losses)
 
     def inference(self, img: torch.Tensor, ori_hw=None):
         """TTA + per-view DDM + boundary enhancement (reference

@@ -1,5 +1,5 @@
-"""CUNet, evaluation path: UNet trained on the three-class boundary-aware
-target (port of tiseg_tpu/models/segmentors/cunet.py; reference
+"""CUNet: UNet trained on the three-class boundary-aware target (port of
+tiseg_tpu/models/segmentors/cunet.py; reference
 tiseg/models/segmentors/cunet.py:16-113).
 
 The head predicts ``num_classes + 1`` channels (the last is the boundary);
@@ -11,8 +11,9 @@ import numpy as np
 import torch
 
 from ..builder import SEGMENTORS
+from ..losses import batch_multiclass_dice_loss, cross_entropy
 from ..nn import he_init_
-from .base import BaseSegmentor
+from .base import BaseSegmentor, parse_losses
 from .unet import FastVGGUNetEval, UNetNet, instance_postprocess
 
 
@@ -37,6 +38,16 @@ class CUNet(FastVGGUNetEval, BaseSegmentor):
         self.net = CUNetNet(num_classes, device=self.device)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
+
+    def loss(self, batch, generator=None):
+        """5 x CE plus 0.5 x batch dice on ``sem_gt_w_bound`` over
+        ``num_classes + 1`` classes, and the training metrics against it."""
+        sem_logit = self.forward_train(batch['data']['img'])['sem']
+        sem_gt_wb = self.label(batch, 'sem_gt_w_bound')
+        losses = {'sem_ce_loss': 5.0 * cross_entropy(sem_logit, sem_gt_wb),
+                  'sem_dice_loss': 0.5 * batch_multiclass_dice_loss(sem_logit, sem_gt_wb, self.num_classes + 1)}
+        losses.update(self.training_metrics(sem_logit, sem_gt_wb))
+        return parse_losses(losses)
 
     def postprocess(self, fused):
         pred = np.argmax(np.asarray(fused['sem']), axis=-1).astype(np.uint8)

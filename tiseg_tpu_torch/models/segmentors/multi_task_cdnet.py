@@ -1,11 +1,13 @@
-"""Multi-task CDNet, evaluation path (port of
-tiseg_tpu/models/segmentors/multi_task_cdnet.py; reference
-tiseg/models/segmentors/multi_task_cdnet.py:83-597 and its _debug variant).
+"""Multi-task CDNet (port of tiseg_tpu/models/segmentors/multi_task_cdnet.py;
+reference tiseg/models/segmentors/multi_task_cdnet.py:83-597 and its _debug
+variant).
 
 Four heads: tc (3-class), sem (N-class), direction (classes or a regressed
-angle) and point/distance. Eval: TTA + per-view DDM, enhancement of the tc
-boundary, then the CCL of the boundary-stripped tc map re-expanded into the
-semantic canvas.
+angle) and point/distance, with a loss chosen by ``train_cfg`` flags:
+sigmoid BCE + dice, focal, active contour, level set, intra-instance
+variance, topological direction consistency, spatially weighted direction
+dice. Eval: TTA + per-view DDM, enhancement of the tc boundary, then the CCL
+of the boundary-stripped tc map re-expanded into the semantic canvas.
 """
 from __future__ import annotations
 
@@ -17,10 +19,25 @@ from ...ops.ddm import regression_to_dir_map
 from ..backbones.vgg import VGG16BN
 from ..builder import SEGMENTORS
 from ..heads.multi_task_heads import MultiTaskCDHead, MultiTaskCDHeadTwobranch
+from ..losses import (active_contour_loss, batch_multiclass_dice_loss, batch_multiclass_sigmoid_dice_loss,
+                      binary_cross_entropy, cross_entropy, focal_loss, levelset_loss, mdice, mse_loss,
+                      multiclass_dice_loss, one_hot, tdice, topological_loss, variance_loss)
 from ..nn import he_init_
-from .base import BaseSegmentor
+from .base import BaseSegmentor, parse_losses
 from .cdnet import fuse_direction_views
-from .multi_task_unet import _boundary_stripped, _MTDevicePP, _mt_postprocess
+from .multi_task_unet import _boundary_stripped, _MTDevicePP, _mt_postprocess, three_class_target
+
+
+def weighted_batch_dice_loss(logits, labels, num_classes: int, weight_map):
+    """Batch dice with every pixel weighted by ``weight_map``, summed over
+    the foreground classes (reference multi_task_cdnet.py:30-80)."""
+    probs = torch.softmax(logits, dim=-1)
+    target = one_hot(labels, num_classes)
+    w = weight_map[..., None]
+    inter = (probs * target * w).sum(dim=(0, 1, 2))
+    denom = (probs * w).sum(dim=(0, 1, 2)) + (target * w).sum(dim=(0, 1, 2))
+    dice = (2 * inter + 1e-4) / (denom + 1e-4)
+    return (1.0 - dice[1:]).sum()
 
 
 class MTCDNetNet(nn.Module):
@@ -47,19 +64,111 @@ class MTCDNetNet(nn.Module):
 @SEGMENTORS.register_module()
 class MultiTaskCDNet(_MTDevicePP, BaseSegmentor):
     """``train_cfg`` chooses the net's wiring (``num_angles``, ``noau``,
-    ``parallel``, ``use_twobranch``, ``use_regression``); its loss flags
-    wait for the training port. ``seed`` draws the initial weights."""
+    ``parallel``, ``use_twobranch``, ``use_regression``) and the terms of
+    its loss (the other flags read below). ``seed`` draws the initial
+    weights."""
 
     def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
         super().__init__(num_classes, train_cfg, test_cfg, device=device)
         tc = self.train_cfg
         self.num_angles = tc.get('num_angles', 8)
         self.use_regression = tc.get('use_regression', False)
+        self.use_distance = tc.get('use_distance', False)
+        self.use_sigmoid = tc.get('use_sigmoid', False)
+        self.use_ac = tc.get('use_ac', False)
+        self.ac_len_weight = tc.get('ac_len_weight', 0)
+        self.use_focal = tc.get('use_focal', False)
+        self.use_level = tc.get('use_level', False)
+        self.use_variance = tc.get('use_variance', False)
+        self.use_tploss = tc.get('use_tploss', False)
+        self.tploss_weight = tc.get('tploss_weight', False)
+        self.dir_weight_map = tc.get('dir_weight_map', False)
         self.net = MTCDNetNet(num_classes, num_angles=self.num_angles, noau=tc.get('noau', False),
                               use_regression=self.use_regression, parallel=tc.get('parallel', False),
                               use_twobranch=tc.get('use_twobranch', False), device=self.device)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
+
+    def loss(self, batch, generator=None):
+        """The tc branch (3 x CE + per-image dice on the three-class target
+        of ``sem_gt_w_bound``), the sem branch as the flags choose, the
+        direction branch (CE + batch dice, the dice weighted by
+        ``loss_weight_map`` under ``dir_weight_map``, or the MSE of the
+        regressed angle), the topological loss, and 3 x the MSE of the point
+        head against ``point_gt`` or, under ``use_distance``, ``dist_gt``."""
+        img = torch.as_tensor(batch['data']['img'], device=self.device)
+        heads = self.forward_train(img)
+        tc_logit, sem_logit, dir_logit, point_logit = heads['tc'], heads['sem'], heads['dir'], heads['point']
+        sem_gt = self.label(batch, 'sem_gt')
+        tc_gt = three_class_target(self.label(batch, 'sem_gt_w_bound'), self.num_classes)
+        inst_gt = self.label(batch, 'inst_gt')
+        point_gt = self.label(batch, 'dist_gt' if self.use_distance else 'point_gt')
+        if point_gt.dim() == point_logit.dim() - 1:
+            point_gt = point_gt[..., None]
+        dir_gt = self.label(batch, 'reg_dir_gt' if self.use_regression else 'dir_gt')
+        weight_map = self.label(batch, 'loss_weight_map') if self.dir_weight_map else None
+        ac_w_area = self.train_cfg.get('ac_w_area', False)
+
+        def class_target(i):
+            return (sem_gt == i)[..., None].to(torch.float32)
+
+        losses = {}
+        alpha, beta, gamma = 3.0, 1.0, 5.0
+        losses['tc_ce_loss'] = alpha * cross_entropy(tc_logit, tc_gt)
+        losses['tc_dice_loss'] = beta * multiclass_dice_loss(tc_logit, tc_gt, 3)
+
+        if self.use_sigmoid:
+            if self.use_ac:
+                ac = [active_contour_loss(torch.sigmoid(sem_logit[..., i:i + 1]), class_target(i),
+                                          len_weight=self.ac_len_weight, w_area=ac_w_area)
+                      for i in range(1, self.num_classes)]
+                losses['mask_ac_loss'] = gamma * sum(ac) / len(ac)
+            else:
+                losses['mask_bce_loss'] = alpha * binary_cross_entropy(sem_logit, sem_gt)
+                losses['mask_dice_loss'] = beta * batch_multiclass_sigmoid_dice_loss(sem_logit, sem_gt,
+                                                                                     self.num_classes)
+        else:
+            if self.use_focal:
+                losses['mask_focal_loss'] = alpha * focal_loss(sem_logit, sem_gt, loss_type='softmax', robust=True)
+            else:
+                losses['mask_ce_loss'] = alpha * cross_entropy(sem_logit, sem_gt)
+            losses['mask_dice_loss'] = beta * batch_multiclass_dice_loss(sem_logit, sem_gt, self.num_classes)
+            if self.use_ac:
+                probs = torch.softmax(sem_logit, dim=-1)
+                ac = [active_contour_loss(probs[..., i:i + 1], class_target(i), len_weight=self.ac_len_weight,
+                                          w_area=ac_w_area)
+                      for i in range(1, self.num_classes)]
+                losses['mask_ac_loss'] = 4 * gamma * sum(ac) / len(ac)
+            if self.use_variance and inst_gt is not None:
+                losses['mask_variance_loss'] = (gamma / 3) * variance_loss(sem_logit, inst_gt)
+        if self.use_level:  # level set of each class on the image region of its target
+            lv = [levelset_loss(torch.sigmoid(sem_logit[..., i:i + 1]), img * class_target(i), 1.0)
+                  for i in range(1, self.num_classes)]
+            losses['mask_level_loss'] = sum(lv) / len(lv)
+
+        if self.use_regression:
+            dg = dir_gt[..., None] if dir_gt.dim() == dir_logit.dim() - 1 else dir_gt
+            losses['dir_degree_mse_loss'] = mse_loss(dir_logit, dg)
+        else:
+            losses['dir_ce_loss'] = cross_entropy(dir_logit, dir_gt, weight=weight_map)
+            if weight_map is not None:
+                losses['dir_dice_loss'] = weighted_batch_dice_loss(dir_logit, dir_gt, self.num_angles + 1, weight_map)
+            else:
+                losses['dir_dice_loss'] = batch_multiclass_dice_loss(dir_logit, dir_gt, self.num_angles + 1)
+            if self.use_tploss:
+                losses['dir_tp_loss'] = topological_loss(dir_logit, dir_gt, torch.argmax(tc_logit, dim=-1) == 2,
+                                                         tc_gt == 2, use_regression=False, weight=self.tploss_weight,
+                                                         num_angles=self.num_angles)
+
+        losses['point_mse_loss'] = 3.0 * mse_loss(point_logit, point_gt)
+
+        sem_logit, dir_logit = sem_logit.detach(), dir_logit.detach()
+        losses['mask_tdice'] = tdice(sem_logit, sem_gt, self.num_classes)
+        losses['mask_mdice'] = mdice(sem_logit, sem_gt, self.num_classes)
+        if not self.use_regression:
+            losses['dir_tdice'] = tdice(dir_logit, dir_gt, self.num_angles + 1)
+            losses['dir_mdice'] = mdice(dir_logit, dir_gt, self.num_angles + 1)
+        return parse_losses(losses)
 
     def _regressed_dir_map(self, dir_view, fused):
         background = torch.argmax(fused['tc'], dim=-1) == 0

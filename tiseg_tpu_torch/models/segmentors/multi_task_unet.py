@@ -1,4 +1,4 @@
-"""Multi-task UNet and CUNet, evaluation path (port of
+"""Multi-task UNet and CUNet (port of
 tiseg_tpu/models/segmentors/multi_task_unet.py; reference
 tiseg/models/segmentors/multi_task_unet.py:19-241, multi_task_cunet.py:23-271).
 
@@ -17,9 +17,10 @@ from ...utils import morphology as m
 from ..backbones.vgg import VGG16BN
 from ..builder import SEGMENTORS
 from ..heads.multi_task_heads import MultiTaskUNetHead
+from ..losses import batch_multiclass_dice_loss, cross_entropy, multiclass_dice_loss
 from ..nn import he_init_
 from ..utils.postprocess import align_foreground
-from .base import BaseSegmentor
+from .base import BaseSegmentor, parse_losses
 
 
 class MTUNetNet(nn.Module):
@@ -82,6 +83,13 @@ def _boundary_stripped(tc: torch.Tensor) -> torch.Tensor:
     return torch.where(tc == 2, 0, tc)
 
 
+def three_class_target(sem_gt_w_bound: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """The three-class target of a boundary-aware map: 0 background, 1 every
+    class but the boundary (``num_classes``), 2 the boundary."""
+    tc = torch.where((sem_gt_w_bound != 0) & (sem_gt_w_bound != num_classes), 1, sem_gt_w_bound)
+    return torch.where(tc > 1, 2, tc)
+
+
 @SEGMENTORS.register_module()
 class MultiTaskUNet(_MTDevicePP, BaseSegmentor):
     """The aux branch predicts the two-class inner map. ``seed`` draws the
@@ -95,6 +103,24 @@ class MultiTaskUNet(_MTDevicePP, BaseSegmentor):
         self.net = MTUNetNet(self.aux_classes, num_classes, device=self.device)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
+
+    def loss(self, batch, generator=None):
+        """Weighted 5 x CE plus 0.5 x batch dice on ``sem_gt``, and weighted
+        5 x CE plus 0.5 x the per-image dice on the inner map
+        (``sem_gt_inner > 0``), both weighted by ``loss_weight_map``."""
+        heads = self.forward_train(batch['data']['img'])
+        inner_logit, sem_logit = heads['aux'], heads['sem']
+        sem_gt = self.label(batch, 'sem_gt')
+        inner_gt = (self.label(batch, 'sem_gt_inner') > 0).to(torch.int32)
+        weight_map = self.label(batch, 'loss_weight_map')
+        losses = {
+            'sem_ce_loss': 5.0 * cross_entropy(sem_logit, sem_gt, weight=weight_map),
+            'sem_dice_loss': 0.5 * batch_multiclass_dice_loss(sem_logit, sem_gt, self.num_classes),
+            'three_class_ce_loss': 5.0 * cross_entropy(inner_logit, inner_gt, weight=weight_map),
+            'three_class_dice_loss': 0.5 * multiclass_dice_loss(inner_logit, inner_gt, 2),
+        }
+        losses.update(self.training_metrics(sem_logit, sem_gt))
+        return parse_losses(losses)
 
     def postprocess(self, fused):
         inner_pred = np.argmax(np.asarray(fused['aux']), axis=-1)
@@ -112,6 +138,23 @@ class MultiTaskCUNet(MultiTaskUNet):
 
     def _device_seed_pred(self, fused):
         return _boundary_stripped(super()._device_seed_pred(fused))
+
+    def loss(self, batch, generator=None):
+        """5 x CE plus 0.5 x batch dice on ``sem_gt``, and 5 x CE plus 0.5 x
+        the per-image dice on the three-class target of ``sem_gt_w_bound``;
+        no pixel weights (it replaces ``MultiTaskUNet.loss``)."""
+        heads = self.forward_train(batch['data']['img'])
+        tc_logit, sem_logit = heads['aux'], heads['sem']
+        sem_gt = self.label(batch, 'sem_gt')
+        tc_gt = three_class_target(self.label(batch, 'sem_gt_w_bound'), self.num_classes)
+        losses = {
+            'sem_ce_loss': 5.0 * cross_entropy(sem_logit, sem_gt),
+            'sem_dice_loss': 0.5 * batch_multiclass_dice_loss(sem_logit, sem_gt, self.num_classes),
+            'three_class_ce_loss': 5.0 * cross_entropy(tc_logit, tc_gt),
+            'three_class_dice_loss': 0.5 * multiclass_dice_loss(tc_logit, tc_gt, 3),
+        }
+        losses.update(self.training_metrics(sem_logit, sem_gt))
+        return parse_losses(losses)
 
     def postprocess(self, fused):
         tc_pred = np.argmax(np.asarray(fused['aux']), axis=-1)

@@ -116,8 +116,7 @@ class UNet(FastVGGUNetEval, BaseSegmentor):
         0.5 x batch dice, and the training metrics, of a train forward of
         the unfolded net (never the executor, which folds BN)."""
         sem_logit = self.forward_train(batch['data']['img'])['sem']
-        sem_gt = torch.as_tensor(batch['label']['sem_gt_inner'], device=self.device)
-        weight_map = torch.as_tensor(batch['label']['loss_weight_map'], device=self.device)
+        sem_gt, weight_map = self.label(batch, 'sem_gt_inner'), self.label(batch, 'loss_weight_map')
         losses = {'sem_ce_loss': 5.0 * cross_entropy(sem_logit, sem_gt, weight=weight_map),
                   'sem_dice_loss': 0.5 * batch_multiclass_dice_loss(sem_logit, sem_gt, self.num_classes)}
         losses.update(self.training_metrics(sem_logit, sem_gt))

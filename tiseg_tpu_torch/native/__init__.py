@@ -1,6 +1,6 @@
 """ctypes bindings of the port's host C++ label maps (``labelmaps.cpp``; port
-of the part of tiseg_tpu/native that the MoNuSeg UNet recipe's train
-pipeline reaches).
+of the part of tiseg_tpu/native that the train pipelines of the UNet, CUNet
+and CDNet recipes reach).
 
 The library is built by ``g++ -O3 -shared -fPIC`` at first use into
 ``build/native/`` beside the package, rebuilt when the source is newer, and
@@ -9,9 +9,12 @@ loader's threads run the label maps in parallel. Nothing is built when the
 package is imported. A failed build raises, naming ``g++``: there is no
 silent numpy route. The numpy routes the functions replace are their plain
 versions (``datasets/utils/instance.py:fix_instance_plain``,
-``datasets/ops/label_maps.py:instance_boxes_plain`` and
-``UNetLabelMake._remove_1px_boundary_plain`` / ``_get_weight_map_plain``),
-which the tests hold them against.
+``datasets/ops/label_maps.py:instance_boxes_plain``,
+``UNetLabelMake._remove_1px_boundary_plain`` / ``_get_weight_map_plain``,
+``BoundLabelMake._bound_map_plain``, ``DirectionLabelMake
+.calculate_point_map_plain`` / ``calculate_weight_map_plain`` and
+``datasets/utils/center.py:calculate_centerpoint``), which the tests hold
+them against.
 """
 from __future__ import annotations
 
@@ -65,6 +68,16 @@ def _load() -> ctypes.CDLL:
                 lib.unet_weight_map.restype = None
                 lib.instance_bboxes.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int32, i32p]
                 lib.instance_bboxes.restype = None
+                f32p, u8p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8)
+                lib.all_centerpoints.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int32, i32p]
+                lib.all_centerpoints.restype = None
+                lib.dlm_point_maps.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int32, ctypes.c_int,
+                                               ctypes.c_int, f32p, f32p, i32p]
+                lib.dlm_point_maps.restype = None
+                lib.ddm_weight.argtypes = [i32p, f32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i32p, f32p]
+                lib.ddm_weight.restype = None
+                lib.bound_map.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p]
+                lib.bound_map.restype = None
                 _lib = lib
     return _lib
 
@@ -118,3 +131,53 @@ def instance_bboxes(inst: np.ndarray, n_ids: int) -> np.ndarray:
     out = np.empty((n_ids + 1, 4), np.int32)
     _load().instance_bboxes(_ptr(inst, ctypes.c_int32), h, w, n_ids, _ptr(out, ctypes.c_int32))
     return out
+
+
+def all_centerpoints(inst: np.ndarray, n_ids: int) -> np.ndarray:
+    """(n_ids + 1, 2) int32 FCOS-centerness centres (y, x) of the ids
+    1..``n_ids`` in image coordinates; row 0 unused, -1 where an id is
+    absent."""
+    inst = _i32(inst)
+    h, w = inst.shape
+    out = np.full((n_ids + 1, 2), -1, np.int32)
+    _load().all_centerpoints(_ptr(inst, ctypes.c_int32), h, w, n_ids, _ptr(out, ctypes.c_int32))
+    return out
+
+
+def dlm_point_maps(inst: np.ndarray, n_ids: int, ksize: int = 11, to_center: bool = True):
+    """DirectionLabelMake's per-instance stage in one call: (dist float32
+    (H, W) before the square-root scaling, gradient float32 (H, W, 2),
+    centres (n_ids + 1, 2) int32 as :func:`all_centerpoints`)."""
+    inst = _i32(inst)
+    h, w = inst.shape
+    dist = np.zeros((h, w), np.float32)
+    grad = np.zeros((h, w, 2), np.float32)
+    centers = np.full((n_ids + 1, 2), -1, np.int32)
+    _load().dlm_point_maps(_ptr(inst, ctypes.c_int32), h, w, n_ids, ksize, int(to_center), _ptr(dist, ctypes.c_float),
+                           _ptr(grad, ctypes.c_float), _ptr(centers, ctypes.c_int32))
+    return dist, grad, centers
+
+
+def ddm_weight(dir_map: np.ndarray, dist_map: np.ndarray, vecs) -> np.ndarray:
+    """DirectionLabelMake's float32 loss weight map from the direction
+    differential map; ``vecs`` is the (C, 2) ``LABEL_TO_VECTOR`` table of
+    C = num_angles + 1 classes."""
+    dir_map = _i32(dir_map)
+    h, w = dir_map.shape
+    dist = np.ascontiguousarray(np.asarray(dist_map, np.float32))
+    vecs = _i32(vecs)
+    out = np.zeros((h, w), np.float32)
+    _load().ddm_weight(_ptr(dir_map, ctypes.c_int32), _ptr(dist, ctypes.c_float), h, w, len(vecs),
+                       _ptr(vecs, ctypes.c_int32), _ptr(out, ctypes.c_float))
+    return out
+
+
+def bound_map(inst: np.ndarray, r0: int, r1: int) -> np.ndarray:
+    """Boolean boundary of every instance: its diamond(``r0``) dilation
+    minus its diamond(``r1``) erosion (pixels outside the image never
+    erode)."""
+    inst = _i32(inst)
+    h, w = inst.shape
+    out = np.zeros((h, w), np.uint8)
+    _load().bound_map(_ptr(inst, ctypes.c_int32), h, w, r0, r1, _ptr(out, ctypes.c_uint8))
+    return out > 0
