@@ -147,6 +147,23 @@
    their numpy plain versions (bound_map bit for bit, dlm_point_maps and
    ddm_weight within the tolerances of tests/test_native_labelmaps.py,
    dir_gt equal off the sector boundaries).
+   Then the training of HoVer-Net, DCAN, FullNet, MicroNet and CMicroNet
+   (zoo_train_path), each from its MoNuSeg recipe at full width on one batch
+   of the recipe's own train pipeline (HVLabelMake, BoundLabelMake or
+   UNetLabelMake in C++) at its samples_per_gpu (HoVer-Net and FullNet 8 x
+   256^2, DCAN 4 x 256^2, MicroNet and CMicroNet 4 x 252^2): with dropout off
+   (models/nn.py:dropout_mask all ones), the loss, every log value and every
+   gradient on the card against the port's CPU path in float64 and float32
+   (HoVer-Net and FullNet on the top-left 128^2 of one image, DCAN of two,
+   the MicroNets on one 252^2 image); then, dropout on, drawn from the step's
+   generator, 3 + 10 steps (ms per step, images/s, peak GiB). Then the
+   HoVer-Net recipe (batch 8) and the DCAN recipe (batch 4) through the CLIs
+   as the CDNet one (hovernet_cli_path, dcan_cli_path; the best by Dice):
+   HoVer-Net's eval hook on 256^2 val tiles launches per tile B2 twice on
+   its cluster route with B4 fused, B3 and B5 once each on theirs; DCAN's B1
+   once per 1000^2 tile on its strip route; the loader on HVLabelMake's C++
+   hv_map against its numpy plain version in turns, and the two bit for bit
+   on the 24 windows.
 4. Drives the HoVer-Net eval path once through InferenceRunner at the full
    width of the CoNIC recipe (ResNetExt50 + three dense decoders, 7 classes,
    float32, seeded weights and BN statistics): 16 images of 256^2 at CoNIC
@@ -177,6 +194,15 @@
    The classifiers of these nets are rescaled on view 0 of the images so
    that every class occurs, and their background biases bisected so that
    about 40% of the fused map is foreground and 10% seeds.
+   Then DCAN, FullNet, MicroNet and CMicroNet from their MoNuSeg recipes
+   (zoo_eval_path; split 256/40 windows, the MicroNets' 252/40, x 8 views,
+   device_postprocess=True) through InferenceRunner on 16 x 256^2 images,
+   their classifiers shifted so that about 40% of the fused argmax is a
+   nucleus (and 10% a contour for DCAN, the boundary class for CMicroNet):
+   B1 once per batch on the route of pp_route, equal to the plain version on
+   the same plane; one image on the card against the port's CPU path (the
+   MicroNets on the identity view alone) within MAP_TOL, the argmax equal
+   off the near-ties; e2e, forward and post-processing ms per image.
 7. UNet.postprocess on 16 images of 256^2 under device_postprocess True (B1
    on its cluster route, one launch per image; timed in turns against its
    earlier chain on one image, and the cluster kernel at 1024 threads per
@@ -1116,10 +1142,12 @@ F32_LOSS_RTOL, F32_GRAD_FACTOR, F32_GRAD_FLOOR = 1e-5, 4.0, 1e-4
 # the dice metrics (x 100 of argmax counts, float32 in either path): float64 logits of the two paths agree to ~1e-13,
 # so no argmax moves; in float32 a near-tie may move a few pixels of the 2 x 256^2 check batch, ~0.005 points each
 F64_METRIC_ATOL, F32_METRIC_ATOL = 1e-4, 0.05
-# loss terms that read an argmax of the logits: MultiTaskCDNet's topological loss takes its contour from the tc
-# argmax and, with tploss_weight, its weights from the direction argmax; in float32 a near-tie moves a pixel of
-# either (2e-5 of the term seen on the card), so the term and the total get this bound in float32
-ARGMAX_LOSS_TERMS, F32_ARGMAX_RTOL = ('dir_tp_loss',), 1e-4
+# loss terms with a looser float32 bound, and the total by their share: MultiTaskCDNet's topological loss reads
+# an argmax of the logits (its contour from the tc argmax and, with tploss_weight, its weights from the direction
+# argmax), and in float32 a near-tie moves a pixel of either (2e-5 of the term seen on the card); HoVer-Net's
+# gradient MSE squares the difference of two Sobel-filtered HV maps, which cancels most of them (1.06e-5 of the
+# term on the card, 1 x 128^2, the rest of the loss within 6e-6)
+ARGMAX_LOSS_TERMS, F32_ARGMAX_RTOL = ('dir_tp_loss', 'hv_msge_loss'), 1e-4
 TRAIN_LOGS = ('loss', 'sem_ce_loss', 'sem_dice_loss', 'sem_tdice', 'sem_mdice')
 
 
@@ -1867,7 +1895,8 @@ def plain_label_maps():
               for cls, name in ((label_maps.UNetLabelMake, '_remove_1px_boundary'),
                                 (label_maps.UNetLabelMake, '_get_weight_map'), (label_maps.BoundLabelMake, '_bound_map'),
                                 (label_maps.DirectionLabelMake, 'calculate_point_map'),
-                                (label_maps.DirectionLabelMake, 'calculate_weight_map'))]
+                                (label_maps.DirectionLabelMake, 'calculate_weight_map'),
+                                (label_maps.HVLabelMake, '_hv_map'))]
     saved = [(obj, name, vars(obj)[name] if isinstance(obj, type) else getattr(obj, name)) for obj, name, _ in swaps]
     for obj, name, value in swaps:
         setattr(obj, name, value)
@@ -1878,15 +1907,42 @@ def plain_label_maps():
             setattr(obj, name, value)
 
 
-def zero_b1_counters():
+def b1_counters() -> dict:
+    """B1's counters, name -> (wrapper, attribute)."""
     from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
-    for name in B1_COUNTERS:
-        setattr(instance_postprocess_sweep, name, 0)
+    return {name: (instance_postprocess_sweep, name) for name in B1_COUNTERS}
 
 
-def b1_counts() -> dict:
-    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
-    return {name: getattr(instance_postprocess_sweep, name) for name in B1_COUNTERS}
+def hover_counters() -> dict:
+    """The counters of HoVer-Net's post-processing kernels (B2 with B4 fused, B4 alone, B3, B5)."""
+    from tiseg_tpu_torch.ops.flood import ccl_filter_sweep, ccl_sweep, fill_holes_sweep, size_filter
+    from tiseg_tpu_torch.ops.watershed import watershed
+    return {'ccl_sweep': (ccl_sweep, 'launches'), 'ccl_sweep cluster': (ccl_sweep, 'cluster_launches'),
+            'ccl_sweep global': (ccl_sweep, 'global_launches'),
+            'ccl_filter_sweep fused': (ccl_filter_sweep, 'fused_launches'),
+            'size_filter': (size_filter, 'launches'), 'fill_holes_sweep': (fill_holes_sweep, 'launches'),
+            'fill_holes_sweep cluster': (fill_holes_sweep, 'cluster_launches'),
+            'fill_holes_sweep global': (fill_holes_sweep, 'global_launches'),
+            'watershed': (watershed, 'launches'), 'watershed cluster': (watershed, 'cluster_launches'),
+            'watershed global': (watershed, 'global_launches')}
+
+
+# per plane of up to 408^2: B2 twice on its cluster route with B4 fused, B3 and B5 once each on theirs
+HOVER_LAUNCHES = {'ccl_sweep': 2, 'ccl_sweep cluster': 2, 'ccl_sweep global': 0, 'ccl_filter_sweep fused': 2,
+                  'size_filter': 0, 'fill_holes_sweep': 1, 'fill_holes_sweep cluster': 1, 'fill_holes_sweep global': 0,
+                  'watershed': 1, 'watershed cluster': 1, 'watershed global': 0}
+# per 1000^2 plane through the two-class B1: one launch on its strip route
+B1_STRIP_LAUNCHES = {'launches': 1, 'vectorized_launches': 0, 'cluster_launches': 0, 'strip_launches': 1,
+                     'global_launches': 0}
+
+
+def zero_counts(counters: dict) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(counters: dict) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
 def train_cli_path(args):
@@ -1894,11 +1950,16 @@ def train_cli_path(args):
     recipe_cli_path(args, 'train CLI', UNET_CONFIG, 'cli', 60000, args.patch_batch)
 
 
-def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_batch: int, save_best=None):
+def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_batch: int, save_best=None,
+                    val_hw: int = LOOP_HW, counters=None, per_image=None):
     """A MoNuSeg recipe through the port's train and test CLIs on the card: two epochs with the eval hook,
     a checkpoint and the best (by the recipe's metric, or ``save_best``); auto-resume for a third epoch; the best
     checkpoint scored by tools/test.py against a direct evaluation; the loader on the C++ label maps against
-    their numpy plain versions. Returns the train windows' data (image, semantic and instance maps)."""
+    their numpy plain versions. The eval hook runs on val tiles of ``val_hw``^2 and launches, per tile, the
+    kernels of ``counters`` as often as ``per_image`` says (default: B1 once on its strip route). Returns the
+    train windows' data (image, semantic and instance maps)."""
+    counters = counters or b1_counters()
+    per_image = per_image or B1_STRIP_LAUNCHES
     import shutil
     from tiseg_tpu_torch.apis import build_train_state, single_device_test
     from tiseg_tpu_torch.datasets import build_dataloader, build_dataset
@@ -1912,8 +1973,9 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
     t0 = time.perf_counter()
     train_kw, windows = write_tiles(f'{name}_w512_s256', range(args.seed + seed0, args.seed + seed0 + CLI_WINDOWS),
                                     WINDOW_HW, WINDOW_NUCLEI)
+    val_nuclei = round(LOOP_NUCLEI * (val_hw / LOOP_HW) ** 2)
     val_kw, _ = write_tiles(f'{name}_w0_s0', range(args.seed + seed0 + 1000, args.seed + seed0 + 1000 + CLI_VAL_TILES),
-                            LOOP_HW, LOOP_NUCLEI)
+                            val_hw, val_nuclei)
     work = os.path.join(ROOT, 'build', 'dev', f'{name}_train')
     shutil.rmtree(work, ignore_errors=True)
     cfg = Config.fromfile(os.path.join(ROOT, config))
@@ -1926,7 +1988,7 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
              'log_config.interval=1'] + ([f'evaluation.save_best={save_best}'] if save_best else [])
     metric = save_best or cfg.evaluation['save_best']
     print(f'{label}: {config}; {CLI_WINDOWS} windows of {WINDOW_HW}^2 ({WINDOW_NUCLEI} nuclei) and {CLI_VAL_TILES} val tiles '
-          f'of {LOOP_HW}^2 ({LOOP_NUCLEI} nuclei) written in {time.perf_counter() - t0:.1f} s', flush=True)
+          f'of {val_hw}^2 ({val_nuclei} nuclei) written in {time.perf_counter() - t0:.1f} s', flush=True)
 
     val_ds = build_dataset(dict(val_kw, processes=cfg.data.test.processes), default_args=dict(test_mode=True))
     model = dict(cfg.model, test_cfg=dict(cfg.model.test_cfg, device_postprocess=True, device_metrics=True,
@@ -1968,23 +2030,23 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
     argv = [config, '--work-dir', work, '--seed', str(args.seed), '--options', *data, *hooks, *test_cfg]
     try:
         # first run: two epochs
-        zero_b1_counters()
+        zero_counts(counters)
         t1 = time.perf_counter()
         state = train_cli.main(argv + [f'runner.max_epochs={CLI_EPOCHS}'])
         torch.cuda.synchronize()
         run1_s = time.perf_counter() - t1
-        b1_first = b1_counts()
+        k_first = read_counts(counters)
         ckpt_dir = os.path.join(work, 'checkpoints')
         files = sorted(os.listdir(ckpt_dir))
         saved = torch.load(os.path.join(ckpt_dir, f'{state.step}.pt'), map_location='cpu', weights_only=True)
         records = JsonlLogger(os.path.join(work, 'log.jsonl')).read()
         # the resumed run: a third epoch
-        zero_b1_counters()
+        zero_counts(counters)
         t1 = time.perf_counter()
         resumed = train_cli.main(argv + [f'runner.max_epochs={CLI_RESUMED_EPOCHS}', '--resume-from', 'auto'])
         torch.cuda.synchronize()
         run2_s = time.perf_counter() - t1
-        b1_resumed = b1_counts()
+        k_resumed = read_counts(counters)
     finally:
         for owner, name, inner, _ in wraps:
             setattr(owner, name, inner)
@@ -1999,13 +2061,15 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
           and len(train) == iters * CLI_EPOCHS and [r['lr'] for r in train] == want_lrs
           and all(np.isfinite(r['loss']) for r in train) and len(val) == CLI_EPOCHS
           and files == [f'{state.step}.pt', 'best.pt', 'best_meta.json'])
-    expect_b1 = dict(launches=CLI_VAL_TILES * CLI_EPOCHS, strip_launches=CLI_VAL_TILES * CLI_EPOCHS)
+    expect_first = {k: n * CLI_VAL_TILES * CLI_EPOCHS for k, n in per_image.items()}
+    expect_resumed = {k: n * CLI_VAL_TILES for k, n in per_image.items()}
     print(f'{label}, first run ({run1_s:.1f} s): step {state.step}; {len(train)} train records, LR {[r["lr"] for r in train]} '
           f'(build_lr_schedule {want_lrs}); losses {[round(r["loss"], 4) for r in train]}; val mAji '
-          f'{[r.get("mAji") for r in val]}, mDice {[r.get("mDice") for r in val]}; checkpoints {files}; B1 {b1_first}',
+          f'{[r.get("mAji") for r in val]}, mDice {[r.get("mDice") for r in val]}; checkpoints {files}; eval hook launches {k_first}',
           flush=True)
-    if not ok or any(b1_first[k] != v for k, v in expect_b1.items()) or b1_first['global_launches']:
-        raise AssertionError(f'{label}, first run: step {state.step}, records {records}, files {files}, B1 {b1_first}')
+    if not ok or k_first != expect_first:
+        raise AssertionError(f'{label}, first run: step {state.step}, records {records}, files {files}, eval hook '
+                             f'launches {k_first} (expected {expect_first})')
     with open(os.path.join(ckpt_dir, 'best_meta.json')) as f:
         meta = json.load(f)
     if meta['metric'] != metric or not np.isfinite(meta['value']):
@@ -2023,7 +2087,7 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
     print(f'{label}, resumed run ({run2_s:.1f} s): restored step {restored["step"]}, start epoch '
           f'{restored["start_epoch"]}; net and optimizer state equal to {state.step}.pt bit for bit: {same_net}, '
           f'{same_opt}; ends at step {resumed.step}; records {[(r["mode"], r["epoch"]) for r in records2]}; checkpoints '
-          f'{files2}; B1 {b1_resumed}', flush=True)
+          f'{files2}; eval hook launches {k_resumed}', flush=True)
     # the resumed runner keeps the best score: best.pt stays the net of the best of the three evaluations
     vals = [r[f'm{metric}'] for r in val + records2 if r['mode'] == 'val' and np.isfinite(r[f'm{metric}'])]
     with open(os.path.join(ckpt_dir, 'best_meta.json')) as f:
@@ -2035,8 +2099,7 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
     if not (same_net and same_opt and restored['step'] == iters * CLI_EPOCHS and restored['start_epoch'] == CLI_EPOCHS
             and resumed.step == last
             and [(r['mode'], r['epoch']) for r in records2] == [('train', 3)] * iters + [('val', 3)]
-            and files2 == [f'{last}.pt', 'best.pt', 'best_meta.json'] and b1_resumed['strip_launches'] == CLI_VAL_TILES
-            and b1_resumed['launches'] == CLI_VAL_TILES):
+            and files2 == [f'{last}.pt', 'best.pt', 'best_meta.json'] and k_resumed == expect_resumed):
         raise AssertionError(f'{label}: the resumed run differs from the checkpoint or the schedule')
 
     # score best.pt through tools/test.py against single_device_test + evaluate on the same weights
@@ -2083,7 +2146,7 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
 
     # the loader on the recipe's pipeline: the C++ label maps and their numpy plain versions, in turns
     rates, one_ms = collections.defaultdict(list), collections.defaultdict(list)
-    for route in ('cpp', 'numpy', 'numpy', 'cpp'):
+    for route in ('cpp', 'numpy', 'cpp'):  # one numpy pass: CDNet's numpy route reads 1.2-2 samples/s
         with plain_label_maps() if route == 'numpy' else contextlib.nullcontext():
             t1 = time.perf_counter()
             for i in range(8):
@@ -2097,11 +2160,11 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
     print(f'{label} numbers ({card}): ms per iteration (the runner\'s time field) {[round(t, 2) for t in times]}, '
           f'per epoch {[round(ms, 2) for ms in epoch_ms]}; the card\'s work per step {work_ms:.2f} ms (pre-staged '
           f'batches, CUDA events), idle {[f"{i:.1%}" for i in idle]} of each epoch\'s loader-fed iterations; eval hook '
-          f'{[round(ms, 2) for ms in eval_ms]} ms per {LOOP_HW}^2 image; checkpoint save {[round(ms, 1) for ms in spans["checkpoint_save"]]} '
+          f'{[round(ms, 2) for ms in eval_ms]} ms per {val_hw}^2 image; checkpoint save {[round(ms, 1) for ms in spans["checkpoint_save"]]} '
           f'ms, best save {[round(ms, 1) for ms in spans["best_save"]]} ms, restore {[round(ms, 1) for ms in spans["checkpoint_restore"]]} '
           f'ms, torch.load alone {load_ms:.1f} ms; on disk {sizes} MB', flush=True)
     print(f'{label} loader ({card}; {os.cpu_count()} host cores; batches of {loader.batch_size}, {loader.num_workers} '
-          f'threads, {CLI_WINDOWS} windows, in turns C++, numpy, numpy, C++): samples/s C++ label maps '
+          f'threads, {CLI_WINDOWS} windows, in turns C++, numpy, C++): samples/s C++ label maps '
           f'{[round(r, 2) for r in rates["cpp"]]}, numpy plain versions {[round(r, 2) for r in rates["numpy"]]}; '
           f'one sample on one thread C++ {[round(ms, 1) for ms in one_ms["cpp"]]} ms, numpy '
           f'{[round(ms, 1) for ms in one_ms["numpy"]]} ms', flush=True)
@@ -2109,7 +2172,8 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
                                     'eval_hook_ms_per_image': eval_ms, 'checkpoint_ms': dict(spans),
                                     'torch_load_ms': load_ms, 'checkpoint_mb': sizes, 'loader_samples_per_s': rates,
                                     'pipeline_ms_per_sample_one_thread': one_ms, 'test_cli': {k: float(v) for k, v in got.items()},
-                                    'b1': [b1_first, b1_resumed], 'host_cores': os.cpu_count()}}), flush=True)
+                                    'eval_hook_launches': [k_first, k_resumed], 'host_cores': os.cpu_count()}}),
+          flush=True)
     return windows
 
 
@@ -2262,6 +2326,277 @@ def cdnet_cli_path(args):
     check_label_maps_on(windows)
 
 
+# -- phase 3g: HoVer-Net's training, and DCAN, FullNet, MicroNet and CMicroNet ------------------------
+ZOO_TRAIN = (  # (name, MoNuSeg recipe, images and crop of the card-against-CPU check)
+    ('HoverNet', 'configs/hovernet/hovernet_adam-lr0.0001_bs8_256x256_300e_monuseg.py', 1, 128),
+    ('DCAN', 'configs/dcan/dcan_adam-lr0.0001_bs4_256x256_300e_monuseg.py', 2, 128),
+    ('FullNet', 'configs/fullnet/fullnet_adam-lr0.001_bs8_256x256_300e_monuseg.py', 1, 128),
+    ('MicroNet', 'configs/micronet/micronet_adam-lr0.0001_bs4_252x252_300e_monuseg.py', 1, 252),
+    ('CMicroNet', 'configs/cmicronet/cmicronet_adam-lr0.0001_bs4_252x252_300e_monuseg.py', 1, 252),
+)
+ZOO_CONFIG = {name: config for name, config, *_ in ZOO_TRAIN}
+
+
+@contextlib.contextmanager
+def dropout_off():
+    """Every dropout of the port's nets the identity (``models/nn.py:dropout_mask`` all ones), for the checks
+    against the CPU: the two devices' generators draw different masks."""
+    from tiseg_tpu_torch.models import nn as port_nn
+    saved = port_nn.dropout_mask
+    port_nn.dropout_mask = lambda shape, p, generator, device, dtype: torch.ones(shape, device=device, dtype=dtype)
+    try:
+        yield
+    finally:
+        port_nn.dropout_mask = saved
+
+
+def zoo_train_path(args):
+    """HoVer-Net, DCAN, FullNet, MicroNet and CMicroNet, each from its MoNuSeg recipe at full width: one batch of
+    the recipe's own train pipeline (HVLabelMake, BoundLabelMake or UNetLabelMake in C++) at its samples_per_gpu;
+    with dropout off, the loss, every log value and every gradient on the card against the port's CPU path in
+    float64 and float32 (HoVer-Net and FullNet on the top-left 128^2 of one image, DCAN of two, MicroNet and
+    CMicroNet on one whole 252^2 image); then, with dropout on (drawn from the step's generator), 3 warm-up and 10
+    timed steps of make_train_step."""
+    from tiseg_tpu_torch.apis import build_train_state
+    from tiseg_tpu_torch.datasets import build_dataloader, build_dataset
+    from tiseg_tpu_torch.engine import make_train_step, trainable_parameters
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.utils import Config
+
+    t0 = time.perf_counter()
+    kw, _ = write_tiles('zoo_w512_s256', range(args.seed + 72000, args.seed + 72000 + FAMILY_WINDOWS), WINDOW_HW,
+                        WINDOW_NUCLEI)
+    card = card_line()
+    print(f'zoo train: {FAMILY_WINDOWS} windows of {WINDOW_HW}^2 ({WINDOW_NUCLEI} nuclei) written in '
+          f'{time.perf_counter() - t0:.1f} s; float32, TF32 off; {card}', flush=True)
+    out = {}
+    for name, config, check_n, check_hw in ZOO_TRAIN:
+        t0 = time.perf_counter()
+        cfg = Config.fromfile(os.path.join(ROOT, config))
+        n = cfg.data.samples_per_gpu
+        crop = next(p for p in cfg.data.train.processes if p['type'] == 'RandomCrop')['crop_size'][0]
+        loader = build_dataloader(build_dataset(dict(kw, processes=cfg.data.train.processes)), n,
+                                  cfg.data.workers_per_gpu, seed=args.seed)
+        t1 = time.perf_counter()
+        host = list(loader)[0]  # the whole epoch: the loader's threads end with it
+        pipeline_s = time.perf_counter() - t1
+        host.pop('metas')
+        want = set(next(p for p in cfg.data.train.processes if p['type'] == 'Formatting')['label_keys'])
+        if set(host['label']) != want or host['data']['img'].shape != (n, crop, crop, 3):
+            raise AssertionError(f'{name} train: batch {[(k, v.shape) for k, v in host["label"].items()]}')
+        batch = {g: {k: torch.from_numpy(v).cuda() for k, v in host[g].items()} for g in ('data', 'label')}
+        with dropout_off():
+            check_train_gradients(cfg, args.seed, {g: {k: v[:check_n, :check_hw, :check_hw] for k, v in items.items()}
+                                                   for g, items in batch.items()}, name, FAMILY_F32_GRAD_FLOOR)
+        check_s = time.perf_counter() - t1 - pipeline_s
+
+        seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+        state = build_train_state(seg, cfg, iters_per_epoch=WINDOWS // n, seed=args.seed)
+        step = make_train_step(seg)
+        for _ in range(TRAIN_WARMUP):
+            state, logs = step(state, batch)
+        first = {k: float(v) for k, v in logs.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(TRAIN_TIMED):
+            t1 = time.perf_counter()
+            state, logs = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        last = {k: float(v) for k, v in logs.items()}
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = statistics.median(times)
+        if seg.net.training or not all(np.isfinite(v) for v in (*first.values(), *last.values())):
+            raise AssertionError(f'{name} train: logs {first} {last}, net in train mode {seg.net.training}')
+        n_params = sum(p.numel() for p in trainable_parameters(seg.net))
+        out[name] = {'config': config, 'batch': n, 'crop': crop, 'ms_per_step': step_ms, 'ms_min': min(times),
+                     'ms_max': max(times), 'images_per_s': n / step_ms * 1e3, 'peak_gib': peak_gib,
+                     'pipeline_s': pipeline_s, 'loss_first': first['loss'], 'loss_last': last['loss'],
+                     'trained_parameters': n_params}
+        print(f'{name} train step ({card}): {config}, batch {n} x {crop}^2, {len(trainable_parameters(seg.net))} '
+              f'trained leaves ({n_params} parameters), dropout on; {step_ms:.2f} ms per step (median of '
+              f'{TRAIN_TIMED} after {TRAIN_WARMUP} warm-ups, each ended by a synchronize; min {min(times):.2f}, max '
+              f'{max(times):.2f}), {n / step_ms * 1e3:.1f} images/s, peak memory {peak_gib:.3f} GiB; the batch '
+              f'through the loader {pipeline_s:.2f} s, the gradient check {check_s:.1f} s, the phase '
+              f'{time.perf_counter() - t0:.1f} s; logs at step {state.step - 1}: {json.dumps(last)}', flush=True)
+        del seg, state, step, batch
+        torch.cuda.empty_cache()
+    print(json.dumps({'zoo_train': out}), flush=True)
+
+
+def nucleus_share_(seg, imgs, conv) -> None:
+    """~40% of the pixels a nucleus (the background bias of the classifier ``conv``, bisected)."""
+    background_bias_(seg, imgs, 'sem', conv, lambda m: m.argmax(-1) == 1, share=0.4)
+
+
+def dcan_shares_(seg, imgs) -> None:
+    """~10% of the pixels a contour, then ~40% a nucleus."""
+    background_bias_(seg, imgs, 'cont', seg.net.up_conv_6_cont.conv, lambda m: m.argmax(-1) > 0, share=0.1)
+    nucleus_share_(seg, imgs, seg.net.up_conv_6_cell.conv)
+
+
+def micronet_shares_(seg, imgs) -> None:
+    nucleus_share_(seg, imgs, seg.net.final_sem_conv)
+
+
+@torch.no_grad()
+def cmicronet_shares_(seg, imgs) -> None:
+    """~10% of the pixels the boundary class (its bias, bisected), then ~40% a nucleus."""
+    conv = seg.net.final_sem_conv
+    start = float(conv.bias[2])
+    bisect_share_(seg, imgs, 'sem', lambda m: m.argmax(-1) == 2, 0.1, lambda t: conv.bias.__setitem__(2, start - t))
+    nucleus_share_(seg, imgs, conv)
+
+
+@torch.no_grad()
+def fullnet_shares_(seg, imgs) -> None:
+    """Half the pixels background, then ~40% a nucleus."""
+    fullnet_class_share_(seg, imgs, 0, share=0.5)
+    fullnet_class_share_(seg, imgs, 1, share=0.4)
+
+
+# (name, the classifier shifts that set the class shares of a seeded net; the views of a seeded net disagree about the
+# classes, and its padded convolutions give the fused plane a frame of one class: a frame of nuclei encloses the
+# plane, and B1's hole filling then takes all of it, as it does for MicroNet and FullNet here)
+ZOO_EVAL = (('DCAN', dcan_shares_), ('FullNet', fullnet_shares_), ('MicroNet', micronet_shares_),
+            ('CMicroNet', cmicronet_shares_))
+ZOO_EVAL_IMAGES, ZOO_EVAL_HW, ZOO_EVAL_TIMED = 16, 256, 2  # images, their size, timed e2e batches
+# patches per network forward: DCAN resizes 2048 channels of taps to each 256^2 patch (2 GB per 64 patches and tap)
+ZOO_PATCH_BATCH = {'DCAN': 16, 'FullNet': 32, 'MicroNet': 32, 'CMicroNet': 32}
+
+
+def zoo_eval_path(args):
+    """DCAN, FullNet, MicroNet and CMicroNet from their MoNuSeg recipes (split 256/40 windows, MicroNet's 252/40,
+    x 8 views, device_postprocess=True) through InferenceRunner on 16 x 256^2 images: B1 once per batch on the
+    route pp_route gives, its output equal to the plain version on the same semantic plane; on one image the card's
+    fused maps against the port's CPU path (MicroNet and CMicroNet on the identity view alone) within MAP_TOL and
+    their argmax equal off the near-ties; ms per image."""
+    from tiseg_tpu_torch.apis import InferenceRunner
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain, instance_postprocess_sweep, pp_route
+    from tiseg_tpu_torch.utils import Config
+
+    n_img, hw = ZOO_EVAL_IMAGES, ZOO_EVAL_HW
+    imgs = np.stack([make_nuclei(args.seed + 73000 + i, hw, nuclei_density(hw))[0] for i in range(n_img)])
+    img_t = torch.from_numpy(imgs).cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out_stats = {}
+    for name, set_shares in ZOO_EVAL:
+        t0 = time.perf_counter()
+        cfg = Config.fromfile(os.path.join(ROOT, ZOO_CONFIG[name]))
+        cfg.model.test_cfg = dict(cfg.model.test_cfg, device_postprocess=True, patch_batch=ZOO_PATCH_BATCH[name])
+        seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+        set_shares(seg, img_t)
+        runner = InferenceRunner(seg)
+        counters = {'instance_postprocess_sweep': (instance_postprocess_sweep, 'launches'),
+                    'cluster route': (instance_postprocess_sweep, 'cluster_launches'),
+                    'strip route': (instance_postprocess_sweep, 'strip_launches'),
+                    'global route': (instance_postprocess_sweep, 'global_launches')}
+        route = pp_route(n_img, hw, hw, sms).route
+        expect = {'cluster route': int(route == 'cluster'), 'strip route': int(route == 'strip'), 'global route': 0}
+        out, (sem_pred,), launches, peak_gib = drive_once(runner, seg, '_device_instance_pp', imgs, hw, counters,
+                                                          expect=expect)
+        radius = seg.test_cfg.get('radius', seg.device_pp_default_radius)
+        want = instance_postprocess_plain(sem_pred.cpu(), radius, 5, seg.num_classes)
+        sem_out, inst_out = out['sem_pred'], out['inst_pred']
+        if not (sem_out.shape == inst_out.shape == (n_img, hw, hw) and sem_out.dtype == torch.uint8
+                and inst_out.dtype == torch.int32 and inst_out.is_cuda
+                and instance_postprocess_sweep.last_route[0] == route
+                and torch.equal(sem_out.cpu(), want[0]) and torch.equal(inst_out.cpu(), want[1])):
+            raise AssertionError(f'{name} eval: outputs differ from the plain B1 on the same plane, or route '
+                                 f'{instance_postprocess_sweep.last_route} against pp_route {route!r}')
+        n_inst = sum(int((torch.unique(inst_out[b]) > 0).sum()) for b in range(n_img))
+        fg, fg_in = float((sem_out > 0).float().mean()), float((sem_pred == 1).float().mean())
+
+        # one image on the card against the port's CPU path (MicroNet: the identity view alone, for the CPU's time)
+        check_cfg = dict(seg.test_cfg)
+        if name.endswith('MicroNet'):
+            check_cfg.update(rotate_degrees=[0], flip_directions=['none'])
+        cpu = build_segmentor(dict(cfg.model, test_cfg=check_cfg), device='cpu')
+        cpu.net.load_state_dict({k: v.cpu() for k, v in seg.net.state_dict().items()})
+        saved_cfg, seg.test_cfg = seg.test_cfg, check_cfg
+        try:
+            card_fused = {k: v.cpu() for k, v in seg.inference(img_t[:1]).items()}
+        finally:
+            seg.test_cfg = saved_cfg
+        t1 = time.perf_counter()
+        cpu_fused = cpu.inference(torch.from_numpy(imgs[:1]))
+        cpu_s = time.perf_counter() - t1
+        diff = max(float((card_fused[k] - cpu_fused[k]).abs().max()) for k in cpu_fused)
+        top2 = cpu_fused['sem'].topk(2, -1).values
+        near = (top2[..., 0] - top2[..., 1]) <= 2 * MAP_TOL
+        moved = int(((card_fused['sem'].argmax(-1) != cpu_fused['sem'].argmax(-1)) & ~near).sum())
+        if not (diff <= MAP_TOL and moved == 0 and n_inst > 0 and 0.05 <= fg_in <= 0.95):
+            raise AssertionError(f'{name} eval: card against CPU {diff:.3e} (bound {MAP_TOL}), {moved} argmax pixels '
+                                 f'off the near-ties differ; B1 given {fg_in:.3f} nuclei, {n_inst} instances out')
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fused = seg.inference(img_t)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t1) * 1e3 / n_img
+        # the share of pixels that the device route strips (DCAN's contours, the boundary class) or, for
+        # CMicroNet, keeps as a class of its own (MicroNet's flags: no strip)
+        edge = float((fused['cont'].argmax(-1) > 0).float().mean() if name == 'DCAN' else
+                     (fused['sem'].argmax(-1) == seg.num_classes).float().mean())
+        print(f'{name} eval: {ZOO_CONFIG[name]}, test_cfg {seg.test_cfg}; B1 launches {launches} (route {route!r}, '
+              f'{instance_postprocess_sweep.last_route}), equal to the plain version on the same plane; nuclei '
+              f'{fg_in:.4f} of its input, foreground {fg:.4f} of its output, contour or boundary class on '
+              f'{edge:.4f} of the fused argmax, {n_inst} instances in {n_img} images; one image on the card against '
+              f'the CPU path ({cpu_s:.1f} s there): fused maps within {diff:.3e} (bound {MAP_TOL}), argmax equal off '
+              f'{int(near.sum())} near-tie pixels; peak memory {peak_gib:.3f} GiB; phase '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+        e2e_ms = wall_ms(lambda: runner.dispatch(imgs, (hw, hw)), reps=ZOO_EVAL_TIMED) / n_img
+        pp_ms = wall_ms(lambda: seg._device_instance_pp(seg._device_sem_pred(fused)), reps=5) / n_img
+        print(f'{name} eval ({card_line()}): e2e {e2e_ms:.2f} ms per {hw}^2 image (median of {ZOO_EVAL_TIMED} '
+              f'batches of {n_img}, patch_batch {ZOO_PATCH_BATCH[name]}); forward + TTA fuse {fwd_ms:.2f} ms (one '
+              f'batch; {fwd_ms / e2e_ms:.1%}), argmax + B1 {pp_ms:.3f} ms ({pp_ms / e2e_ms:.2%})', flush=True)
+        out_stats[name] = {'e2e_ms_per_image': e2e_ms, 'forward_ms_per_image': fwd_ms, 'pp_ms_per_image': pp_ms,
+                           'launches': launches, 'route': route, 'instances': n_inst, 'foreground': fg,
+                           'nuclei_in': fg_in, 'edge': edge, 'peak_gib': peak_gib, 'cpu_diff': diff}
+        del seg, cpu, runner, fused
+        torch.cuda.empty_cache()
+    print(json.dumps({'zoo_eval': out_stats}), flush=True)
+
+
+HOVER_MONUSEG_CONFIG = ZOO_CONFIG['HoverNet']
+DCAN_MONUSEG_CONFIG = ZOO_CONFIG['DCAN']
+HOVER_VAL_HW = 256  # val tiles within the cluster routes (408^2): B2 with B4 fused, B3 and B5 on one launch each
+
+
+def check_hv_maps_on(windows):
+    """HVLabelMake's C++ maps against its numpy plain version on the instance maps of ``windows``, bit for bit."""
+    from tiseg_tpu_torch.datasets.ops import label_maps as lm
+    t0 = time.perf_counter()
+    n_inst, bad = 0, []
+    for i, (_, _, inst) in enumerate(windows):
+        boxes = lm.padded_boxes(inst)
+        n_inst += len(boxes)
+        if not np.array_equal(lm.HVLabelMake._hv_map(inst, boxes), lm.HVLabelMake._hv_map_plain(inst, boxes)):
+            bad.append(i)
+    print(f'hv_map on the {len(windows)} windows ({n_inst} instances, {time.perf_counter() - t0:.1f} s): the C++ '
+          f'maps equal to the numpy plain version: {not bad}', flush=True)
+    if bad:
+        raise AssertionError(f'hv_map: the C++ differs from the numpy plain version on windows {bad}')
+
+
+def hovernet_cli_path(args):
+    """The HoVer-Net MoNuSeg recipe (batch 8) through tools/train.py and tools/test.py (``recipe_cli_path``), the
+    best kept by Dice, the eval hook on 256^2 val tiles (B2 with B4 fused, B3, B5); then HVLabelMake's C++ maps
+    against their numpy plain version on the windows it wrote."""
+    windows = recipe_cli_path(args, 'HoVer-Net CLI', HOVER_MONUSEG_CONFIG, 'hover_cli', 64000, args.hover_patch_batch,
+                              save_best='Dice', val_hw=HOVER_VAL_HW, counters=hover_counters(),
+                              per_image=HOVER_LAUNCHES)
+    check_hv_maps_on(windows)
+
+
+def dcan_cli_path(args):
+    """The DCAN MoNuSeg recipe (batch 4) through tools/train.py and tools/test.py (``recipe_cli_path``), the best
+    kept by Dice; B1 once per 1000^2 val tile on its strip route."""
+    recipe_cli_path(args, 'DCAN CLI', DCAN_MONUSEG_CONFIG, 'dcan_cli', 66000, ZOO_PATCH_BATCH['DCAN'], save_best='Dice')
+
+
 def time_pp_main_path(model: str, sem_pred: torch.Tensor, radius: int, num_classes: int, launches: int):
     """B1 or B7 on a main path's semantic planes: the route, the earlier
     global chain and the route again, each the median of 25 calls; the
@@ -2370,22 +2705,11 @@ def hover_main_path(args):
     torch.cuda.reset_peak_memory_stats()
     # (wrapper, counter): the route must launch B2 twice on its cluster route, each with B4's size filter fused,
     # B3 once and B5 once, both on their cluster routes, and no global chain and no separate size filter
-    counters = {'ccl_sweep': (ccl_sweep, 'launches'), 'ccl_sweep cluster': (ccl_sweep, 'cluster_launches'),
-                'ccl_sweep global': (ccl_sweep, 'global_launches'),
-                'ccl_filter_sweep fused': (ccl_filter_sweep, 'fused_launches'),
-                'size_filter': (size_filter, 'launches'), 'fill_holes_sweep': (fill_holes_sweep, 'launches'),
-                'fill_holes_sweep cluster': (fill_holes_sweep, 'cluster_launches'),
-                'fill_holes_sweep global': (fill_holes_sweep, 'global_launches'),
-                'watershed': (watershed, 'launches'), 'watershed cluster': (watershed, 'cluster_launches'),
-                'watershed global': (watershed, 'global_launches')}
-    expected = {'ccl_sweep': 2, 'ccl_sweep cluster': 2, 'ccl_sweep global': 0, 'ccl_filter_sweep fused': 2,
-                'size_filter': 0, 'fill_holes_sweep': 1, 'fill_holes_sweep cluster': 1, 'fill_holes_sweep global': 0,
-                'watershed': 1, 'watershed cluster': 1, 'watershed global': 0}
-    for fn, c in counters.values():
-        setattr(fn, c, 0)
+    counters, expected = hover_counters(), HOVER_LAUNCHES
+    zero_counts(counters)
     out = runner.dispatch(imgs, (hw, hw))
     torch.cuda.synchronize()
-    launches = {name: getattr(fn, c) for name, (fn, c) in counters.items()}
+    launches = read_counts(counters)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     seg._instances = instances
     if launches != expected:
@@ -2548,14 +2872,40 @@ def background_bias_(seg, imgs, head: str, conv: torch.nn.Conv2d, hit, share: fl
     TTA-fused map of ``seg.inference``. The views of a seeded net disagree
     about the classes but not about the background, so a share set on view 0
     alone shrinks to a few percent in the mean over the views."""
-    start, lo, hi = float(conv.bias[0]), -16.0, 16.0
+    start = float(conv.bias[0])
+    bisect_share_(seg, imgs, head, hit, share, lambda t: conv.bias.__setitem__(0, start + t), steps)
+
+
+@torch.no_grad()
+def bisect_share_(seg, imgs, head: str, hit, share: float, set_offset, steps: int = 8) -> None:
+    """Bisect ``set_offset(t)``, t in [-16, 16], whose larger values mean fewer hits, until ``share`` of the
+    first two images' pixels are ``hit(fused[head])`` in the TTA-fused map of ``seg.inference``."""
+    lo, hi = -16.0, 16.0
     for step in range(steps + 1):
-        conv.bias[0] = start + (lo + hi) / 2
+        set_offset((lo + hi) / 2)
         if step < steps:
             if float(hit(seg.inference(imgs[:2])[head]).float().mean()) > share:
                 lo = (lo + hi) / 2
             else:
                 hi = (lo + hi) / 2
+
+
+@torch.no_grad()
+def fullnet_class_share_(seg, imgs, cls: int, share: float) -> None:
+    """FullNet's classifier has no bias: bisect instead the shift of the last BN's output channel that raises
+    class ``cls``'s logit most against both others, until ``share`` of the pixels take that class. That
+    channel's 3x3 taps are first gathered into the centre one, so that the shift is the same at the border,
+    where the others would read the zero padding (and draw a ring of one class around the plane)."""
+    conv = seg.net.conv2
+    w = conv.weight.sum((2, 3))
+    lead = torch.stack([w[cls] - w[c] for c in range(w.shape[0]) if c != cls]).min(0).values
+    j = int(lead.argmax())
+    conv.weight[:, j] = 0
+    conv.weight[:, j, 1, 1] = w[:, j]
+    bn, gain = seg.net.blocks.trans7.bn, 1.0 / float(lead[j])
+    start = float(bn.bias[j])
+    bisect_share_(seg, imgs, 'sem', lambda m: m.argmax(-1) == cls, share,
+                  lambda t: bn.bias.__setitem__(j, start - t * gain))
 
 
 def foreground(sem_map: torch.Tensor) -> torch.Tensor:
@@ -3159,6 +3509,18 @@ def main(argv=None) -> int:
     print(f'CDNet CLI phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    zoo_train_path(args)
+    print(f'zoo train phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hovernet_cli_path(args)
+    print(f'HoVer-Net CLI phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dcan_cli_path(args)
+    print(f'DCAN CLI phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     stats.update(hover_main_path(args))
     print(f'HoVer-Net phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
@@ -3176,6 +3538,10 @@ def main(argv=None) -> int:
     for config in (MT_UNET_CONFIG, MT_CUNET_CONFIG):
         multi_task_path(args, config, n_img=2, timed=False)
     print(f'MultiTaskUNet and MultiTaskCUNet phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zoo_eval_path(args)
+    print(f'zoo eval phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
 
     # -- phases 7 and 8 ------------------------------------------------------------

@@ -145,5 +145,5 @@ def test_inference_cli_runs_the_conic_config_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert f'instances: {n_host}' in out and f'instances: {n_dev}' in out
     with pytest.raises(NotImplementedError, match='MultiTaskCDNet'):
-        main([osp.join(root, 'configs/dcan/dcan_adam-lr0.0001_bs4_256x256_300e_monuseg.py'),
+        main([osp.join(root, 'configs/dist/dist_adam-lr0.001_bs16_256x256_300e_monuseg.py'),
               str(tmp_path / 'img.npy'), '--device', 'cpu'])

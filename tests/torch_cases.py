@@ -156,6 +156,24 @@ def family_batch(n=2, hw=64, seed=20):
     return {'data': {'img': np.stack(imgs).astype(np.float32)}, 'label': label}
 
 
+ZOO_CONFIGS = {  # the MoNuSeg recipes of HoVer-Net, DCAN, FullNet, MicroNet and CMicroNet
+    'hovernet': 'configs/hovernet/hovernet_adam-lr0.0001_bs8_256x256_300e_monuseg.py',
+    'dcan': 'configs/dcan/dcan_adam-lr0.0001_bs4_256x256_300e_monuseg.py',
+    'fullnet': 'configs/fullnet/fullnet_adam-lr0.001_bs8_256x256_300e_monuseg.py',
+    'micronet': 'configs/micronet/micronet_adam-lr0.0001_bs4_252x252_300e_monuseg.py',
+    'cmicronet': 'configs/cmicronet/cmicronet_adam-lr0.0001_bs4_252x252_300e_monuseg.py',
+}
+
+
+def zoo_batch(n=2, hw=64, seed=20):
+    """:func:`family_batch` with HVLabelMake's ``hv_gt`` (float32 (n, hw, hw, 2)) added."""
+    from tiseg_tpu_torch.datasets.ops import HVLabelMake
+    batch = family_batch(n, hw, seed)
+    batch['label']['hv_gt'] = np.stack([HVLabelMake()({'inst_gt': inst, 'seg_fields': []})['hv_gt']
+                                        for inst in batch['label']['inst_gt']]).astype(np.float32)
+    return batch
+
+
 def batch_to(batch, device, dtype=torch.float32, weight_map='loss_weight_map'):
     """``batch`` as tensors on ``device``, its float arrays in ``dtype``;
     ``weight_map`` names the label that goes in as ``loss_weight_map``."""
@@ -170,7 +188,8 @@ def plain_label_maps(monkeypatch):
     """Put the port's label maps on their numpy plain versions in place of
     the C++ calls (``fix_instance``, ``instance_boxes``, ``UNetLabelMake``'s
     erosion and weight map, ``BoundLabelMake``'s boundary,
-    ``DirectionLabelMake``'s point maps and weight map) through
+    ``DirectionLabelMake``'s point maps and weight map, ``HVLabelMake``'s
+    maps) through
     ``monkeypatch.setattr``."""
     from tiseg_tpu_torch.datasets.ops import label_maps
     from tiseg_tpu_torch.datasets.utils import instance
@@ -178,8 +197,17 @@ def plain_label_maps(monkeypatch):
     monkeypatch.setattr(label_maps, 'instance_boxes', label_maps.instance_boxes_plain)
     for cls, name in ((label_maps.UNetLabelMake, '_remove_1px_boundary'), (label_maps.UNetLabelMake, '_get_weight_map'),
                       (label_maps.BoundLabelMake, '_bound_map'), (label_maps.DirectionLabelMake, 'calculate_point_map'),
-                      (label_maps.DirectionLabelMake, 'calculate_weight_map')):
+                      (label_maps.DirectionLabelMake, 'calculate_weight_map'), (label_maps.HVLabelMake, '_hv_map')):
         monkeypatch.setattr(cls, name, vars(cls)[f'{name}_plain'])  # the descriptor: static and class methods stay so
+
+
+# -- dropout off, for parity with nets whose dropout draws differ ---------------------------------
+def dropout_off(monkeypatch):
+    """Every dropout of the port's nets the identity: ``models/nn.py:dropout_mask``
+    replaced by all ones through ``monkeypatch.setattr``."""
+    from tiseg_tpu_torch.models import nn as port_nn
+    monkeypatch.setattr(port_nn, 'dropout_mask',
+                        lambda shape, p, generator, device, dtype: torch.ones(shape, device=device, dtype=dtype))
 
 
 # -- few intra-op threads for the training tests ---------------------------------------------------

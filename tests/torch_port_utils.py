@@ -27,7 +27,7 @@ def _random_tree(shapes, seed: int):
         return (0.1 * rng.standard_normal(shape)).astype(np.float32)  # bias, mean
 
     tree = jax.tree_util.tree_map_with_path(leaf, {'params': shapes['params'],
-                                                    'batch_stats': shapes['batch_stats']})
+                                                    'batch_stats': shapes.get('batch_stats', {})})  # DCAN: no BN
     tree = jax.tree_util.tree_map(np.asarray, tree)
     return {'params': dict(tree['params']), 'batch_stats': dict(tree['batch_stats'])}
 
@@ -36,7 +36,8 @@ def _shapes(model_type: str, num_classes: int, train_cfg=None):
     from tiseg_tpu.models import build_segmentor
     seg = build_segmentor(dict(type=model_type, num_classes=num_classes, train_cfg=dict(train_cfg or {}),
                                test_cfg=dict()))
-    return jax.eval_shape(lambda: seg.init_variables(jax.random.PRNGKey(0), hw=(32, 32)))
+    hw = (252, 252) if model_type in ('MicroNet', 'CMicroNet') else (32, 32)  # MicroNet's VALID convs need 252^2
+    return jax.eval_shape(lambda: seg.init_variables(jax.random.PRNGKey(0), hw=hw))
 
 
 def random_variables(model_type: str, num_classes: int, seed: int = 0, train_cfg=None):

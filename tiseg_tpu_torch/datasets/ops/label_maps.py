@@ -1,20 +1,22 @@
 """Label-map generators (port of the part of
-tiseg_tpu/datasets/ops/label_maps.py that the UNet, CUNet and CDNet recipes
-run: ``instance_boxes``, ``BoundLabelMake``, ``UNetLabelMake`` and
-``DirectionLabelMake``; reference tiseg/datasets/ops/{bound,unet,
-direction}_map.py).
+tiseg_tpu/datasets/ops/label_maps.py that the UNet, CUNet, CDNet and
+HoVer-Net recipes run: ``instance_boxes``, ``BoundLabelMake``,
+``UNetLabelMake``, ``DirectionLabelMake`` and ``HVLabelMake``; reference
+tiseg/datasets/ops/{bound,unet,direction,hv}_map.py).
 
-Every op re-canonicalizes the instance map first (drop < 5 px 4-connected
+Every op but ``HVLabelMake`` (which, as the JAX package's, reads the
+instance map as it comes) re-canonicalizes the instance map first (drop < 5 px 4-connected
 fragments, split disconnected parts, renumber) and masks ``sem_gt`` to the
 fixed instances, as the reference's ``_fix_inst`` does. The per-instance
 work runs in the port's C++ label maps (``native/``); the numpy routes
 (``instance_boxes_plain``, ``BoundLabelMake._bound_map_plain``,
 ``UNetLabelMake._remove_1px_boundary_plain`` / ``_get_weight_map_plain``,
 ``DirectionLabelMake.calculate_point_map_plain`` /
-``calculate_weight_map_plain``) are their plain versions, which a caller
-selects explicitly (``tests/torch_cases.py:plain_label_maps``): no maker
-switches routes on an exception. DistanceLabelMake and HVLabelMake are not
-ported yet (``datasets/ops/__init__.py`` names them).
+``calculate_weight_map_plain``, ``HVLabelMake._hv_map_plain``) are their
+plain versions, which a caller selects explicitly
+(``tests/torch_cases.py:plain_label_maps``): no maker switches routes on an
+exception. DistanceLabelMake is not ported yet (``datasets/ops/__init__.py``
+names it).
 """
 from __future__ import annotations
 
@@ -377,3 +379,53 @@ class DirectionLabelMake:
     def _distance_to_centralridge(single):
         d = m.distance_transform_edt(single) * single
         return (d / (d.max() + 1e-7)) * single
+
+
+def padded_boxes(inst_gt: np.ndarray, pad: int = 2) -> np.ndarray:
+    """(nb, 5) int32 rows (id, y0, y1, x0, x1) of every instance's box grown
+    by ``pad`` and clamped to the image, stops exclusive: the input of the
+    per-instance C++ maps."""
+    h, w = inst_gt.shape[:2]
+    return np.array([[k, max(sl[0].start - pad, 0), min(sl[0].stop + pad, h),
+                      max(sl[1].start - pad, 0), min(sl[1].stop + pad, w)]
+                     for k, sl in instance_boxes(inst_gt)], np.int32).reshape(-1, 5)
+
+
+class HVLabelMake:
+    """HoVer-Net's horizontal and vertical maps (``hv_gt``, channels-last
+    (H, W, 2)): per instance, the offsets of its pixels from its center of
+    mass, each sign normalized to [-1, 1] (reference hv_map.py:18-114)."""
+
+    @staticmethod
+    def _hv_map(inst_gt, boxes):
+        """The maps in C++ (``native.hv_map``)."""
+        return native.hv_map(inst_gt, boxes)
+
+    @staticmethod
+    def _hv_map_plain(inst_gt, boxes):
+        x_map = np.zeros(inst_gt.shape[:2], dtype=np.float32)
+        y_map = np.zeros(inst_gt.shape[:2], dtype=np.float32)
+        for inst_id, *box in boxes.tolist():
+            crop = (inst_gt[box[0]:box[1], box[2]:box[3]] == inst_id).astype(np.uint8)
+            if crop.shape[0] < 2 or crop.shape[1] < 2:
+                continue
+            com = [int(c + 0.5) for c in m.center_of_mass(crop)]
+            ix, iy = np.meshgrid(np.arange(1, crop.shape[1] + 1) - com[1], np.arange(1, crop.shape[0] + 1) - com[0])
+            ix[crop == 0] = 0
+            iy[crop == 0] = 0
+            ix = ix.astype(np.float32)
+            iy = iy.astype(np.float32)
+            for v in (ix, iy):  # each sign divided by its extreme
+                if np.min(v) < 0:
+                    v[v < 0] /= -np.amin(v[v < 0])
+                if np.max(v) > 0:
+                    v[v > 0] /= np.amax(v[v > 0])
+            x_map[box[0]:box[1], box[2]:box[3]][crop > 0] = ix[crop > 0]
+            y_map[box[0]:box[1], box[2]:box[3]][crop > 0] = iy[crop > 0]
+        return np.stack([x_map, y_map], axis=-1)
+
+    def __call__(self, data, rng=None):
+        inst_gt = data['inst_gt']
+        data['hv_gt'] = self._hv_map(inst_gt, padded_boxes(inst_gt))
+        data['seg_fields'].append('hv_gt')
+        return data

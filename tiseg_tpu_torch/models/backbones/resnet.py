@@ -109,7 +109,8 @@ class ResNetExt(ResNet):
     """HoVer-Net trunk: ResNet50 with a stride-1, biased 7x7 stem and no stem
     pooling -> pyramid strides (1, 2, 4, 8). The JAX package's stem conv has
     no bias (flax folds the reference's bias into the stem BN), so a carried
-    bias is zero."""
+    bias is zero and stays out of training."""
 
     def __init__(self, device=None):
         super().__init__(depth=50, stem_stride=1, stem_pool=False, stem_bias=True, device=device)
+        self.conv1.bias.requires_grad_(False)

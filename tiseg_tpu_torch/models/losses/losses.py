@@ -176,9 +176,10 @@ def gradient_mse_loss(pred_hv, true_hv, focus):
     """Masked MSE of HV-map gradients (reference hover_loss.py:6-78).
 
     pred/true: (B, H, W, 2) with [..., 0]=horizontal, [..., 1]=vertical;
-    focus: (B, H, W) nuclei mask.
+    focus: (B, H, W) nuclei mask. The Sobel kernel is computed in the
+    prediction's dtype, as the JAX package's (float64 under x64).
     """
-    kh, kv = _hv_sobel_kernel(5, torch.float32, pred_hv.device)
+    kh, kv = _hv_sobel_kernel(5, pred_hv.dtype, pred_hv.device)
 
     def _grad(x, k):  # (B, H, W) 5x5 cross-correlation, zero padding
         return F.conv2d(x[:, None], k.to(x.dtype)[None, None], padding=2)[:, 0]

@@ -4,12 +4,16 @@ Modules take and return NCHW tensors; the segmentor's public functions
 convert from and to the JAX package's NHWC. BatchNorm uses eps 1e-5 and
 momentum 0.1 (flax's 0.9 counted the other way) and updates its running
 variance with the biased batch variance, as flax does (:class:`BatchNorm2d`).
+Dropout draws its mask from the generator the train step hands it
+(:class:`Dropout`), never from torch's global stream.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.sliding import resize_bilinear
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -58,6 +62,46 @@ def transposed_conv_module(in_channels: int, out_channels: int, device=None) -> 
         nn.ConvTranspose2d(in_channels, out_channels, 4, stride=2, padding=1, bias=False, device=device),
         BatchNorm2d(out_channels, eps=1e-5, momentum=0.1, device=device),
         nn.ReLU())
+
+
+def dropout_mask(shape, p: float, generator, device, dtype) -> torch.Tensor:
+    """The multiplier of a train-mode dropout: 1 / (1 - p) where a draw of
+    ``generator`` on ``device`` keeps the element (probability 1 - p), else
+    0. The one place a dropout draws: replaced by ones, every dropout is the
+    identity (the parity checks with dropout off)."""
+    if generator is None:
+        raise ValueError('a train-mode dropout draws from the train step\'s generator: none was given')
+    keep = torch.rand(shape, generator=generator, device=device) < 1.0 - p
+    return keep.to(dtype) / (1.0 - p)
+
+
+class Dropout(nn.Module):
+    """Dropout whose mask comes from ``dropout_mask`` on the tensor's device
+    with the ``generator`` passed to ``forward`` (flax ``nn.Dropout``: keep
+    with probability 1 - p, scale by 1 / (1 - p)); the identity in eval
+    mode."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator=None):
+        if not self.training or self.p == 0:
+            return x
+        return x * dropout_mask(x.shape, self.p, generator, x.device, x.dtype)
+
+    def extra_repr(self) -> str:
+        return f'p={self.p}'
+
+
+def resize_bilinear_nchw(x, out_hw):
+    """:func:`ops.sliding.resize_bilinear` of an NCHW tensor, computed in
+    float32 at least (bfloat16 and half go up to float32, as the JAX nets
+    resize their bfloat16 maps; float64 stays float64) and returned in
+    ``x``'s dtype."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    y = resize_bilinear(x.permute(0, 2, 3, 1).to(dtype), out_hw).permute(0, 3, 1, 2)
+    return y.to(x.dtype)
 
 
 def max_pool_2x(x):

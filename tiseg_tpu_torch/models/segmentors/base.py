@@ -59,14 +59,17 @@ class BaseSegmentor:
         with torch.inference_mode():
             return self.net(img)
 
-    def forward_train(self, img) -> Dict[str, torch.Tensor]:
+    def forward_train(self, img, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Train-mode forward of an NHWC batch, recorded by autograd: BN
         normalises with the batch statistics and updates its running ones
         in place (the JAX package's ``forward_heads(train=True,
-        mutable=True)``). The net is back in ``.eval()`` on return."""
+        mutable=True)``). A net with dropout takes ``generator``, the step's
+        random stream, for its masks. The net is back in ``.eval()`` on
+        return."""
         self.net.train()
         try:
-            return self.net(torch.as_tensor(img, device=self.device))
+            img = torch.as_tensor(img, device=self.device)
+            return self.net(img) if generator is None else self.net(img, generator=generator)
         finally:
             self.net.eval()
 

@@ -6,8 +6,9 @@ ResNet50 trunk with a stride-1 stem and no stem pool (pyramid strides
 branches (``tp`` = types, ``np`` = foreground, ``hv`` = horizontal/vertical
 maps) joined by Kronecker 2x upsampling and skip additions. TTA fuses
 ``sem``/``fore`` by softmax mean but keeps only the first (identity) view's
-HV maps. Instances come from the Sobel/marker watershed on the device
-(``ops/hover.py``). Module names follow the reference state dict
+HV maps. Training: CE and dice on the types and the foreground, MSE and the
+gradient MSE on the HV maps. Instances come from the Sobel/marker watershed
+on the device (``ops/hover.py``). Module names follow the reference state dict
 (``conv_bot``, ``decoder.{tp,np,hv}.u{3,2,1,0}``).
 """
 from __future__ import annotations
@@ -19,8 +20,9 @@ from torch import nn
 from ...ops.hover import hover_post_proc_device
 from ..backbones.resnet import ResNetExt
 from ..builder import SEGMENTORS
+from ..losses import batch_multiclass_dice_loss, cross_entropy, gradient_mse_loss, mdice, mse_loss, tdice
 from ..nn import BatchNorm2d, he_init_, upsample_2x_nearest
-from .base import BaseSegmentor
+from .base import BaseSegmentor, parse_losses
 
 
 def _bn(ch, device):
@@ -114,6 +116,28 @@ class HoverNet(BaseSegmentor):
         self.net = HoverNetNet(num_classes, device=self.device)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
+
+    def loss(self, batch, generator=None):
+        """On ``sem``: 5 x CE plus 0.5 x batch dice against ``sem_gt``; on
+        ``hv``: MSE plus the gradient MSE inside the nuclei against
+        ``hv_gt`` (B, H, W, 2); on ``fore``: CE plus batch dice against
+        ``sem_gt > 0``; and the dice metrics of ``sem`` and ``fore``."""
+        heads = self.forward_train(batch['data']['img'])
+        sem_logit, hv_logit, fore_logit = heads['sem'], heads['hv'], heads['fore']
+        sem_gt, hv_gt = self.label(batch, 'sem_gt'), self.label(batch, 'hv_gt')
+        fore_gt = (sem_gt > 0).to(torch.int32)
+        losses = {'sem_ce_loss': 5.0 * cross_entropy(sem_logit, sem_gt),
+                  'sem_dice_loss': 0.5 * batch_multiclass_dice_loss(sem_logit, sem_gt, self.num_classes),
+                  'hv_mse_loss': mse_loss(hv_logit, hv_gt),
+                  'hv_msge_loss': gradient_mse_loss(hv_logit, hv_gt, fore_gt),
+                  'fore_ce_loss': cross_entropy(fore_logit, fore_gt),
+                  'fore_dice_loss': batch_multiclass_dice_loss(fore_logit, fore_gt, 2)}
+        sem_logit, fore_logit = sem_logit.detach(), fore_logit.detach()
+        losses.update({'sem_tdice': tdice(sem_logit, sem_gt, self.num_classes),
+                       'sem_mdice': mdice(sem_logit, sem_gt, self.num_classes),
+                       'fore_tdice': tdice(fore_logit, fore_gt, 2),
+                       'fore_mdice': mdice(fore_logit, fore_gt, 2)})
+        return parse_losses(losses)
 
     def _check_device_route(self):
         if not self.test_cfg.get('device_postprocess', False) or self.test_cfg.get('scale_factor', 1) != 1:

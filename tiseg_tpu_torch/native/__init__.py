@@ -1,6 +1,6 @@
 """ctypes bindings of the port's host C++ label maps (``labelmaps.cpp``; port
-of the part of tiseg_tpu/native that the train pipelines of the UNet, CUNet
-and CDNet recipes reach).
+of the part of tiseg_tpu/native that the train pipelines of the UNet, CUNet,
+CDNet and HoVer-Net recipes reach).
 
 The library is built by ``g++ -O3 -shared -fPIC`` at first use into
 ``build/native/`` beside the package, rebuilt when the source is newer, and
@@ -13,7 +13,8 @@ versions (``datasets/utils/instance.py:fix_instance_plain``,
 ``UNetLabelMake._remove_1px_boundary_plain`` / ``_get_weight_map_plain``,
 ``BoundLabelMake._bound_map_plain``, ``DirectionLabelMake
 .calculate_point_map_plain`` / ``calculate_weight_map_plain`` and
-``datasets/utils/center.py:calculate_centerpoint``), which the tests hold
+``datasets/utils/center.py:calculate_centerpoint``,
+``HVLabelMake._hv_map_plain``), which the tests hold
 them against.
 """
 from __future__ import annotations
@@ -78,6 +79,8 @@ def _load() -> ctypes.CDLL:
                 lib.ddm_weight.restype = None
                 lib.bound_map.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, u8p]
                 lib.bound_map.restype = None
+                lib.hv_map.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i32p, f32p]
+                lib.hv_map.restype = None
                 _lib = lib
     return _lib
 
@@ -181,3 +184,15 @@ def bound_map(inst: np.ndarray, r0: int, r1: int) -> np.ndarray:
     out = np.zeros((h, w), np.uint8)
     _load().bound_map(_ptr(inst, ctypes.c_int32), h, w, r0, r1, _ptr(out, ctypes.c_uint8))
     return out > 0
+
+
+def hv_map(inst: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+    """HoVer-Net's float32 (H, W, 2) horizontal and vertical maps of the
+    instances of ``inst`` on their ``boxes``: (nb, 5) int32 rows (id, y0, y1,
+    x0, x1), stops exclusive, as ``HVLabelMake`` pads and clamps them."""
+    inst = _i32(inst)
+    boxes = _i32(boxes).reshape(-1, 5)
+    h, w = inst.shape
+    out = np.zeros((h, w, 2), np.float32)
+    _load().hv_map(_ptr(inst, ctypes.c_int32), h, w, len(boxes), _ptr(boxes, ctypes.c_int32), _ptr(out, ctypes.c_float))
+    return out

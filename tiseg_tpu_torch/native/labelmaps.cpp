@@ -23,6 +23,8 @@
 //   ddm_weight (DirectionLabelMake.calculate_weight_map_plain) and bound_map
 //   (BoundLabelMake._bound_map_plain): the label maps of the CUNet and CDNet
 //   recipes.
+// - hv_map (HVLabelMake._hv_map_plain): HoVer-Net's horizontal and
+//   vertical maps.
 #include <cstdint>
 #include <cstring>
 #include <cmath>
@@ -690,6 +692,52 @@ void bound_map(const int32_t* inst, int H, int W, int r0, int r1, uint8_t* bound
       for (int x = 0; x < w; ++x) {
         size_t i = (size_t)y * w + x;
         if (din[i] <= r0 && dout[i] <= r1) bound[(y + ys) * W + (x + xs)] = 1;
+      }
+  }
+}
+
+// --------------------------------------------------------------------------
+// HoVer-Net's horizontal/vertical map (twin of HVLabelMake._hv_map_plain):
+// per instance on its padded, clamped box, the integer center of mass
+// rounded as int(com + 0.5), the 1-based coordinates minus it, zero outside
+// the instance, each sign divided by its extreme in float32, written
+// interleaved as (x, y) pairs. Boxes under 2 px in either direction are
+// skipped. ``boxes`` is nb x 5 int32 rows: id, y0, y1, x0, x1 (stops
+// exclusive).
+void hv_map(const int32_t* inst, int H, int W, int nb, const int32_t* boxes, float* xy_out) {
+  std::memset(xy_out, 0, sizeof(float) * 2 * (size_t)H * W);
+  for (int b = 0; b < nb; ++b) {
+    const int32_t id = boxes[5 * b];
+    const int y0 = boxes[5 * b + 1], y1 = boxes[5 * b + 2];
+    const int x0 = boxes[5 * b + 3], x1 = boxes[5 * b + 4];
+    const int h = y1 - y0, w = x1 - x0;
+    if (h < 2 || w < 2) continue;
+    long sy = 0, sx = 0, mass = 0;
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x)
+        if (inst[(size_t)(y + y0) * W + (x + x0)] == id) { sy += y; sx += x; ++mass; }
+    if (!mass) continue;
+    const int cy = (int)((double)sy / mass + 0.5);  // int(com + 0.5) with com >= 0
+    const int cx = (int)((double)sx / mass + 0.5);
+    int nx = 0, px = 0, ny = 0, py = 0;  // the extremes of each sign over the instance
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x)
+        if (inst[(size_t)(y + y0) * W + (x + x0)] == id) {
+          const int vx = x + 1 - cx, vy = y + 1 - cy;
+          nx = std::min(nx, vx); px = std::max(px, vx);
+          ny = std::min(ny, vy); py = std::max(py, vy);
+        }
+    const float fnx = (float)(-nx), fpx = (float)px, fny = (float)(-ny), fpy = (float)py;
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x) {
+        const size_t gi = (size_t)(y + y0) * W + (x + x0);
+        if (inst[gi] != id) continue;
+        const int vx = x + 1 - cx, vy = y + 1 - cy;
+        float ox = (float)vx, oy = (float)vy;
+        if (vx < 0) ox = ox / fnx; else if (vx > 0) ox = ox / fpx;
+        if (vy < 0) oy = oy / fny; else if (vy > 0) oy = oy / fpy;
+        xy_out[2 * gi] = ox;
+        xy_out[2 * gi + 1] = oy;
       }
   }
 }

@@ -110,5 +110,9 @@ def remove_small_objects(ar: np.ndarray, min_size: int = 64, connectivity: int =
     return out
 
 
+def center_of_mass(mask: np.ndarray):
+    return ndimage.center_of_mass(mask)
+
+
 def distance_transform_edt(mask: np.ndarray) -> np.ndarray:
     return ndimage.distance_transform_edt(mask)

@@ -9,7 +9,8 @@ Layouts:
   kH, kW));
 - transposed-conv kernel (kH, kW, I, O), spatially flipped -> (I, O, kH, kW)
   (flax ConvTranspose 'SAME' 4x4/s2 is torch's ConvTranspose2d(k=4, s=2,
-  p=1) with the kernel flipped);
+  p=1) with the kernel flipped, and its 5x5/s1 'VALID' torch's
+  ConvTranspose2d(k=5));
 - BN scale/bias -> weight/bias, mean/var -> running_mean/running_var;
 - the reference's VGG conv biases and HoVer-Net's stem conv bias, which
   flax folds away, are zero.
@@ -29,6 +30,9 @@ _NUM_DECODE = 5
 # ResNet50 blocks per stage; HoVer-Net dense units per decoder stage
 _RESNET50_LAYERS = (3, 4, 6, 3)
 _HOVER_DENSE_UNITS = {'u3': 8, 'u2': 4}
+# DCAN's convs per stage and the stages its heads tap; FullNet's dense blocks and layers per block
+_DCAN_STAGE_CONVS, _DCAN_TAP_STAGES = (2, 2, 3, 3, 3), (4, 5, 6)
+_FULLNET_BLOCKS, _FULLNET_LAYERS = 7, 6
 
 
 def _t(a) -> torch.Tensor:
@@ -209,6 +213,80 @@ def hovernet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]
     return sd
 
 
+def dcan_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``DCANNet`` from the flax tree of
+    ``tiseg_tpu``'s ``DCANNet`` (no BN: every conv carries its bias)."""
+    params = variables['params']
+    sd = OrderedDict()
+    for k, n in enumerate(_DCAN_STAGE_CONVS, start=1):
+        for i in range(n):
+            _biased_conv(sd, f'stage{k}.{i}.conv', params[f'stage{k}_conv{i}']['Conv_0'])
+    _biased_conv(sd, 'stage6.0.conv', params['stage6_conv0']['Conv_0'])
+    _biased_conv(sd, 'stage6.2.conv', params['stage6_conv1']['Conv_0'])
+    for i, k in enumerate(_DCAN_TAP_STAGES):
+        _biased_conv(sd, f'up_conv_{k}_cell.conv', params[f'cell_tap{i}'])
+        _biased_conv(sd, f'up_conv_{k}_cont.conv', params[f'cont_tap{i}'])
+    return sd
+
+
+def fullnet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``FullNetNet`` from the flax tree of
+    ``tiseg_tpu``'s ``FullNetNet``."""
+    params, stats = variables['params'], variables['batch_stats']
+    sd = OrderedDict()
+    _conv_module(sd, 'conv1', params['conv1'], stats['conv1'])
+    for b in range(1, _FULLNET_BLOCKS + 1):
+        for li in range(1, _FULLNET_LAYERS + 1):
+            name = f'block{b}_layer{li}'
+            _conv_module(sd, f'blocks.block{b}.denselayer{li}.conv', params[name], stats[name])
+        _conv_module(sd, f'blocks.trans{b}', params[f'trans{b}'], stats[f'trans{b}'])
+    sd['conv2.weight'] = _conv(params['cls']['kernel'])
+    return sd
+
+
+def _cbr(sd, prefix, params, stats):
+    """MicroNet's conv helper: conv + BN where the flax module has a
+    ``BatchNorm_0``, else a biased conv."""
+    if 'BatchNorm_0' in params:
+        _conv_module(sd, prefix, params, stats)
+    else:
+        _biased_conv(sd, f'{prefix}.conv', params['Conv_0'])
+
+
+def _biased_tconv(sd, prefix, params):
+    sd[f'{prefix}.weight'] = _tconv(params['kernel'])
+    sd[f'{prefix}.bias'] = _t(params['bias'])
+
+
+def micronet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``MicroNetNet`` from the flax tree of
+    ``tiseg_tpu``'s ``MicroNetNet`` (MicroNet, CMicroNet); the 5x5 VALID
+    transposed convs flipped as the 4x4 'SAME' ones."""
+    params, stats = variables['params'], variables['batch_stats']
+    sd = OrderedDict()
+    for k in range(1, 5):
+        p, st = params[f'db{k}'], stats.get(f'db{k}', {})
+        for fx, pt in (('conv1', 'convs.0'), ('conv2', 'convs.1'), ('img_conv1', 'img_convs.0'),
+                       ('img_conv2', 'img_convs.1')):
+            _cbr(sd, f'db{k}.{pt}', p[fx], st.get(fx))
+    _cbr(sd, 'db5.0', params['db5_conv1'], None)
+    _cbr(sd, 'db5.1', params['db5_conv2'], None)
+    for k in range(1, 5):
+        p = params[f'ub{k}']
+        for fx, pt in (('up_proj', 'upsample.1'), ('conv1', 'convs.0'), ('conv2', 'convs.1'),
+                       ('bottleneck', 'bottle_neck')):
+            _cbr(sd, f'ub{k}.{pt}', p[fx], None)
+        _biased_tconv(sd, f'ub{k}.in_trans_conv', p['in_trans'])
+        _biased_tconv(sd, f'ub{k}.skip_trans_conv', p['skip_trans'])
+    for j in (1, 2, 3):
+        p = params[f'out{j}']
+        _cbr(sd, f'out_branch{j}.upsample.1', p['up_proj'], None)
+        _cbr(sd, f'out_branch{j}.feed_conv', p['feed'], None)
+        _biased_conv(sd, f'out_branch{j}.sem_conv.conv', p['sem'])
+    _biased_conv(sd, 'final_sem_conv', params['final_sem'])
+    return sd
+
+
 # cfg.model.type -> carrier
 CARRIERS: Dict[str, Callable[[Mapping], Dict[str, torch.Tensor]]] = {
     'UNet': unet_state_dict_from_flax,
@@ -221,6 +299,10 @@ CARRIERS: Dict[str, Callable[[Mapping], Dict[str, torch.Tensor]]] = {
     'MultiTaskCUNetDebug': mt_unet_state_dict_from_flax,
     'MultiTaskCDNet': mt_cdnet_state_dict_from_flax,
     'MultiTaskCDNetDebug': mt_cdnet_state_dict_from_flax,
+    'DCAN': dcan_state_dict_from_flax,
+    'FullNet': fullnet_state_dict_from_flax,
+    'MicroNet': micronet_state_dict_from_flax,
+    'CMicroNet': micronet_state_dict_from_flax,  # the same tree; the classifiers have num_classes + 1 channels
 }
 
 
