@@ -132,12 +132,13 @@
    epoch, the eval hook's ms per image, checkpoint save and load ms and MB;
    the loader on the C++ label maps against their numpy plain versions in
    turns (samples/s from 8 threads, ms per sample on one).
-   Then the training of the CUNet and CDNet families (family_train_path):
-   CUNet, MultiTaskUNet, MultiTaskCUNet, CDNet, MultiTaskCDNet and a
-   MultiTaskCDNet config with use_tploss, dir_weight_map, use_distance and
-   use_ac, each from its MoNuSeg recipe at full width on one batch of the
-   recipe's own train pipeline (BoundLabelMake, DirectionLabelMake or
-   UNetLabelMake in C++) at its samples_per_gpu x 256^2: the loss, every log
+   Then the training of the CUNet and CDNet families and of DIST
+   (family_train_path): CUNet, MultiTaskUNet, MultiTaskCUNet, CDNet,
+   MultiTaskCDNet, a MultiTaskCDNet config with use_tploss, dir_weight_map,
+   use_distance and use_ac, and DIST, each from its MoNuSeg recipe at full
+   width on one batch of the recipe's own train pipeline (BoundLabelMake,
+   DirectionLabelMake, UNetLabelMake or DistanceLabelMake in C++) at its
+   samples_per_gpu x 256^2: the loss, every log
    value and every gradient on 2 images against the port's CPU path in
    float64 and float32, then 3 + 10 steps of make_train_step (ms per step,
    images/s, peak GiB). Then the CDNet recipe (batch 16) through the CLIs
@@ -163,7 +164,18 @@
    its cluster route with B4 fused, B3 and B5 once each on theirs; DCAN's B1
    once per 1000^2 tile on its strip route; the loader on HVLabelMake's C++
    hv_map against its numpy plain version in turns, and the two bit for bit
-   on the 24 windows.
+   on the 24 windows; HoVer-Net's best checkpoint also through tools/test.py
+   with the recipe's own test_cfg (the host route: models/utils/postprocess.py
+   with the cv2-free twins of utils/imgproc.py), its post-processing ms per
+   tile and instances beside the device route's. Then the DIST recipe (batch
+   16) through the CLIs as the CDNet one (dist_cli_path): the eval hook on
+   1000^2 val tiles with device_postprocess=True launches per tile B9 once per
+   reconstruction iteration, B2 and B5 once each on their global chains (one
+   plane); tools/test.py with the recipe's own test_cfg (the host route),
+   timed per tile; the loader on DistanceLabelMake's C++ dist_cdt_map
+   against its numpy plain version in turns, and the two bit for bit on the
+   24 windows; and both routes timed on the distance targets of the val
+   tiles, the device route equal to the CPU path.
 4. Drives the HoVer-Net eval path once through InferenceRunner at the full
    width of the CoNIC recipe (ResNetExt50 + three dense decoders, 7 classes,
    float32, seeded weights and BN statistics): 16 images of 256^2 at CoNIC
@@ -203,6 +215,20 @@
    the same plane; one image on the card against the port's CPU path (the
    MicroNets on the identity view alone) within MAP_TOL, the argmax equal
    off the near-ties; e2e, forward and post-processing ms per image.
+   Then DIST from its CoNIC recipe (dist_eval_path; 7 classes, split 256/40
+   windows x 8 views, device_postprocess=True) through InferenceRunner on 16
+   x 256^2 images, the seeded distance head rescaled so that its fused map is
+   N(0, 5) (~40% of the pixels >= 1): the dynamic watershed of
+   ops/dist_ws.py launches B9 once per reconstruction iteration (at most 256,
+   the count printed), B2 (8-connected, the regional minima) and B5 (its
+   fixpoint mode) once each on their cluster routes; the instances equal to
+   the port's CPU path on the same fused maps bit for bit, and each kernel
+   against its plain version on the inputs the route gives it; B9 timed on
+   the reconstruction's seed plane beside F.max_pool2d on the negated plane,
+   B2 and B5 in turns against their global chains; e2e, forward and
+   post-processing ms per image. The same route and checks on the
+   DistanceLabelMake(inst_norm=False) maps of 16 CoNIC-density instance
+   planes.
 7. UNet.postprocess on 16 images of 256^2 under device_postprocess True (B1
    on its cluster route, one launch per image; timed in turns against its
    earlier chain on one image, and the cluster kernel at 1024 threads per
@@ -225,11 +251,13 @@
 8. Two images through CUNet (executor on, boundary class stripped, radius 3,
    B1 on its cluster route), checked against the unfolded net and the plain
    post-processor.
-9. B9 (no caller on any path) against F.max_pool2d(3, 1, 1) on the same
-   float32 16 x 256^2 plane, each timed per call (ms, host time included)
-   and per launch with L2 flushed and the host's enqueue hidden (device_ms),
-   beside a copy of the plane; and the host time of its wrapper alone, with
-   the call path that set up the entry point on every call beside it.
+9. B9 (max) against F.max_pool2d(3, 1, 1) on the same float32 16 x 256^2
+   plane, each timed per call (ms, host time included) and per launch with
+   L2 flushed and the host's enqueue hidden (device_ms), beside a copy of the
+   plane; and the host time of its wrapper alone, with the call path that set
+   up the entry point on every call beside it. B9's row in the kernels line
+   is DIST's: its launches there and its times on DIST's seed plane; B2's and
+   B5's rows carry DIST's numbers as ``dist_*`` beside HoVer-Net's.
 
 TF32 is off for convolutions and matrix products in every comparison.
 Prints, before its last two lines, one JSON object with each kernel's
@@ -1896,7 +1924,7 @@ def plain_label_maps():
                                 (label_maps.UNetLabelMake, '_get_weight_map'), (label_maps.BoundLabelMake, '_bound_map'),
                                 (label_maps.DirectionLabelMake, 'calculate_point_map'),
                                 (label_maps.DirectionLabelMake, 'calculate_weight_map'),
-                                (label_maps.HVLabelMake, '_hv_map'))]
+                                (label_maps.HVLabelMake, '_hv_map'), (label_maps.DistanceLabelMake, '_dist_map'))]
     saved = [(obj, name, vars(obj)[name] if isinstance(obj, type) else getattr(obj, name)) for obj, name, _ in swaps]
     for obj, name, value in swaps:
         setattr(obj, name, value)
@@ -1951,13 +1979,15 @@ def train_cli_path(args):
 
 
 def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_batch: int, save_best=None,
-                    val_hw: int = LOOP_HW, counters=None, per_image=None):
+                    val_hw: int = LOOP_HW, counters=None, per_image=None, host_route: bool = False):
     """A MoNuSeg recipe through the port's train and test CLIs on the card: two epochs with the eval hook,
     a checkpoint and the best (by the recipe's metric, or ``save_best``); auto-resume for a third epoch; the best
     checkpoint scored by tools/test.py against a direct evaluation; the loader on the C++ label maps against
     their numpy plain versions. The eval hook runs on val tiles of ``val_hw``^2 and launches, per tile, the
-    kernels of ``counters`` as often as ``per_image`` says (default: B1 once on its strip route). Returns the
-    train windows' data (image, semantic and instance maps)."""
+    kernels of ``counters`` as often as ``per_image`` says (default: B1 once on its strip route; counters that
+    ``per_image`` does not name are printed, not held). With ``host_route``, tools/test.py also scores the best
+    checkpoint with the recipe's own test_cfg (no device post-processing: the host route), timed per tile
+    beside the device route. Returns the train windows' data (image, semantic and instance maps)."""
     counters = counters or b1_counters()
     per_image = per_image or B1_STRIP_LAUNCHES
     import shutil
@@ -2067,7 +2097,7 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
           f'(build_lr_schedule {want_lrs}); losses {[round(r["loss"], 4) for r in train]}; val mAji '
           f'{[r.get("mAji") for r in val]}, mDice {[r.get("mDice") for r in val]}; checkpoints {files}; eval hook launches {k_first}',
           flush=True)
-    if not ok or k_first != expect_first:
+    if not ok or {k: k_first[k] for k in per_image} != expect_first:
         raise AssertionError(f'{label}, first run: step {state.step}, records {records}, files {files}, eval hook '
                              f'launches {k_first} (expected {expect_first})')
     with open(os.path.join(ckpt_dir, 'best_meta.json')) as f:
@@ -2099,7 +2129,8 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
     if not (same_net and same_opt and restored['step'] == iters * CLI_EPOCHS and restored['start_epoch'] == CLI_EPOCHS
             and resumed.step == last
             and [(r['mode'], r['epoch']) for r in records2] == [('train', 3)] * iters + [('val', 3)]
-            and files2 == [f'{last}.pt', 'best.pt', 'best_meta.json'] and k_resumed == expect_resumed):
+            and files2 == [f'{last}.pt', 'best.pt', 'best_meta.json']
+            and {k: k_resumed[k] for k in per_image} == expect_resumed):
         raise AssertionError(f'{label}: the resumed run differs from the checkpoint or the schedule')
 
     # score best.pt through tools/test.py against single_device_test + evaluate on the same weights
@@ -2117,6 +2148,8 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
     if (got.keys() != want.keys() or got[f'm{metric}'] != meta2['value']
             or any(not (k.endswith(('SQ', 'PQ')) and abs(a - b) <= SQ_PQ_TOL) for k, (a, b) in differ.items())):
         raise AssertionError(f'{label}: tools/test.py {got} against the direct evaluation {want}')
+    if host_route:
+        host_route_run(label, config, best, test_data, seg, val_ds, val_hw)
 
     # the card's work per step: pre-staged loader batches on the trained net, back to back
     train_ds = build_dataset(dict(train_kw, processes=cfg.data.train.processes))
@@ -2177,8 +2210,44 @@ def recipe_cli_path(args, label: str, config: str, name: str, seed0: int, patch_
     return windows
 
 
+def host_route_run(label, config, best, test_data, seg, val_ds, val_hw):
+    """tools/test.py on ``best`` with the recipe's own test_cfg (``device_postprocess`` unset: the host route
+    of the segmentor's ``postprocess``), its post-processing timed per tile, beside the device route's instances
+    on the same tiles (``seg``, loaded with the same checkpoint)."""
+    from tiseg_tpu_torch.apis import single_device_test
+    from tiseg_tpu_torch.tools import test as test_cli
+    cls = type(seg)
+    inner = cls.postprocess
+    spans, host_inst = [], []
+
+    def timed_postprocess(self, fused):
+        t1 = time.perf_counter()
+        out = inner(self, fused)
+        spans.append((time.perf_counter() - t1) * 1e3)
+        host_inst.append(len(np.unique(out['inst_pred'])) - 1)
+        return out
+
+    cls.postprocess = timed_postprocess
+    try:
+        t1 = time.perf_counter()
+        got = test_cli.main([config, best, '--options', *test_data])
+        host_s = time.perf_counter() - t1
+    finally:
+        cls.postprocess = inner
+    device = single_device_test(seg, val_ds, pre_eval=False, progress=False)
+    device_inst = [int((np.unique(p['inst_pred']) > 0).sum()) for p in device]
+    print(f'{label}, tools/test.py with the recipe\'s own test_cfg (the host route; {card_line()}): {host_s:.1f} s '
+          f'for {len(spans)} tiles of {val_hw}^2; host post-processing {[round(ms, 1) for ms in spans]} ms per tile; '
+          f'instances host route {host_inst}, device route {device_inst}; {dict(got)}', flush=True)
+    print(json.dumps({f'{label.replace(" ", "_").lower()}_host_route': {
+        'seconds': host_s, 'postprocess_ms_per_tile': spans, 'tile_hw': val_hw, 'instances_host': host_inst,
+        'instances_device': device_inst, 'metrics': {k: float(v) for k, v in got.items()}}}), flush=True)
+    if len(spans) != len(val_ds) or not got:  # a seeded net a few steps in may find no nucleus on a tile
+        raise AssertionError(f'{label}: the host route post-processed {len(spans)} of {len(val_ds)} tiles: {got}')
+
+
 # -- phase 3f: training of the CUNet and CDNet families ------------------------------------
-FAMILY_TRAIN = (  # (name, MoNuSeg recipe): the five nets of the family and one flag-heavy MultiTaskCDNet config
+FAMILY_TRAIN = (  # (name, MoNuSeg recipe): the five nets of the family, one flag-heavy MultiTaskCDNet config, DIST
     ('CUNet', 'configs/cunet/cunet_adam-lr0.0005_bs16_256x256_300e_monuseg.py'),
     ('MultiTaskUNet', 'configs/multi_task_unet/multi_task_unet_adam-lr0.0001_bs8_256x256_300e_monuseg.py'),
     ('MultiTaskCUNet', 'configs/multi_task_cunet/multi_task_cunet_adam-lr0.0005_bs16_256x256_300e_monuseg.py'),
@@ -2186,6 +2255,7 @@ FAMILY_TRAIN = (  # (name, MoNuSeg recipe): the five nets of the family and one 
     ('MultiTaskCDNet', 'configs/multi_task_cdnet/multi_task_cdnet_adam-lr0.0005_bs16_256x256_300e_monuseg.py'),
     ('MultiTaskCDNet (tploss, dir_weight_map, distance, ac)',
      'configs/multi_task_cdnet/monuseg/distance/jour_dist_tp_dirw_ac0.py'),
+    ('DIST', 'configs/dist/dist_adam-lr0.001_bs16_256x256_300e_monuseg.py'),
 )
 CDNET_MONUSEG_CONFIG = FAMILY_TRAIN[3][1]
 FAMILY_WINDOWS = 16  # the largest samples_per_gpu of the recipes: one batch of each from one loader epoch
@@ -2197,7 +2267,7 @@ FAMILY_F32_GRAD_FLOOR = 2e-3
 
 
 def family_train_path(args):
-    """Each net of the CUNet and CDNet families from its MoNuSeg recipe at full width: one batch of the recipe's
+    """Each net of the CUNet and CDNet families, and DIST, from its MoNuSeg recipe at full width: one batch of the recipe's
     own train pipeline (the C++ label maps) at its samples_per_gpu x 256^2; the loss, every log value and every
     gradient on 2 of its images (their top-left 128^2) against the port's CPU path in float64 and float32; 3
     warm-up and 10 timed steps of make_train_step."""
@@ -2583,11 +2653,12 @@ def check_hv_maps_on(windows):
 
 def hovernet_cli_path(args):
     """The HoVer-Net MoNuSeg recipe (batch 8) through tools/train.py and tools/test.py (``recipe_cli_path``), the
-    best kept by Dice, the eval hook on 256^2 val tiles (B2 with B4 fused, B3, B5); then HVLabelMake's C++ maps
-    against their numpy plain version on the windows it wrote."""
+    best kept by Dice, the eval hook on 256^2 val tiles (B2 with B4 fused, B3, B5), tools/test.py also with the
+    recipe's own test_cfg (the host route); then HVLabelMake's C++ maps against their numpy plain version on the
+    windows it wrote."""
     windows = recipe_cli_path(args, 'HoVer-Net CLI', HOVER_MONUSEG_CONFIG, 'hover_cli', 64000, args.hover_patch_batch,
                               save_best='Dice', val_hw=HOVER_VAL_HW, counters=hover_counters(),
-                              per_image=HOVER_LAUNCHES)
+                              per_image=HOVER_LAUNCHES, host_route=True)
     check_hv_maps_on(windows)
 
 
@@ -2595,6 +2666,313 @@ def dcan_cli_path(args):
     """The DCAN MoNuSeg recipe (batch 4) through tools/train.py and tools/test.py (``recipe_cli_path``), the best
     kept by Dice; B1 once per 1000^2 val tile on its strip route."""
     recipe_cli_path(args, 'DCAN CLI', DCAN_MONUSEG_CONFIG, 'dcan_cli', 66000, ZOO_PATCH_BATCH['DCAN'], save_best='Dice')
+
+
+# -- phase 3h: DIST through the CLIs, its eval and its dynamic watershed (B9, B2, B5) -------------
+DIST_MONUSEG_CONFIG = FAMILY_TRAIN[-1][1]
+DIST_CONIC_CONFIG = 'configs/dist/dist_adam-lr0.001_bs16_256x256_100e_conic.py'
+DIST_PATCH_BATCH = 64  # patches per network forward: 8 views of 16 images of 256^2 in two
+DIST_STD = 5.0  # the fused distance map standardized to N(0, 5): ~42% of the pixels >= 1, its top near 20
+
+
+def dist_counters() -> dict:
+    """The counters of DIST's dynamic watershed: B9 (one launch per reconstruction iteration), B2, B5."""
+    from tiseg_tpu_torch.ops.flood import ccl_sweep
+    from tiseg_tpu_torch.ops.stencil import neighborhood_3x3
+    from tiseg_tpu_torch.ops.watershed import watershed
+    return {'neighborhood_3x3': (neighborhood_3x3, 'launches'), 'ccl_sweep cluster': (ccl_sweep, 'cluster_launches'),
+            'ccl_sweep global': (ccl_sweep, 'global_launches'), 'watershed cluster': (watershed, 'cluster_launches'),
+            'watershed global': (watershed, 'global_launches')}
+
+
+# per 1000^2 val tile of the eval hook (a batch of one plane): B2 and B5 on their global chains (B2's cluster
+# route takes two planes or more, B5's planes up to 408^2), B9 once per reconstruction iteration (printed)
+DIST_TILE_LAUNCHES = {'ccl_sweep cluster': 0, 'ccl_sweep global': 1, 'watershed cluster': 0, 'watershed global': 1}
+
+
+def check_dist_maps_on(windows):
+    """DistanceLabelMake's C++ map against its numpy plain version on the instance maps of ``windows``, with
+    ``inst_norm`` False (the recipes') and True, bit for bit."""
+    from tiseg_tpu_torch.datasets.ops import DistanceLabelMake
+    from tiseg_tpu_torch.datasets.ops import label_maps as lm
+    from tiseg_tpu_torch.datasets.utils.instance import fix_instance
+    t0 = time.perf_counter()
+    n_inst, bad = 0, []
+    for i, (_, _, inst) in enumerate(windows):
+        inst = fix_instance(inst)
+        boxes = lm.padded_boxes(inst)
+        n_inst += len(boxes)
+        for norm in (False, True):
+            maker = DistanceLabelMake(inst_norm=norm)
+            if not np.array_equal(maker._dist_map(inst, boxes), maker._dist_map_plain(inst, boxes)):
+                bad.append((i, norm))
+    print(f'dist_cdt_map on the {len(windows)} windows ({n_inst} instances, {time.perf_counter() - t0:.1f} s): the '
+          f'C++ maps equal to the numpy plain version, inst_norm False and True: {not bad}', flush=True)
+    if bad:
+        raise AssertionError(f'dist_cdt_map: the C++ differs from the numpy plain version on (window, inst_norm) {bad}')
+
+
+def dist_cli_path(args):
+    """The DIST MoNuSeg recipe (batch 16) through tools/train.py and tools/test.py (``recipe_cli_path``), the best
+    kept by Dice: the eval hook on 1000^2 val tiles with device_postprocess=True (B9, B2 and B5 per tile), and
+    tools/test.py also with the recipe's own test_cfg (the host route, timed per tile); then DistanceLabelMake's
+    C++ map against its numpy plain version on the windows it wrote."""
+    windows = recipe_cli_path(args, 'DIST CLI', DIST_MONUSEG_CONFIG, 'dist_cli', 68000, DIST_PATCH_BATCH,
+                              save_best='Dice', counters=dist_counters(), per_image=DIST_TILE_LAUNCHES,
+                              host_route=True)
+    check_dist_maps_on(windows)
+    dist_routes_on_tiles(args)
+
+
+def dist_routes_on_tiles(args):
+    """DIST's two post-processing routes on the distance targets (DistanceLabelMake(inst_norm=False)) of the
+    CLI's 1000^2 val tiles: a seeded net a few steps in regresses no distance worth flooding, so these maps give
+    the routes real work. The host route (models/utils/postprocess.py:dynamic_watershed) and the device route
+    (B9, B2 and B5 on one plane: B2's and B5's global chains) timed per tile; each tile's device route equal to
+    the port's CPU path."""
+    from tiseg_tpu_torch.datasets.ops import DistanceLabelMake
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei
+    from tiseg_tpu_torch.models.utils.postprocess import dynamic_watershed
+    from tiseg_tpu_torch.ops import dist_ws
+    host_ms, device_ms_, counts, equal, iters = [], [], [], [], []
+    seeds = range(args.seed + 68000 + 1000, args.seed + 68000 + 1000 + CLI_VAL_TILES)  # the CLI's val tiles
+    for seed in seeds:
+        inst = make_nuclei(seed, LOOP_HW, LOOP_NUCLEI)[2]
+        data = {'inst_gt': inst, 'sem_gt': (inst > 0).astype(np.int32), 'seg_fields': []}
+        p_img = DistanceLabelMake(inst_norm=False)(data)['dist_gt'].astype(np.int32)
+        t1 = time.perf_counter()
+        host = dynamic_watershed(p_img, 0.0, 0.5)
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+        p_dev = torch.from_numpy(p_img).cuda()
+        dev = dist_ws.dynamic_watershed_device(p_dev)
+        device_ms_.append(wall_ms(lambda: dist_ws.dynamic_watershed_device(p_dev), reps=3))
+        iters.append(dist_ws.reconstruction_by_erosion.last_iterations)
+        equal.append(torch.equal(dev.cpu(), dist_ws.dynamic_watershed_device(p_dev.cpu())))
+        counts.append((len(np.unique(host)) - 1, len(torch.unique(dev)) - 1))
+    print(f'DIST routes on the distance targets of the {LOOP_HW}^2 val tiles ({card_line()}): host route '
+          f'{[round(ms, 1) for ms in host_ms]} ms per tile, device route {[round(ms, 3) for ms in device_ms_]} ms per '
+          f'tile ({iters} reconstruction iterations; median of 3, host clock, each ending in a synchronize); '
+          f'instances (host, device) {counts}; the device route equal to the CPU path: {equal}', flush=True)
+    print(json.dumps({'dist_routes_on_tiles': {'host_ms': host_ms, 'device_ms': device_ms_, 'instances': counts,
+                                               'iterations': iters}}), flush=True)
+    if not all(equal) or not all(h > 0 and d > 0 for h, d in counts):
+        raise AssertionError(f'DIST routes on the val tiles: instances {counts}, device equal to the CPU {equal}')
+
+
+@torch.no_grad()
+def standardize_fused_(seg, imgs, head: str, conv: torch.nn.Conv2d, mean: float, std: float) -> None:
+    """Rescale and shift the 1x1 conv of a one-channel raw head so that its TTA-fused map (``seg.inference`` on
+    ``imgs``, linear in the conv) has ``mean`` and ``std``."""
+    fused = seg.inference(imgs)[head]
+    gain = std / float(fused.std())
+    conv.weight.mul_(gain)
+    conv.bias.copy_((conv.bias - float(fused.mean())) * gain + mean)
+
+
+def dist_steps(p_img: torch.Tensor):
+    """The inputs DIST's dynamic watershed gives its kernels (``ops/dist_ws.py`` with lamb 0): the foreground,
+    the inverted map (``hrecons``), the reconstruction's seed (B9's first plane), the regional minima (B2's mask)
+    and the markers."""
+    from tiseg_tpu_torch.ops import dist_ws
+    from tiseg_tpu_torch.ops.ccl import connected_components
+    b_img = p_img > 0.5
+    hrecons = 255.0 - torch.clamp(p_img.to(torch.float32), 0, 255)
+    seed = torch.clamp(hrecons + 1.0, max=255.0)
+    maxima = ((dist_ws.reconstruction_by_erosion(seed, hrecons) - hrecons) > 0) & b_img
+    return b_img, hrecons, seed, maxima, connected_components(maxima, connectivity=2)
+
+
+def dist_route_check(label: str, p_img: torch.Tensor):
+    """DIST's dynamic watershed on a (B, H, W) int32 card batch: its launches (B9 once per reconstruction
+    iteration, B2 and B5 once each on their cluster routes), its instances equal to the port's CPU path (every
+    step on its plain version) bit for bit, and each kernel against its plain version on the inputs the route
+    gives it. Returns (instances, iterations, launches)."""
+    from tiseg_tpu_torch.ops import dist_ws
+    from tiseg_tpu_torch.ops.flood import ccl_plain, ccl_sweep
+    from tiseg_tpu_torch.ops.stencil import neighborhood_3x3_plain, neighborhood_min_3x3
+    from tiseg_tpu_torch.ops.watershed import watershed, watershed_plain
+    counters = dist_counters()
+    zero_counts(counters)
+    got = dist_ws.dynamic_watershed_device(p_img)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    iters = dist_ws.reconstruction_by_erosion.last_iterations
+    routes = (ccl_sweep.last_route[0], watershed.last_route[0])
+    t1 = time.perf_counter()
+    want = dist_ws.dynamic_watershed_device(p_img.cpu())
+    cpu_s = time.perf_counter() - t1
+    b_img, hrecons, seed, maxima, markers = dist_steps(p_img)
+    checks = {
+        'route': torch.equal(got.cpu(), want),
+        'B9 (the seed plane)': torch.equal(neighborhood_min_3x3(seed).cpu(), neighborhood_3x3_plain(seed.cpu(), True)),
+        'B2 (the regional minima)': torch.equal(markers.cpu(), ccl_plain(maxima.cpu(), 2)),
+        'B5 (fixpoint mode)': torch.equal(watershed(hrecons, markers, b_img, 1, 64, None, None).cpu(),
+                                          watershed_plain(hrecons.cpu(), markers.cpu(), b_img.cpu(), 1, 64, None,
+                                                          None))}
+    expect = {'neighborhood_3x3': iters, 'ccl_sweep cluster': 1, 'ccl_sweep global': 0, 'watershed cluster': 1,
+              'watershed global': 0}
+    n_inst = sum(len(torch.unique(got[b])) - 1 for b in range(len(got)))
+    print(f'{label} {tuple(p_img.shape)}: launches {launches} (the reconstruction ran {iters} iterations, '
+          f'{dist_ws.MAX_ITERS} at most); routes B2 {ccl_sweep.last_route}, B5 {watershed.last_route}; {n_inst} '
+          f'instances; equal to the CPU path ({cpu_s:.2f} s) and each kernel to its plain version: {checks}',
+          flush=True)
+    if launches != expect or routes != ('cluster', 'cluster') or not all(checks.values()) or not 0 < iters <= 256:
+        raise AssertionError(f'{label}: launches {launches} (expected {expect}), routes {routes}, checks {checks}')
+    return got, iters, launches
+
+
+def dist_kernel_rows(hrecons, seed, maxima, markers, b_img, launches):
+    """B9, B2 and B5 on the inputs DIST's main path gave them, each in turns against its earlier design where it
+    has one (B2's and B5's global chains): ms per call, device ms per launch (L2 flushed), plain ms, bound; B9
+    beside F.max_pool2d on the negated plane (the same minimum)."""
+    from tiseg_tpu_torch.ops import flood
+    from tiseg_tpu_torch.ops.flood import ccl_plain, ccl_sweep
+    from tiseg_tpu_torch.ops.stencil import neighborhood_3x3_plain, neighborhood_min_3x3
+    from tiseg_tpu_torch.ops.watershed import _launch_global as ws_global
+    from tiseg_tpu_torch.ops.watershed import watershed, watershed_plain
+    rows = {}
+    neg = -seed
+    pool = lambda: torch.nn.functional.max_pool2d(neg[:, None], 3, 1, 1)  # noqa: E731
+    b9 = lambda: neighborhood_min_3x3(seed)  # noqa: E731
+    if not torch.equal(-pool()[:, 0], b9()):
+        raise AssertionError('neighborhood_min_3x3 differs from -F.max_pool2d(-x, 3, 1, 1) on DIST\'s seed plane')
+    b_ms, b_by = bound('neighborhood_3x3', seed)
+    rows['neighborhood_3x3'] = dict(
+        launches=launches['neighborhood_3x3'], ms=cuda_ms(b9, reps=25), device_ms=device_ms(b9),
+        plain_ms=cuda_ms(lambda: neighborhood_3x3_plain(seed, True), reps=3, warmup=1), bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(pool, reps=25), library_device_ms=device_ms(pool), copy_device_ms=device_ms(seed.clone),
+        plane=list(seed.shape))
+    mask = maxima.to(torch.int32)
+    b2 = lambda: ccl_sweep(mask, connectivity=2)  # noqa: E731
+    k_ms, earlier_ms, turns = time_in_turns(b2, lambda: flood._launch_global_ccl(mask, 2))
+    b_ms, b_by = bound('ccl_sweep', mask)
+    rows['ccl_sweep'] = dict(launches=launches['ccl_sweep cluster'], ms=k_ms, earlier_ms=earlier_ms, ms_turns=turns,
+                             device_ms=device_ms(b2), plain_ms=cuda_ms(lambda: ccl_plain(maxima, 2), reps=3, warmup=1),
+                             bound_ms=b_ms, bound_by=b_by, route=list(ccl_sweep.last_route))
+    b_i = b_img.to(torch.int32)
+    b5 = lambda: watershed(hrecons, markers, b_i, 1, 64, None, None)  # noqa: E731
+    k_ms, earlier_ms, turns = time_in_turns(b5, lambda: ws_global(hrecons, markers, b_i, 1, 64, None, None))
+    ws_global(hrecons, markers, b_i, 1, 64, None, None)
+    waves = watershed.last_waves[1]  # the bound's count, as B5's other rows: the waves the chain needed on the batch
+    b5()
+    b_ms, b_by = bound('watershed', hrecons, waves)
+    rows['watershed'] = dict(launches=launches['watershed cluster'], ms=k_ms, earlier_ms=earlier_ms, ms_turns=turns,
+                             plain_ms=cuda_ms(lambda: watershed_plain(hrecons, markers, b_img, 1, 64, None, None),
+                                              reps=3, warmup=1),
+                             bound_ms=b_ms, bound_by=b_by, waves_needed_chain=waves,
+                             waves=list(watershed.last_waves)[:3], route=list(watershed.last_route))
+    for name, row in rows.items():
+        print(f'DIST main-path kernel {name} {tuple(hrecons.shape)}: {row["ms"]:.4f} ms per call x {row["launches"]} '
+              f'launches, plain {row["plain_ms"]:.2f} ms, bound {row["bound_ms"] * 1e3:.2f} us ({row["bound_by"]}); '
+              + ', '.join(f'{k} {v}' for k, v in row.items() if k not in ('ms', 'launches', 'plain_ms', 'bound_ms',
+                                                                           'bound_by')), flush=True)
+    return rows
+
+
+def dist_eval_path(args):
+    """DIST from its CoNIC recipe (7 classes; split 256/40 windows x 8 views, device_postprocess=True) through
+    InferenceRunner on 16 x 256^2 images, the seeded distance head standardized so that its fused map spans about
+    0-15 with ~40% of the pixels >= 1: B9 once per reconstruction iteration, B2 and B5 once each on their cluster
+    routes; the instances equal to the port's CPU path on the same fused maps; each kernel against its plain
+    version on the main path's inputs and timed there; ms per image. Then the same route on the
+    DistanceLabelMake(inst_norm=False) maps of 16 CoNIC-density instance planes. Returns the kernel rows."""
+    from tiseg_tpu_torch.apis import InferenceRunner
+    from tiseg_tpu_torch.datasets.ops import DistanceLabelMake
+    from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, make_nuclei
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.models.segmentors import dist as dist_mod
+    from tiseg_tpu_torch.utils import Config
+
+    t0 = time.perf_counter()
+    n_img, hw = CONIC_BATCH, CONIC_HW
+    cfg = Config.fromfile(os.path.join(ROOT, DIST_CONIC_CONFIG))
+    cfg.model.test_cfg = dict(cfg.model.test_cfg, device_postprocess=True, patch_batch=DIST_PATCH_BATCH)
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+    imgs = conic_images(args.seed + 76000, n_img, hw)
+    img_t = torch.from_numpy(imgs).cuda()
+    standardize_classifier_(seg, img_t, 'sem', seg.net.sem_head, [1.0] + [0.0] * (CONIC_CLASSES - 1))
+    standardize_fused_(seg, img_t, 'dist', seg.net.dist_head, 0.0, DIST_STD)
+    runner = InferenceRunner(seg)
+    captured = {}
+    route, inference = dist_mod.dynamic_watershed_device, seg.inference
+
+    def capturing(p_img, *a):
+        captured['p_img'] = p_img
+        return route(p_img, *a)
+
+    def capturing_inference(*a, **k):
+        captured['fused'] = inference(*a, **k)
+        return captured['fused']
+
+    counters = dist_counters()
+    dist_mod.dynamic_watershed_device, seg.inference = capturing, capturing_inference
+    try:
+        runner.dispatch(imgs, (hw, hw))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(counters)
+        out = runner.dispatch(imgs, (hw, hw))
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        dist_mod.dynamic_watershed_device = route
+        del seg.inference
+    from tiseg_tpu_torch.ops import dist_ws
+    iters = dist_ws.reconstruction_by_erosion.last_iterations
+    p_img, fused = captured['p_img'], captured['fused']
+    sem_out, inst_out = out['sem_pred'], out['inst_pred']
+    want_inst = dist_ws.dynamic_watershed_device(p_img.cpu())
+    dist = fused['dist'][..., 0]
+    checks = {'shapes and types': (sem_out.shape == inst_out.shape == (n_img, hw, hw) and sem_out.dtype == torch.uint8
+                                   and inst_out.dtype == torch.int32 and inst_out.is_cuda
+                                   and fused['sem'].shape == (n_img, hw, hw, CONIC_CLASSES)
+                                   and fused['dist'].shape == (n_img, hw, hw, 1)),
+              'finite': bool(torch.isfinite(fused['sem']).all() and torch.isfinite(dist).all()),
+              'distance clipped and truncated': torch.equal(p_img, torch.clamp(dist, 0, 255).to(torch.int32)),
+              'sem_pred the argmax': torch.equal(sem_out, torch.argmax(fused['sem'], -1).to(torch.uint8)),
+              'instances equal to the CPU path': torch.equal(inst_out.cpu(), want_inst)}
+    ok = all(checks.values())
+    expect = {'neighborhood_3x3': iters, 'ccl_sweep cluster': 1, 'ccl_sweep global': 0, 'watershed cluster': 1,
+              'watershed global': 0}
+    n_inst = sum(len(torch.unique(inst_out[b])) - 1 for b in range(n_img))
+    share = float((dist >= 1).float().mean())
+    print(f'DIST eval: {DIST_CONIC_CONFIG}, test_cfg {seg.test_cfg}; launches {launches} (the reconstruction ran '
+          f'{iters} iterations); fused distance map mean {float(dist.mean()):.3f}, std {float(dist.std()):.3f}, max '
+          f'{float(dist.max()):.2f}, {share:.4f} of the pixels >= 1; {n_inst} instances in {n_img} images; checks '
+          f'{checks}; classes {torch.unique(sem_out).tolist()}; peak memory '
+          f'{peak_gib:.3f} GiB', flush=True)
+    if not ok or launches != expect or not (0.25 <= share <= 0.6 and n_inst > 100):
+        raise AssertionError(f'DIST eval: outputs or launches differ ({launches}, expected {expect}), or the plane '
+                             f'is degenerate ({share:.3f} of the pixels >= 1, {n_inst} instances)')
+    dist_route_check('DIST main-path route', p_img)
+    b_img, hrecons, seed, maxima, markers = dist_steps(p_img)
+    rows = dist_kernel_rows(hrecons, seed, maxima, markers, b_img, launches)
+    e2e_ms = wall_ms(lambda: runner.dispatch(imgs, (hw, hw)), reps=5) / n_img
+    fwd_ms = wall_ms(lambda: seg.inference(img_t), reps=5) / n_img
+    pp_ms = wall_ms(lambda: route(p_img), reps=5) / n_img
+    print(f'DIST eval ({card_line()}): e2e {e2e_ms:.2f} ms per {hw}^2 image (median of 5 batches of {n_img}, '
+          f'patch_batch {DIST_PATCH_BATCH}); forward + TTA fuse {fwd_ms:.2f} ms ({fwd_ms / e2e_ms:.1%}), the dynamic '
+          f'watershed {pp_ms:.3f} ms ({pp_ms / e2e_ms:.2%}; {iters} B9 launches, B2 and B5 one each, per batch)',
+          flush=True)
+
+    # the route on the distance targets of 16 instance planes at CoNIC density
+    maps = []
+    for i in range(n_img):
+        inst = make_nuclei(args.seed + 77000 + i, hw, CONIC_NUCLEI_PER_PATCH)[2]
+        data = {'inst_gt': inst, 'sem_gt': (inst > 0).astype(np.int32), 'seg_fields': []}
+        maps.append(DistanceLabelMake(inst_norm=False)(data)['dist_gt'])
+    target = torch.from_numpy(np.stack(maps).astype(np.int32)).cuda()
+    _, t_iters, _ = dist_route_check('DIST route on DistanceLabelMake(inst_norm=False) maps', target)
+    for name, row in rows.items():
+        row['target_iterations'] = t_iters
+    print(json.dumps({'dist_eval': {'e2e_ms_per_image': e2e_ms, 'forward_ms_per_image': fwd_ms,
+                                    'pp_ms_per_image': pp_ms, 'iterations': iters, 'launches': launches,
+                                    'instances': n_inst, 'share_ge_1': share, 'peak_gib': peak_gib,
+                                    'target_iterations': t_iters, 'phase_s': time.perf_counter() - t0}}), flush=True)
+    del seg, runner, fused
+    torch.cuda.empty_cache()
+    return rows
 
 
 def time_pp_main_path(model: str, sem_pred: torch.Tensor, radius: int, num_classes: int, launches: int):
@@ -3339,31 +3717,36 @@ def stencil_call_unbound(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def stencil_yardstick(case_sets, timed):
-    """B9 (max) and F.max_pool2d(3, 1, 1) on the same float32 16 x 256^2
-    plane with negative values: ms per call (host time included), device_ms
-    per launch, beside a copy of the plane (the same bytes read and written:
-    what a launch of this size costs at the least); the wrapper's host time
-    now and with the call path before the bind-once helper. B9 has no
-    caller on any path: launches 0."""
+def stencil_yardstick(case_sets, timed, dist_row):
+    """B9's row: DIST's main path (``dist_row``: its launches, one per reconstruction iteration, and B9 (min) on
+    DIST's float32 16 x 256^2 seed plane beside F.max_pool2d on the negated plane), and, as ``max_*``, B9 (max)
+    and F.max_pool2d(3, 1, 1) on the same float32 16 x 256^2 plane with negative values as earlier rows measured
+    it: ms per call (host time included), device_ms per launch, beside a copy of the plane (the same bytes read and
+    written: what a launch of this size costs at the least); the wrapper's host time now and with the call path
+    before the bind-once helper."""
     from tiseg_tpu_torch.ops.stencil import neighborhood_3x3
     plane = case_sets['conic16x256'][2]['neighborhood_3x3 max float32'][2]
     pool = lambda: torch.nn.functional.max_pool2d(plane[:, None], 3, 1, 1)  # noqa: E731
     kern = lambda: neighborhood_3x3(plane)  # noqa: E731
     if not torch.equal(pool()[:, 0], kern()):
         raise AssertionError('neighborhood_3x3 differs from F.max_pool2d(3, 1, 1) on the float32 plane')
-    out = dict(timed[('neighborhood_3x3 max float32', 'conic16x256')], launches=0,
+    out = dict(timed[('neighborhood_3x3 max float32', 'conic16x256')],
                ms_int32=timed[('neighborhood_3x3 max int32', 'conic16x256')]['ms'])
     out.update(ms=cuda_ms(kern, reps=25), library_ms=cuda_ms(pool, reps=25), device_ms=device_ms(kern),
                library_device_ms=device_ms(pool), copy_device_ms=device_ms(plane.clone), host_us=host_us(kern),
                host_us_unbound=host_us(lambda: stencil_call_unbound(plane)))
-    print(f'neighborhood_3x3 max on the float32 16 x 256^2 plane (no caller on any path, launches 0): {out["ms"]:.4f} ms '
+    print(f'neighborhood_3x3 max on the float32 16 x 256^2 plane: {out["ms"]:.4f} ms '
           f'per call, {out["device_ms"] * 1e3:.2f} us per launch (L2 flushed), bound {out["bound_ms"] * 1e3:.2f} us; '
           f'F.max_pool2d(3, 1, 1) {out["library_ms"]:.4f} ms, {out["library_device_ms"] * 1e3:.2f} us; a copy of the '
           f'plane (the same bytes moved) {out["copy_device_ms"] * 1e3:.2f} us per launch; int32 plane '
           f'{out["ms_int32"]:.4f} ms; wrapper host time {out["host_us"]:.2f} us per call ({out["host_us_unbound"]:.2f} us '
           f'with the entry point set up on every call; 1000 calls, one synchronize)', flush=True)
-    return out
+    print(f'neighborhood_3x3 min on DIST\'s seed plane {dist_row["plane"]} ({dist_row["launches"]} launches on DIST\'s '
+          f'main path): {dist_row["ms"]:.4f} ms per call, {dist_row["device_ms"] * 1e3:.2f} us per launch (L2 '
+          f'flushed), bound {dist_row["bound_ms"] * 1e3:.2f} us; F.max_pool2d(3, 1, 1) on the negated plane '
+          f'{dist_row["library_ms"]:.4f} ms, {dist_row["library_device_ms"] * 1e3:.2f} us; a copy '
+          f'{dist_row["copy_device_ms"] * 1e3:.2f} us', flush=True)
+    return dict(dist_row, **{f'max_{k}': v for k, v in out.items()})
 
 
 SOURCES = {
@@ -3521,6 +3904,10 @@ def main(argv=None) -> int:
     print(f'DCAN CLI phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    dist_cli_path(args)
+    print(f'DIST CLI phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     stats.update(hover_main_path(args))
     print(f'HoVer-Net phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
@@ -3543,13 +3930,19 @@ def main(argv=None) -> int:
     zoo_eval_path(args)
     print(f'zoo eval phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist_rows = dist_eval_path(args)
+    print(f'DIST eval phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
 
     # -- phases 7 and 8 ------------------------------------------------------------
     t0 = time.perf_counter()
     stats.update(unet_postprocess_routes(args))
     cunet_path(args)
     print(f'UNet.postprocess routes and CUNet phase: {time.perf_counter() - t0:.1f} s', flush=True)
-    stats['neighborhood_3x3'] = stencil_yardstick(case_sets, timed)
+    stats['neighborhood_3x3'] = stencil_yardstick(case_sets, timed, dist_rows['neighborhood_3x3'])
+    for name in ('ccl_sweep', 'watershed'):
+        stats[name].update({f'dist_{k}': v for k, v in dist_rows[name].items()})
     if args.save_pp_planes:
         os.makedirs(os.path.dirname(os.path.abspath(args.save_pp_planes)), exist_ok=True)
         torch.save(PP_PLANES, args.save_pp_planes)

@@ -8,7 +8,9 @@ sweep caps do not bind).
 
 Tolerances: fused sem/fore probabilities within 1e-4, HV maps within 1e-4
 of their largest value (float32 convolutions summed in different orders);
-sem_pred equal; inst_pred bit-exact. As in the UNet slice test, random
+sem_pred equal; inst_pred bit-exact; the host route
+(``device_postprocess=False``) bit-exact against the JAX package's on the same
+fused maps. As in the UNet slice test, random
 weights leave near-ties between the two top classes: their share
 (margin <= 1e-3) is bounded to under 1% of the plane and equality is still
 asked for. The inference CLI's test is in test_torch_slice_hovernet_cli.py, a
@@ -92,10 +94,25 @@ def test_host_array_postprocess_matches_the_fused_path(slice_run):
 
 @pytest.mark.parametrize('change', [dict(device_postprocess=False), dict(scale_factor=2)])
 def test_host_cv2_route_is_not_ported(slice_run, change):
+    """The host route at ``scale_factor=1`` (``device_postprocess=False``)
+    equals the JAX package's ``hover_post_proc`` on the same fused maps, bit
+    for bit; ``scale_factor != 1`` needs cv2's ``resize``, which is not
+    ported, and raises on both routes."""
     seg = hovernet_port(slice_run[0], dict(HOVER_TEST_CFG, **change))
     fused = {k: v[0] for k, v in slice_run[2].items()}
-    with pytest.raises(NotImplementedError, match='cv2'):
-        seg.postprocess(fused)
+    if 'scale_factor' in change:
+        with pytest.raises(NotImplementedError, match='cv2'):
+            seg.postprocess(fused)
+        with pytest.raises(NotImplementedError, match='cv2'):
+            seg.inference_and_postprocess(torch.from_numpy(slice_run[1]))
+        return
+    jseg = build_jax_segmentor(dict(type='HoverNet', num_classes=HOVER_NUM_CLASSES, train_cfg=dict(),
+                                    test_cfg=dict(HOVER_TEST_CFG, **change)))
+    got, want = seg.postprocess(fused), jseg.postprocess(fused)
+    assert got['inst_pred'].dtype == want['inst_pred'].dtype == np.int32
+    np.testing.assert_array_equal(got['sem_pred'], want['sem_pred'])
+    np.testing.assert_array_equal(got['inst_pred'], want['inst_pred'])
+    assert len(np.unique(got['inst_pred'])) > 10
 
 
 def test_conic_config_builds_at_full_width_on_cuda_by_default():

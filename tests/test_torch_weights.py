@@ -114,8 +114,8 @@ def test_carrier_table_dispatches_on_model_type(variables, hover_variables):
     assert set(state_dict_from_flax('UNet', variables)) == set(unet_state_dict_from_flax(variables))
     assert set(state_dict_from_flax('HoverNet', hover_variables)) == set(hovernet_state_dict_from_flax(
         hover_variables))
-    with pytest.raises(NotImplementedError, match='DIST'):
-        state_dict_from_flax('DIST', variables)
+    with pytest.raises(NotImplementedError, match='NoSuchNet'):
+        state_dict_from_flax('NoSuchNet', variables)
 
 
 # model type, train_cfg (the flags that choose MultiTaskCDNet's wiring)

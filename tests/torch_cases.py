@@ -183,13 +183,53 @@ def batch_to(batch, device, dtype=torch.float32, weight_map='loss_weight_map'):
                       for k, v in label.items()}}
 
 
+# -- DIST's distance maps and its spiral plateau (B9, B2, B5 in ops/dist_ws.py) -------------------
+def dist_maps(n=4, hw=256, seed=60):
+    """(n, hw, hw) int32 ``DistanceLabelMake(inst_norm=False)`` maps of
+    CoNIC-density instance planes: DIST's distance target, the input of its
+    dynamic watershed."""
+    from tiseg_tpu_torch.datasets.ops import DistanceLabelMake
+    maps = []
+    for i in range(n):
+        inst = make_nuclei(seed + i, hw, CONIC_NUCLEI_PER_PATCH * hw * hw // 256 ** 2)[2]
+        data = {'inst_gt': inst, 'sem_gt': (inst > 0).astype(np.int32), 'seg_fields': []}
+        maps.append(DistanceLabelMake(inst_norm=False)(data)['dist_gt'])
+    return np.stack(maps).astype(np.int32)
+
+
+def dist_batch(n=2, hw=64, seed=150):
+    """``{'data': {'img'}, 'label': {'sem_gt', 'dist_gt'}}`` (numpy) of ``n`` nuclei images with the DIST
+    recipes' labels (``BoundLabelMake(edge_id=2, selem_radius=(2, 2))`` then
+    ``DistanceLabelMake(inst_norm=False)``)."""
+    from tiseg_tpu_torch.datasets.ops import BoundLabelMake, DistanceLabelMake
+    from tiseg_tpu_torch.datasets.synthetic import nuclei_density
+    imgs, items = [], []
+    for i in range(n):
+        img, _, inst = make_nuclei(seed + i, hw, nuclei_density(hw))
+        data = {'inst_gt': inst, 'sem_gt': (inst > 0).astype(np.int32), 'seg_fields': []}
+        items.append(DistanceLabelMake(inst_norm=False)(BoundLabelMake(edge_id=2, selem_radius=(2, 2))(data)))
+        imgs.append(img)
+    return {'data': {'img': np.stack(imgs)},
+            'label': {'sem_gt': np.stack([d['sem_gt'] for d in items]).astype(np.int32),
+                      'dist_gt': np.stack([d['dist_gt'] for d in items])}}
+
+
+def spiral_plateau(hw=64):
+    """A distance map whose regional-minimum reconstruction needs more than
+    256 iterations: the spiral's corridor at 10, its opening at 11, the
+    wall at 0 (the corridor is lowered one pixel per iteration)."""
+    out = np.where(spiral(hw) > 0, 0, 10).astype(np.int32)
+    out[1, 0] = 11
+    return out
+
+
 # -- the label maps' plain versions ----------------------------------------------------------------
 def plain_label_maps(monkeypatch):
     """Put the port's label maps on their numpy plain versions in place of
     the C++ calls (``fix_instance``, ``instance_boxes``, ``UNetLabelMake``'s
     erosion and weight map, ``BoundLabelMake``'s boundary,
     ``DirectionLabelMake``'s point maps and weight map, ``HVLabelMake``'s
-    maps) through
+    maps, ``DistanceLabelMake``'s map) through
     ``monkeypatch.setattr``."""
     from tiseg_tpu_torch.datasets.ops import label_maps
     from tiseg_tpu_torch.datasets.utils import instance
@@ -197,7 +237,8 @@ def plain_label_maps(monkeypatch):
     monkeypatch.setattr(label_maps, 'instance_boxes', label_maps.instance_boxes_plain)
     for cls, name in ((label_maps.UNetLabelMake, '_remove_1px_boundary'), (label_maps.UNetLabelMake, '_get_weight_map'),
                       (label_maps.BoundLabelMake, '_bound_map'), (label_maps.DirectionLabelMake, 'calculate_point_map'),
-                      (label_maps.DirectionLabelMake, 'calculate_weight_map'), (label_maps.HVLabelMake, '_hv_map')):
+                      (label_maps.DirectionLabelMake, 'calculate_weight_map'), (label_maps.HVLabelMake, '_hv_map'),
+                      (label_maps.DistanceLabelMake, '_dist_map')):
         monkeypatch.setattr(cls, name, vars(cls)[f'{name}_plain'])  # the descriptor: static and class methods stay so
 
 

@@ -1,5 +1,5 @@
 from .formatting import Formatting, format_img, format_reg, format_seg
-from .label_maps import BoundLabelMake, DirectionLabelMake, HVLabelMake, UNetLabelMake
+from .label_maps import BoundLabelMake, DirectionLabelMake, DistanceLabelMake, HVLabelMake, UNetLabelMake
 from .transforms import (Affine, CenterCrop, ColorJitter, Identity, Normalize, Pad, RandomBlur, RandomCrop, RandomFlip,
                          Rng)
 
@@ -19,7 +19,6 @@ RandomRotate = _not_ported('RandomRotate', 'transforms.py', '4')
 RandomSparseRotate = _not_ported('RandomSparseRotate', 'transforms.py', '4')
 RandomElasticDeform = _not_ported('RandomElasticDeform', 'transforms.py', '4')
 AlbuColorJitter = _not_ported('AlbuColorJitter', 'transforms.py', '4')
-DistanceLabelMake = _not_ported('DistanceLabelMake', 'label_maps.py', '7')
 
 __all__ = [
     'BoundLabelMake', 'DirectionLabelMake', 'DistanceLabelMake', 'HVLabelMake', 'UNetLabelMake', 'Affine',

@@ -1,8 +1,9 @@
 """Label-map generators (port of the part of
-tiseg_tpu/datasets/ops/label_maps.py that the UNet, CUNet, CDNet and
-HoVer-Net recipes run: ``instance_boxes``, ``BoundLabelMake``,
-``UNetLabelMake``, ``DirectionLabelMake`` and ``HVLabelMake``; reference
-tiseg/datasets/ops/{bound,unet,direction,hv}_map.py).
+tiseg_tpu/datasets/ops/label_maps.py that the UNet, CUNet, CDNet,
+HoVer-Net and DIST recipes run: ``instance_boxes``, ``BoundLabelMake``,
+``UNetLabelMake``, ``DirectionLabelMake``, ``HVLabelMake`` and
+``DistanceLabelMake``; reference
+tiseg/datasets/ops/{bound,unet,direction,hv,distance}_map.py).
 
 Every op but ``HVLabelMake`` (which, as the JAX package's, reads the
 instance map as it comes) re-canonicalizes the instance map first (drop < 5 px 4-connected
@@ -12,11 +13,10 @@ work runs in the port's C++ label maps (``native/``); the numpy routes
 (``instance_boxes_plain``, ``BoundLabelMake._bound_map_plain``,
 ``UNetLabelMake._remove_1px_boundary_plain`` / ``_get_weight_map_plain``,
 ``DirectionLabelMake.calculate_point_map_plain`` /
-``calculate_weight_map_plain``, ``HVLabelMake._hv_map_plain``) are their
-plain versions, which a caller selects explicitly
-(``tests/torch_cases.py:plain_label_maps``): no maker switches routes on an
-exception. DistanceLabelMake is not ported yet (``datasets/ops/__init__.py``
-names it).
+``calculate_weight_map_plain``, ``HVLabelMake._hv_map_plain``,
+``DistanceLabelMake._dist_map_plain``) are their plain versions, which a
+caller selects explicitly (``tests/torch_cases.py:plain_label_maps``): no
+maker switches routes on an exception.
 """
 from __future__ import annotations
 
@@ -428,4 +428,47 @@ class HVLabelMake:
         inst_gt = data['inst_gt']
         data['hv_gt'] = self._hv_map(inst_gt, padded_boxes(inst_gt))
         data['seg_fields'].append('hv_gt')
+        return data
+
+
+class DistanceLabelMake:
+    """``dist_gt``: per instance, the chessboard distance of each of its
+    pixels to the nearest other pixel of its padded box, divided by the
+    box's maximum when ``inst_norm`` (reference distance_map.py:23-107).
+    Re-canonicalizes the instance map and masks ``sem_gt`` to it first."""
+
+    def __init__(self, inst_norm=True):
+        self.inst_norm = inst_norm
+
+    def _dist_map(self, inst_gt, boxes):
+        """The map in C++ (``native.dist_cdt_map``)."""
+        return native.dist_cdt_map(inst_gt, boxes, self.inst_norm)
+
+    def _dist_map_plain(self, inst_gt, boxes):
+        """scipy's ``distance_transform_cdt`` per box: a box with no other
+        pixel gives -1 (kept when not normalized, skipped when normalized);
+        boxes under 2 px in either direction are skipped."""
+        dist_gt = np.zeros(inst_gt.shape, dtype=np.float32)
+        for inst_id, *box in boxes.tolist():
+            crop = (inst_gt[box[0]:box[1], box[2]:box[3]] == inst_id).astype(np.uint8)
+            if crop.shape[0] < 2 or crop.shape[1] < 2:
+                continue
+            d = m.distance_transform_cdt(crop).astype(np.float32)
+            if self.inst_norm:
+                mx = np.amax(d)
+                if mx <= 0:
+                    continue
+                d = d / mx
+            view = dist_gt[box[0]:box[1], box[2]:box[3]]
+            view[crop > 0] = d[crop > 0]
+        return dist_gt
+
+    def __call__(self, data, rng=None):
+        sem_gt = data['sem_gt'].copy()
+        inst_gt = _fix_instance_cached(data['inst_gt'])
+        sem_gt[inst_gt == 0] = 0
+        data['sem_gt'] = sem_gt
+        data['inst_gt'] = inst_gt
+        data['dist_gt'] = self._dist_map(inst_gt, padded_boxes(inst_gt))
+        data['seg_fields'].append('dist_gt')
         return data

@@ -8,7 +8,9 @@ maps) joined by Kronecker 2x upsampling and skip additions. TTA fuses
 ``sem``/``fore`` by softmax mean but keeps only the first (identity) view's
 HV maps. Training: CE and dice on the types and the foreground, MSE and the
 gradient MSE on the HV maps. Instances come from the Sobel/marker watershed
-on the device (``ops/hover.py``). Module names follow the reference state dict
+on the device (``ops/hover.py``), or with ``device_postprocess=False`` on the
+host (``models/utils/postprocess.py:hover_post_proc``, ``scale_factor=1``
+only: cv2's ``resize`` is not ported). Module names follow the reference state dict
 (``conv_bot``, ``decoder.{tp,np,hv}.u{3,2,1,0}``).
 """
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ..backbones.resnet import ResNetExt
 from ..builder import SEGMENTORS
 from ..losses import batch_multiclass_dice_loss, cross_entropy, gradient_mse_loss, mdice, mse_loss, tdice
 from ..nn import BatchNorm2d, he_init_, upsample_2x_nearest
+from ..utils.postprocess import hover_post_proc
 from .base import BaseSegmentor, parse_losses
 
 
@@ -103,9 +106,8 @@ class HoverNet(BaseSegmentor):
     """``seed`` draws the initial weights (He-normal, ``nn.he_init_``);
     load trained ones with ``net.load_state_dict``.
 
-    Instances are recovered on the device only: the JAX package's host route
-    (``device_postprocess=False`` or ``scale_factor != 1``) needs cv2 and is
-    not ported; both raise ``NotImplementedError``."""
+    ``scale_factor != 1`` needs cv2's ``resize``, which is not ported: it
+    raises ``NotImplementedError`` on both routes."""
 
     softmax_heads = ('sem', 'fore')
     first_view_heads = ('hv',)
@@ -139,10 +141,10 @@ class HoverNet(BaseSegmentor):
                        'fore_mdice': mdice(fore_logit, fore_gt, 2)})
         return parse_losses(losses)
 
-    def _check_device_route(self):
-        if not self.test_cfg.get('device_postprocess', False) or self.test_cfg.get('scale_factor', 1) != 1:
-            raise NotImplementedError('HoVer-Net post-processing is ported for device_postprocess=True and '
-                                      'scale_factor=1 only: the host cv2 route is not (ROADMAP A)')
+    def _check_scale(self):
+        if self.test_cfg.get('scale_factor', 1) != 1:
+            raise NotImplementedError('HoVer-Net post-processing with scale_factor != 1 needs cv2 resize, which is '
+                                      'not ported (ROADMAP queue A item 11)')
 
     def _instances(self, fused):
         sem_pred = torch.argmax(fused['sem'], dim=-1).to(torch.uint8)
@@ -153,10 +155,16 @@ class HoverNet(BaseSegmentor):
         instances from ``fore[..., 1]`` and ``hv``."""
         if not self.test_cfg.get('device_postprocess', False):
             return None
-        self._check_device_route()
+        self._check_scale()
         return self._instances(self.inference(img, ori_hw=ori_hw))
 
     def postprocess(self, fused):
-        self._check_device_route()
-        maps = {k: torch.as_tensor(np.asarray(fused[k]), device=self.device)[None] for k in ('sem', 'fore', 'hv')}
-        return {k: v[0].cpu().numpy() for k, v in self._instances(maps).items()}
+        """One image's fused maps -> instances, on the device route
+        (``device_postprocess``) or the host route."""
+        self._check_scale()
+        if self.test_cfg.get('device_postprocess', False):
+            maps = {k: torch.as_tensor(np.asarray(fused[k]), device=self.device)[None] for k in ('sem', 'fore', 'hv')}
+            return {k: v[0].cpu().numpy() for k, v in self._instances(maps).items()}
+        sem_pred = np.argmax(np.asarray(fused['sem']), axis=-1).astype(np.uint8)
+        inst_pred = hover_post_proc(np.asarray(fused['fore'])[..., 1], np.asarray(fused['hv']))
+        return {'sem_pred': sem_pred, 'inst_pred': inst_pred}

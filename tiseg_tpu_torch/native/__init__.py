@@ -1,6 +1,6 @@
 """ctypes bindings of the port's host C++ label maps (``labelmaps.cpp``; port
 of the part of tiseg_tpu/native that the train pipelines of the UNet, CUNet,
-CDNet and HoVer-Net recipes reach).
+CDNet, HoVer-Net and DIST recipes reach).
 
 The library is built by ``g++ -O3 -shared -fPIC`` at first use into
 ``build/native/`` beside the package, rebuilt when the source is newer, and
@@ -14,8 +14,8 @@ versions (``datasets/utils/instance.py:fix_instance_plain``,
 ``BoundLabelMake._bound_map_plain``, ``DirectionLabelMake
 .calculate_point_map_plain`` / ``calculate_weight_map_plain`` and
 ``datasets/utils/center.py:calculate_centerpoint``,
-``HVLabelMake._hv_map_plain``), which the tests hold
-them against.
+``HVLabelMake._hv_map_plain``, ``DistanceLabelMake._dist_map_plain``), which
+the tests hold them against.
 """
 from __future__ import annotations
 
@@ -81,6 +81,8 @@ def _load() -> ctypes.CDLL:
                 lib.bound_map.restype = None
                 lib.hv_map.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i32p, f32p]
                 lib.hv_map.restype = None
+                lib.dist_cdt_map.argtypes = [i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int, i32p, ctypes.c_int, f32p]
+                lib.dist_cdt_map.restype = None
                 _lib = lib
     return _lib
 
@@ -195,4 +197,17 @@ def hv_map(inst: np.ndarray, boxes: np.ndarray) -> np.ndarray:
     h, w = inst.shape
     out = np.zeros((h, w, 2), np.float32)
     _load().hv_map(_ptr(inst, ctypes.c_int32), h, w, len(boxes), _ptr(boxes, ctypes.c_int32), _ptr(out, ctypes.c_float))
+    return out
+
+
+def dist_cdt_map(inst: np.ndarray, boxes: np.ndarray, inst_norm: bool = True) -> np.ndarray:
+    """DIST's float32 (H, W) chessboard distance map of the instances of
+    ``inst`` on their ``boxes`` (rows as :func:`hv_map`'s), each divided by
+    its box's maximum when ``inst_norm``."""
+    inst = _i32(inst)
+    boxes = _i32(boxes).reshape(-1, 5)
+    h, w = inst.shape
+    out = np.zeros((h, w), np.float32)
+    _load().dist_cdt_map(_ptr(inst, ctypes.c_int32), h, w, len(boxes), _ptr(boxes, ctypes.c_int32), int(inst_norm),
+                         _ptr(out, ctypes.c_float))
     return out

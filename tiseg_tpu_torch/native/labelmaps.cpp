@@ -25,6 +25,8 @@
 //   recipes.
 // - hv_map (HVLabelMake._hv_map_plain): HoVer-Net's horizontal and
 //   vertical maps.
+// - dist_cdt_map (DistanceLabelMake._dist_map_plain): DIST's per-instance
+//   chessboard distance map.
 #include <cstdint>
 #include <cstring>
 #include <cmath>
@@ -738,6 +740,71 @@ void hv_map(const int32_t* inst, int H, int W, int nb, const int32_t* boxes, flo
         if (vy < 0) oy = oy / fny; else if (vy > 0) oy = oy / fpy;
         xy_out[2 * gi] = ox;
         xy_out[2 * gi + 1] = oy;
+      }
+  }
+}
+
+// --------------------------------------------------------------------------
+// DIST's chessboard distance map (twin of DistanceLabelMake._dist_map_plain):
+// per instance on its padded, clamped box, the exact L-inf distance of each
+// instance pixel to the nearest other pixel of the box (two 8-neighbour
+// chamfer passes), divided by the box's maximum in float32 when
+// ``inst_norm``. Edge cases of scipy's distance_transform_cdt kept: a box
+// with no other pixel gives -1 everywhere (written when not normalized,
+// skipped when normalized); boxes under 2 px in either direction are
+// skipped. ``boxes`` as hv_map's.
+void dist_cdt_map(const int32_t* inst, int H, int W, int nb, const int32_t* boxes, int inst_norm, float* out) {
+  std::memset(out, 0, sizeof(float) * (size_t)H * W);
+  std::vector<int32_t> d;
+  for (int b = 0; b < nb; ++b) {
+    const int32_t id = boxes[5 * b];
+    const int y0 = boxes[5 * b + 1], y1 = boxes[5 * b + 2];
+    const int x0 = boxes[5 * b + 3], x1 = boxes[5 * b + 4];
+    const int h = y1 - y0, w = x1 - x0;
+    if (h < 2 || w < 2) continue;
+    const int32_t inf = h + w + 4;
+    d.assign((size_t)h * w, inf);
+    bool any_bg = false;
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x)
+        if (inst[(size_t)(y + y0) * W + (x + x0)] != id) {
+          d[(size_t)y * w + x] = 0;
+          any_bg = true;
+        }
+    if (!any_bg) {
+      if (!inst_norm)
+        for (int y = 0; y < h; ++y)
+          for (int x = 0; x < w; ++x) out[(size_t)(y + y0) * W + (x + x0)] = -1.f;
+      continue;
+    }
+    for (int y = 0; y < h; ++y)  // forward pass: left, up-left, up, up-right
+      for (int x = 0; x < w; ++x) {
+        int32_t& v = d[(size_t)y * w + x];
+        if (x > 0) v = std::min(v, d[(size_t)y * w + x - 1] + 1);
+        if (y > 0) {
+          v = std::min(v, d[(size_t)(y - 1) * w + x] + 1);
+          if (x > 0) v = std::min(v, d[(size_t)(y - 1) * w + x - 1] + 1);
+          if (x + 1 < w) v = std::min(v, d[(size_t)(y - 1) * w + x + 1] + 1);
+        }
+      }
+    int32_t mx = 0;
+    for (int y = h - 1; y >= 0; --y)  // backward pass: right, down-right, down, down-left
+      for (int x = w - 1; x >= 0; --x) {
+        int32_t& v = d[(size_t)y * w + x];
+        if (x + 1 < w) v = std::min(v, d[(size_t)y * w + x + 1] + 1);
+        if (y + 1 < h) {
+          v = std::min(v, d[(size_t)(y + 1) * w + x] + 1);
+          if (x > 0) v = std::min(v, d[(size_t)(y + 1) * w + x - 1] + 1);
+          if (x + 1 < w) v = std::min(v, d[(size_t)(y + 1) * w + x + 1] + 1);
+        }
+        mx = std::max(mx, v);
+      }
+    if (inst_norm && mx <= 0) continue;
+    const float fmx = (float)mx;
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x) {
+        const size_t gi = (size_t)(y + y0) * W + (x + x0);
+        if (inst[gi] == id) out[gi] = inst_norm ? (float)d[(size_t)y * w + x] / fmx : (float)d[(size_t)y * w + x];
       }
   }
 }

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.imgproc import sobel_kernels
 from .flood import ccl_filter_sweep, fill_holes_sweep
 from .morph import ELLIPSE5, binary_dilation, binary_erosion
 from .watershed import watershed
@@ -28,21 +29,6 @@ from .watershed import watershed
 # the JAX package's plane-size switch of watershed semantics
 # (tiseg_tpu/ops/pallas_postproc.py:MAX_VMEM_PLANE)
 MAX_VMEM_PLANE = 512 * 512
-
-
-def _cv2_sobel_kernel(ksize: int):
-    """cv2.getDerivKernels-compatible separable Sobel: smooth = binomial
-    row, derivative = difference of binomials."""
-    def pascal(n):
-        row = np.array([1.0])
-        for _ in range(n):
-            row = np.convolve(row, [1.0, 1.0])
-        return row
-
-    smooth = pascal(ksize - 1)
-    # cv2's derivative kernel runs [-1, ..., +1]
-    deriv = -np.convolve(pascal(ksize - 2), [1.0, -1.0]) if ksize >= 2 else np.array([1.0])
-    return smooth.astype(np.float32), deriv.astype(np.float32)
 
 
 def _separable(x: torch.Tensor, k_row, k_col) -> torch.Tensor:
@@ -58,7 +44,7 @@ def _separable(x: torch.Tensor, k_row, k_col) -> torch.Tensor:
 def sobel(x: torch.Tensor, dx: int, dy: int, ksize: int = 21) -> torch.Tensor:
     """(B, H, W) cv2.Sobel twin with edge padding (cv2's BORDER_REFLECT101
     differs at the border; interior values agree)."""
-    smooth, deriv = _cv2_sobel_kernel(ksize)
+    smooth, deriv = (k.astype(np.float32) for k in sobel_kernels(ksize))
     return _separable(x, deriv if dx else smooth, deriv if dy else smooth)
 
 

@@ -23,6 +23,25 @@ the JAX package's:
   tables; HSV2RGB is float32 arithmetic, truncated to uint8 on the pixels
   cv2's vector code converts and rounded on the rest of the row.
 
+And the cv2 calls of HoVer-Net's host post-processing
+(``tiseg_tpu/models/utils/postprocess.py:hover_post_proc``):
+
+- :func:`normalize_minmax`: ``cv2.normalize(src, None, 0, 1, NORM_MINMAX,
+  CV_32F)`` of a float32 or float64 plane: the scale rounded to float32,
+  the shift computed in float32, then ``src * scale + shift`` with one
+  rounding (float32 sources) or in float64 (float64 sources).
+- :func:`sobel`: ``cv2.Sobel(src, CV_64F, dx, dy, ksize)`` of a float32
+  plane, ``BORDER_REFLECT_101``: cv2's integer kernels, the row pass
+  summed tap by tap in float64, then the column pass in cv2's symmetric
+  (smoothing) or antisymmetric (derivative) form.
+- :func:`gaussian_blur3_f32`: ``cv2.GaussianBlur(src, (3, 3), 0)`` of a
+  float32 plane: taps (0.25, 0.5, 0.25) in cv2's small symmetric form,
+  rows then columns, ``BORDER_REFLECT_101``.
+- :func:`morph_open`: ``cv2.morphologyEx(src, MORPH_OPEN, kernel)`` of a
+  uint8 plane: erosion with the dtype's maximum beyond the border, then
+  dilation with its minimum; :func:`ellipse_kernel` is
+  ``cv2.getStructuringElement(MORPH_ELLIPSE, (k, k))``.
+
 ``tests/test_torch_imgproc.py`` holds each one against cv2.
 """
 from __future__ import annotations
@@ -169,3 +188,79 @@ def hsv2rgb(img: np.ndarray) -> np.ndarray:
     vector = (np.arange(w) < w // _VECTOR_PIXELS * _VECTOR_PIXELS)[:, None]
     rgb = np.where(vector, np.floor(bgr[..., ::-1]), np.rint(bgr[..., ::-1]))
     return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def normalize_minmax(src: np.ndarray) -> np.ndarray:
+    """``cv2.normalize(src, None, alpha=0, beta=1, norm_type=NORM_MINMAX,
+    dtype=CV_32F)`` of a float32 or float64 plane."""
+    smin, smax = float(src.min()), float(src.max())
+    scale = 1. / (smax - smin) if smax - smin > np.finfo(_F64).eps else 0.
+    scale = float(_F32(scale))
+    shift = float(_F32(0.) - _F32(smin * scale))
+    if src.dtype == _F32:
+        return _fma32(src, scale, shift)
+    return (src.astype(_F64) * scale + shift).astype(_F32)
+
+
+def sobel_kernels(ksize: int):
+    """float64 (smoothing, derivative) kernels of ``cv2.getDerivKernels``
+    for an odd ``ksize`` >= 3: binomial rows; the derivative runs
+    [-1, ..., +1]."""
+    def pascal(n):
+        row = np.array([1.0])
+        for _ in range(n):
+            row = np.convolve(row, [1.0, 1.0])
+        return row
+
+    return pascal(ksize - 1), -np.convolve(pascal(ksize - 2), [1.0, -1.0])
+
+
+def sobel(src: np.ndarray, dx: int, dy: int, ksize: int = 21) -> np.ndarray:
+    """``cv2.Sobel(src, cv2.CV_64F, dx, dy, ksize=ksize)`` of a float32
+    plane, (dx, dy) in {(1, 0), (0, 1)}."""
+    smooth, deriv = sobel_kernels(ksize)
+    kx, ky = (deriv, smooth) if dx else (smooth, deriv)
+    r = ksize // 2
+    h, w = src.shape
+    p = _reflect101(src.astype(_F64), r)
+    rows = kx[0] * p[:, :w]
+    for k in range(1, ksize):
+        rows = rows + kx[k] * p[:, k:k + w]
+    c = ky[r:]  # the column kernel from its centre
+    if dy:  # antisymmetric: sum of c[k] * (below - above)
+        out = np.zeros((h, w))
+        for k in range(1, r + 1):
+            out = out + c[k] * (rows[r + k:r + k + h] - rows[r - k:r - k + h])
+    else:
+        out = c[0] * rows[r:r + h]
+        for k in range(1, r + 1):
+            out = out + c[k] * (rows[r + k:r + k + h] + rows[r - k:r - k + h])
+    return out
+
+
+def gaussian_blur3_f32(src: np.ndarray) -> np.ndarray:
+    """``cv2.GaussianBlur(src, (3, 3), 0)`` of a float32 plane."""
+    h, w = src.shape
+    p = _reflect101(src.astype(_F32), 1)
+    half, quarter = _F32(0.5), _F32(0.25)
+    rows = p[:, 1:w + 1] * half + (p[:, :w] + p[:, 2:w + 2]) * quarter
+    return rows[1:h + 1] * half + (rows[:h] + rows[2:h + 2]) * quarter
+
+
+def ellipse_kernel(k: int) -> np.ndarray:
+    """``cv2.getStructuringElement(cv2.MORPH_ELLIPSE, (k, k))`` (uint8)."""
+    r = k // 2
+    out = np.zeros((k, k), np.uint8)
+    for i in range(k):
+        dy = i - r
+        dx = int(np.rint(r * np.sqrt((r * r - dy * dy) / (r * r)))) if r else 0
+        out[i, max(r - dx, 0):min(r + dx + 1, k)] = 1
+    return out
+
+
+def morph_open(src: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.morphologyEx(src, cv2.MORPH_OPEN, kernel)`` of a uint8 plane
+    (a symmetric ``kernel``)."""
+    fp = kernel.astype(bool)
+    eroded = ndimage.grey_erosion(src, footprint=fp, mode='constant', cval=np.iinfo(src.dtype).max)
+    return ndimage.grey_dilation(eroded, footprint=fp, mode='constant', cval=0)

@@ -1,12 +1,13 @@
-"""Host-side (numpy/scipy) morphology for the host instance post-processor
+"""Host-side (numpy/scipy) morphology for the host instance post-processors
 and the label makers.
 
-A copy of the subset of ``tiseg_tpu/utils/morphology.py`` that
-``models.segmentors.unet.instance_postprocess`` and ``datasets/`` need, with
-skimage's semantics (reference call sites: tiseg/models/segmentors/unet.py:71-93,
-tiseg/datasets/ops/unet_map.py).
+A copy of ``tiseg_tpu/utils/morphology.py`` with skimage's semantics
+(reference call sites: tiseg/models/segmentors/unet.py:71-93,
+hovernet.py:283-365, dist.py:31-129, tiseg/datasets/ops/{unet,distance}_map.py).
 """
 from __future__ import annotations
+
+import heapq
 
 import numpy as np
 from scipy import ndimage
@@ -116,3 +117,107 @@ def center_of_mass(mask: np.ndarray):
 
 def distance_transform_edt(mask: np.ndarray) -> np.ndarray:
     return ndimage.distance_transform_edt(mask)
+
+
+def distance_transform_cdt(mask: np.ndarray, metric: str = 'chessboard') -> np.ndarray:
+    return ndimage.distance_transform_cdt(mask, metric=metric)
+
+
+# ---------------------------------------------------------------------------
+# grayscale reconstruction (DIST's H-minima; skimage.morphology.reconstruction)
+# ---------------------------------------------------------------------------
+def reconstruction(seed: np.ndarray, mask: np.ndarray, method: str = 'dilation',
+                   footprint: np.ndarray = None) -> np.ndarray:
+    """Morphological reconstruction by geodesic dilation or erosion, iterated
+    to its fixed point (float64), as skimage.morphology.reconstruction gives
+    it (reference: tiseg/models/segmentors/dist.py:56)."""
+    if footprint is None:
+        footprint = np.ones((3, 3), dtype=bool)
+    seed = seed.astype(np.float64)
+    mask = mask.astype(np.float64)
+    if method == 'dilation':
+        if np.any(seed > mask):
+            raise ValueError('seed must be <= mask for reconstruction by dilation')
+        cur = seed
+        while True:
+            nxt = np.minimum(ndimage.grey_dilation(cur, footprint=footprint), mask)
+            if np.array_equal(nxt, cur):
+                return nxt
+            cur = nxt
+    elif method == 'erosion':
+        if np.any(seed < mask):
+            raise ValueError('seed must be >= mask for reconstruction by erosion')
+        cur = seed
+        while True:
+            nxt = np.maximum(ndimage.grey_erosion(cur, footprint=footprint, mode='constant', cval=np.inf), mask)
+            if np.array_equal(nxt, cur):
+                return nxt
+            cur = nxt
+    raise ValueError(f'unknown method {method}')
+
+
+def h_minima_markers(image: np.ndarray, h: float) -> np.ndarray:
+    """Markers of the minima deeper than ``h`` (reconstruction by erosion)."""
+    rec = reconstruction(image + h, image, method='erosion')
+    minima = (rec - image) > 0  # pixels suppressed less than h are not minima
+    return label(minima & ((rec - image) >= h), connectivity=2)
+
+
+# ---------------------------------------------------------------------------
+# marker-controlled watershed (skimage.segmentation.watershed)
+# ---------------------------------------------------------------------------
+def watershed(image: np.ndarray, markers: np.ndarray, mask: np.ndarray = None,
+              connectivity: int = 1, watershed_line: bool = False) -> np.ndarray:
+    """Priority-flood marker watershed (int64 labels): a pixel is popped in
+    the order of (height, insertion counter), a total order, and gives its
+    label to its unlabelled neighbours in the mask (reference call sites
+    hovernet.py:361, dist.py:124). ``watershed_line`` zeroes, after the
+    flood, every labelled pixel with a neighbour of another label."""
+    image = np.asarray(image, dtype=np.float64)
+    markers = np.asarray(markers, dtype=np.int64)
+    H, W = image.shape
+    if mask is None:
+        mask = np.ones((H, W), dtype=bool)
+    else:
+        mask = np.asarray(mask, dtype=bool)
+
+    structure = ndimage.generate_binary_structure(2, connectivity)
+    offsets = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+               if structure[dy + 1, dx + 1] and not (dy == 0 and dx == 0)]
+
+    out = np.where(mask, markers, 0).astype(np.int64)
+    heap = []
+    counter = 0
+    ys, xs = np.nonzero((out > 0) & mask)
+    for y, x in zip(ys, xs):
+        heapq.heappush(heap, (image[y, x], counter, y, x))
+        counter += 1
+
+    while heap:
+        _, _, y, x = heapq.heappop(heap)
+        lab_yx = out[y, x]
+        if lab_yx == 0:
+            continue
+        for dy, dx in offsets:
+            ny, nx = y + dy, x + dx
+            if 0 <= ny < H and 0 <= nx < W and mask[ny, nx] and out[ny, nx] == 0:
+                out[ny, nx] = lab_yx
+                heapq.heappush(heap, (image[ny, nx], counter, ny, nx))
+                counter += 1
+
+    if watershed_line:
+        line = np.zeros((H, W), dtype=bool)
+        for dy, dx in offsets:
+            shifted = np.roll(np.roll(out, dy, axis=0), dx, axis=1)
+            valid = np.ones((H, W), dtype=bool)
+            if dy > 0:
+                valid[:dy, :] = False
+            elif dy < 0:
+                valid[dy:, :] = False
+            if dx > 0:
+                valid[:, :dx] = False
+            elif dx < 0:
+                valid[:, dx:] = False
+            line |= valid & (out > 0) & (shifted > 0) & (shifted != out)
+        out[line] = 0
+    return out

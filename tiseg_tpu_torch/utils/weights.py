@@ -244,6 +244,23 @@ def fullnet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def dist_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of the port's ``DISTNet`` from the flax tree of
+    ``tiseg_tpu``'s ``DISTNet``."""
+    params, stats = variables['params'], variables['batch_stats']
+    sd = OrderedDict()
+    for s in range(1, 6):
+        for i in range(2):
+            _conv_module(sd, f'stage{s}.{i}', params[f'down{s}_conv{i}'], stats[f'down{s}_conv{i}'])
+    for s in range(1, 5):
+        _conv_module(sd, f'up_conv{s}.0', params[f'upconv{s}'], stats[f'upconv{s}'])
+        for i in range(2):
+            _conv_module(sd, f'up_stage{s}.{i}', params[f'up{s}_conv{i}'], stats[f'up{s}_conv{i}'])
+    _biased_conv(sd, 'sem_head', params['sem_head'])
+    _biased_conv(sd, 'dist_head', params['dist_head'])
+    return sd
+
+
 def _cbr(sd, prefix, params, stats):
     """MicroNet's conv helper: conv + BN where the flax module has a
     ``BatchNorm_0``, else a biased conv."""
@@ -300,6 +317,7 @@ CARRIERS: Dict[str, Callable[[Mapping], Dict[str, torch.Tensor]]] = {
     'MultiTaskCDNet': mt_cdnet_state_dict_from_flax,
     'MultiTaskCDNetDebug': mt_cdnet_state_dict_from_flax,
     'DCAN': dcan_state_dict_from_flax,
+    'DIST': dist_state_dict_from_flax,
     'FullNet': fullnet_state_dict_from_flax,
     'MicroNet': micronet_state_dict_from_flax,
     'CMicroNet': micronet_state_dict_from_flax,  # the same tree; the classifiers have num_classes + 1 channels
