@@ -229,6 +229,25 @@
    post-processing ms per image. The same route and checks on the
    DistanceLabelMake(inst_norm=False) maps of 16 CoNIC-density instance
    planes.
+   Then the int8 post-training-quantized eval (int8_eval_path): UNet from
+   its MoNuSeg recipe on one 1000^2 image (calibrated on 16 centre crops of
+   256^2), CDNet and HoVer-Net from their CoNIC recipes on 16 x 256^2
+   (calibrated on the batch), each through InferenceRunner on three routes:
+   float, the dequant int8 executor and the int8-resident one (heads/
+   quant_decode.py, quant_cdnet.py, quant_hovernet.py; HoVer-Net's hv
+   branch float), with the post-processing kernels' launches held per run
+   (B1 strip; B7 cluster; B2 x 2 with B4 fused, B3, B5); forward ms per patch
+   batch, e2e ms per image, peak GiB and the argmax share against the float
+   route; every int8 convolution of both executors on the patch batch
+   (ops/int8_conv.py: im2col and torch._int_mm) equal to its float64 plain
+   version on its first patches; each executor against the port's CPU path
+   at the same weights and int8 tree within the CPU tests' shares; the
+   three heaviest int8 convolutions of each net against cuDNN float32.
+   The same UNet whole, one view, on 16 x 256^2: the out='pred' route, B1
+   once per batch on the argmax plane, equal to the resident logits'
+   argmax. Last, tools/test.py --int8-calib 2 on the checkpoint and val
+   tiles train_cli_path wrote (B1 once per tile, the resident executor per
+   patch batch), beside the same CLI in float.
 7. UNet.postprocess on 16 images of 256^2 under device_postprocess True (B1
    on its cluster route, one launch per image; timed in turns against its
    earlier chain on one image, and the cluster kernel at 1024 threads per
@@ -1016,33 +1035,41 @@ def check_fused_decode(args):
 
 
 # -- phase 3: the UNet eval path -------------------------------------------------------
+UNET_HW = 1000  # the MoNuSeg tiles the UNet recipe evaluates
+
+
+def unet_recipe_seg(args):
+    """UNet from the MoNuSeg recipe (device_postprocess, ``args.patch_batch``) with seeded weights, and one
+    1000^2 image; the classifier bias puts ~40% of view 0's pixels on the foreground side, so that the
+    random-weight net gives the post-processor a plane with objects."""
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.utils import Config
+    cfg = Config.fromfile(os.path.join(ROOT, UNET_CONFIG))
+    cfg.model.test_cfg = dict(cfg.model.test_cfg, device_postprocess=True, patch_batch=args.patch_batch)
+    print(f'UNet model: {UNET_CONFIG}, test_cfg {cfg.model.test_cfg}', flush=True)
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+    img = make_nuclei(args.seed + 9000, UNET_HW, nuclei_density(UNET_HW))[0][None]
+    logit = seg.forward_heads(torch.from_numpy(img).cuda())['sem']
+    bias = -float(torch.quantile((logit[..., 1] - logit[..., 0]).flatten()[::7], 0.6))
+    with torch.no_grad():
+        seg.net.head.postprocess.bias.copy_(torch.tensor([0.0, bias]))
+    return seg, img
+
+
 def unet_main_path(args):
     """The UNet path three times: the unfolded net (``fast_eval=False``),
     the BN-folded phase-space executor (the default), and the executor with
     the fused last stage (``TISEG_FUSED_TAIL=1``, B10)."""
     from tiseg_tpu_torch.apis import InferenceRunner
-    from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
-    from tiseg_tpu_torch.models import build_segmentor
     from tiseg_tpu_torch.models.segmentors.unet import instance_postprocess
     from tiseg_tpu_torch.ops import fused_decode
     from tiseg_tpu_torch.ops.fused_decode import fused_decode0_cls
     from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain, instance_postprocess_sweep
-    from tiseg_tpu_torch.utils import Config
 
-    hw = 1000
-    cfg = Config.fromfile(os.path.join(ROOT, UNET_CONFIG))
-    cfg.model.test_cfg = dict(cfg.model.test_cfg, device_postprocess=True, patch_batch=args.patch_batch)
-    print(f'UNet model: {UNET_CONFIG}, test_cfg {cfg.model.test_cfg}', flush=True)
-    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
-    img = make_nuclei(args.seed + 9000, hw, nuclei_density(hw))[0][None]
+    hw = UNET_HW
+    seg, img = unet_recipe_seg(args)
     img_t = torch.from_numpy(img).cuda()
-    # classifier bias: ~40% of view 0's pixels on the foreground side, so that
-    # the random-weight net gives the post-processor a plane with objects
-    logit = seg.forward_heads(img_t)['sem']
-    bias = -float(torch.quantile((logit[..., 1] - logit[..., 0]).flatten()[::7], 0.6))
-    with torch.no_grad():
-        seg.net.head.postprocess.bias.copy_(torch.tensor([0.0, bias]))
-    del logit
     runner = InferenceRunner(seg)
     device_pp = seg._device_instance_pp
     captured = {}
@@ -2975,6 +3002,359 @@ def dist_eval_path(args):
     return rows
 
 
+# -- phase 6c: int8 post-training-quantized eval ----------------------------------------------
+INT8_CALIB_CROPS, INT8_CALIB_HW = 16, 256  # tools/test.py's calibration: centre crops of its hw (256^2)
+INT8_PLAIN_PATCHES = 2  # patches of each int8 conv's input held against the float64 plain version on the card
+INT8_TIMED = 5  # CUDA-event-timed forwards per median
+INT8_E2E_REPS = 3  # timed dispatches per median
+# the card-against-CPU check: (images, side) per net; UNet and CDNet need 2 x 128^2 for more than 16 rows at the
+# bottom (torch._int_mm refuses 16), HoVer-Net's stride-8 trunk takes one 128^2 image
+INT8_CHECK = {'UNet': (2, 128), 'CDNet': (2, 128), 'HoverNet': (1, 128)}
+# the bounds of the CPU tests against the jitted JAX program (tests/test_torch_quant_*.py): share of any site's
+# int8 values, share of all of them, share of argmax pixels
+INT8_SHARES = {'UNet': (0.01, 0.002, 0.005), 'CDNet': (0.5, 0.3, 0.08), 'HoverNet': (0.9, 0.3, 0.2)}
+INT8_ROUTES = ('float', 'int8 dequant', 'int8 resident')
+
+
+@contextlib.contextmanager
+def int8_recorded(keep_cpu: bool = False):
+    """ops/int8_conv.py's routes wrapped for one run, each call recorded as a dict (kind, input, kernel, args,
+    output shape): the card's route (im2col and torch._int_mm), whose output on its first INT8_PLAIN_PATCHES
+    patches is held against the float64 plain version on the same card there and then (a difference raises);
+    with ``keep_cpu``, also the CPU's route (the plain version), each input kept as a CPU copy and nothing held.
+    The routes are wrapped, not conv2d_i8 itself, whose body counts its launches on the module's name."""
+    from tiseg_tpu_torch.ops import int8_conv
+    calls = []
+    routes = {'_conv2d_i8_mm': ('conv', int8_conv.conv2d_i8_plain),
+              '_conv_transpose2x_i8_mm': ('tconv', int8_conv.conv_transpose2x_i8_plain)}
+    if keep_cpu:
+        routes.update({'conv2d_i8_plain': ('conv', None), 'conv_transpose2x_i8_plain': ('tconv', None)})
+    saved = {name: getattr(int8_conv, name) for name in routes}
+
+    def wrap(fn, kind, plain):
+        def call(x, w, *a):
+            y = fn(x, w, *a)
+            if not keep_cpu:
+                k = min(INT8_PLAIN_PATCHES, x.shape[0])
+                if not torch.equal(y[:k], plain(x[:k], w, *a)):
+                    raise AssertionError(f'int8 {kind} {tuple(x.shape)} x {tuple(w.shape)} {a}: the _int_mm route '
+                                         f'differs from the plain version')
+            calls.append(dict(kind=kind, x=x.cpu() if keep_cpu else x, w=w, args=a, y=tuple(y.shape)))
+            return y
+        return call
+
+    for name, (kind, plain) in routes.items():
+        setattr(int8_conv, name, wrap(saved[name], kind, plain))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(int8_conv, name, fn)
+
+
+def int8_call_ops(c) -> float:
+    """Multiply-adds x 2 of one recorded int8 call (the convolution's own, groups counted as such)."""
+    kh, kw, cin, f = c['w'].shape
+    if c['kind'] == 'tconv':  # each output pixel of the 4 x 4 / stride-2 transposed conv takes 2 x 2 taps
+        return 2.0 * np.prod(c['y'][:3]) * 4 * cin * f
+    return 2.0 * np.prod(c['y'][:3]) * kh * kw * cin * f
+
+
+def int8_form(c) -> str:
+    kh, kw, _, _ = c['w'].shape
+    if c['kind'] == 'tconv':
+        return f'tconv 4x4/2 {tuple(c["x"].shape)} -> {c["y"]}'
+    stride, padding, groups = c['args'] if c['args'] else (1, 'SAME', 1)
+    return (f'{kh}x{kw}/{stride if isinstance(stride, int) else stride[0]} {padding} g{groups} '
+            f'{tuple(c["x"].shape)} x {tuple(c["w"].shape)}')
+
+
+def time_int8_call(c):
+    """One recorded int8 conv at its main-path shape: the wrapper (im2col and torch._int_mm) against cuDNN's
+    float32 convolution of the same shape (TF32 off), and the bound (the product's operations at the int8
+    tensor-core rate, or its input, kernel and int32 output bytes)."""
+    import torch.nn.functional as F
+
+    from tiseg_tpu_torch.ops import int8_conv
+    x, w = c['x'], c['w']
+    xf = x.float().permute(0, 3, 1, 2)
+    if c['kind'] == 'tconv':
+        fn = lambda: int8_conv.conv_transpose2x_i8(x, w)  # noqa: E731
+        wf = w.float().flip(0, 1).permute(2, 3, 0, 1).contiguous()
+        ref = lambda: F.conv_transpose2d(xf, wf, stride=2, padding=1)  # noqa: E731
+    else:
+        stride, padding, groups = c['args'] if c['args'] else (1, 'SAME', 1)
+        fn = lambda: int8_conv.conv2d_i8(x, w, stride, padding, groups)  # noqa: E731
+        (pt, pb), (pl, pr) = int8_conv.conv_pads(padding, x.shape[1], x.shape[2], w.shape[0], w.shape[1], stride)
+        xp = F.pad(xf, (pl, pr, pt, pb)) if (pt, pl) != (pb, pr) else xf
+        wf = w.float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        pad = 0 if (pt, pl) != (pb, pr) else (pt, pl)
+        ref = lambda: F.conv2d(xp, wf, stride=stride, padding=pad, groups=groups)  # noqa: E731
+    ops = int8_call_ops(c)
+    n_bytes = x.numel() + w.numel() + 4 * int(np.prod(c['y']))
+    op_ms, byte_ms = ops / INT8_OPS_PER_S * 1e3, bytes_ms(n_bytes)
+    return {'form': int8_form(c), 'gop': ops / 1e9, 'ms': cuda_ms(fn, INT8_TIMED), 'cudnn_f32_ms': cuda_ms(ref, INT8_TIMED),
+            'bound_ms': max(op_ms, byte_ms), 'bound_by': 'operations' if op_ms >= byte_ms else 'bytes'}
+
+
+@contextlib.contextmanager
+def int8_route(name: str, route: str):
+    """The segmentor's int8 eval forced onto one executor: ``int8 resident`` is the segmentors' own choice;
+    ``int8 dequant`` swaps the resident executor for the dequant one."""
+    from tiseg_tpu_torch.models.heads import quant_cdnet, quant_decode, quant_hovernet
+    module, attr, fn = {'UNet': (quant_decode, 'resident_ok', lambda fp: False),
+                        'CDNet': (quant_cdnet, 'resident_ok', lambda fpq: False),
+                        'HoverNet': (quant_hovernet, 'apply_hovernet_q8', quant_hovernet.apply_hovernet_q)}[name]
+    before = getattr(module, attr)
+    if route == 'int8 dequant':
+        setattr(module, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(module, attr, before)
+
+
+def int8_executors(name: str):
+    """(fold, {route: executor(prep, fpq, x) -> heads}) of one net: ``fold(seg)`` gives the executors' folded
+    parameters."""
+    from tiseg_tpu_torch.models.heads import quant_cdnet as qc, quant_decode as qd, quant_hovernet as qh
+    f32 = torch.float32
+    if name == 'UNet':
+        return (lambda seg: seg._fold(),
+                {'int8 dequant': lambda fp, q, x: {'sem': qd.apply_fast_unet_q(fp['vgg'], fp['head'], q, x, dtype=f32)},
+                 'int8 resident': lambda fp, q, x: {'sem': qd.apply_fast_unet_q8(fp['vgg'], fp['head'], q, x,
+                                                                                 dtype=f32)}})
+    if name == 'CDNet':
+        return (lambda seg: qc.build_cdnet_fp(seg.net),
+                {'int8 dequant': lambda fp, q, x: qc.apply_cdnet_q(fp, q, x, dtype=f32),
+                 'int8 resident': lambda fp, q, x: qc.apply_cdnet_q8(fp, q, x, dtype=f32)})
+    return (lambda seg: qh.build_hovernet_fp(seg.net),
+            {'int8 dequant': lambda fp, q, x: qh.apply_hovernet_q(fp, q, x, dtype=f32),
+             'int8 resident': lambda fp, q, x: qh.apply_hovernet_q8(fp, q, x, dtype=f32)})
+
+
+def tree_to(fpq, device):
+    return {'act': {k: v.to(device) for k, v in fpq['act'].items()},
+            'wq': {k: (w.to(device), s.to(device)) for k, (w, s) in fpq['wq'].items()}}
+
+
+def int8_card_vs_cpu(name: str, seg, fpq, patches) -> dict:
+    """Each int8 executor on the card against the same executor on the port's CPU path, at the same weights,
+    int8 tree and INT8_CHECK images (cut from ``patches``): the share of differing int8 inputs per site and overall, and the share of
+    differing argmax pixels per head, within the CPU tests' bounds (INT8_SHARES); the largest logit difference
+    printed beside them."""
+    fold, execs = int8_executors(name)
+    cpu = type(seg)(seg.num_classes, test_cfg=dict(seg.test_cfg), device='cpu')
+    cpu.net.load_state_dict({k: v.cpu() for k, v in seg.net.state_dict().items()})
+    n, side = INT8_CHECK[name]
+    x = torch.from_numpy(np.ascontiguousarray(patches[:n, :side, :side]))
+    site_bound, all_bound, argmax_bound = INT8_SHARES[name]
+    out = {}
+    with torch.inference_mode():
+        for route, run in execs.items():
+            got = {}
+            for dev, s, q in (('cuda', seg, fpq), ('cpu', cpu, tree_to(fpq, 'cpu'))):
+                with int8_recorded(keep_cpu=True) as calls:
+                    heads = run(fold(s), q, x.to(dev))
+                got[dev] = ({k: v.float().cpu() for k, v in heads.items()}, [c['x'] for c in calls])
+            (h_gpu, a_gpu), (h_cpu, a_cpu) = got['cuda'], got['cpu']
+            shares = [float((a != b).float().mean()) for a, b in zip(a_gpu, a_cpu)]
+            overall = sum(int((a != b).sum()) for a, b in zip(a_gpu, a_cpu)) / sum(a.numel() for a in a_cpu)
+            flips = {k: float((h_gpu[k].argmax(-1) != h_cpu[k].argmax(-1)).float().mean()) for k in h_cpu
+                     if k in ('sem', 'fore', 'dir')}  # the class heads (not point, nor hv's regression)
+            err = {k: float((h_gpu[k] - h_cpu[k]).abs().max() / h_cpu[k].abs().max()) for k in h_cpu}
+            ok = (len(a_gpu) == len(a_cpu) and max(shares) <= site_bound and overall <= all_bound
+                  and max(flips.values()) <= argmax_bound)
+            print(f'{name} {route}, card against CPU on {n} x {side}^2: {len(a_cpu)} int8 convs, int8 inputs '
+                  f'differing at most {max(shares):.4%} of a site (bound {site_bound:.1%}), {overall:.4%} of all '
+                  f'(bound {all_bound:.1%}); argmax pixels differing {flips} (bound {argmax_bound:.1%}); largest '
+                  f'difference over the largest value {err}', flush=True)
+            if not ok:
+                raise AssertionError(f'{name} {route}: the card differs from the CPU beyond the bounds')
+            out[route] = {'convs': len(a_cpu), 'max_site_share': max(shares), 'share': overall,
+                          'argmax_share': flips, 'rel_err': err}
+    return out
+
+
+def int8_net_routes(name: str, seg, imgs, hw: int, hook: str, counters, expect, patch_batch: int):
+    """One net through InferenceRunner on the float, dequant int8 and resident int8 routes: the launches of its
+    post-processing kernels held by drive_once, the predictions' argmax share against the float route, e2e ms per
+    image and peak GiB, the executors' forward ms on one patch batch; every int8 conv of both executors on that
+    batch held against its plain version; the card against the CPU; the three heaviest int8 sites timed against
+    cuDNN float32. ``seg`` holds its int8 tree already."""
+    from tiseg_tpu_torch.apis import InferenceRunner
+    card = card_line()
+    runner = InferenceRunner(seg)
+    fold, execs = int8_executors(name)
+    crops = [im[y:y + 256, x:x + 256] for im in imgs for y in range(0, hw - 255, 248) for x in range(0, hw - 255, 248)]
+    patches_np = np.stack([crops[i % len(crops)] for i in range(patch_batch)])  # the network's batch of 256^2 windows
+    patches = torch.from_numpy(patches_np).cuda()
+    res, preds = {}, {}
+    for route in INT8_ROUTES:
+        seg.test_cfg['int8_eval'] = route != 'float'
+        with int8_route(name, route):
+            out, _, launches, peak = drive_once(runner, seg, hook, imgs, hw, counters, expect)
+            e2e = wall_ms(lambda: runner.dispatch(imgs, (hw, hw)), INT8_E2E_REPS) / len(imgs)
+            prep = seg.prepare_inference()
+            fwd = cuda_ms(lambda: seg.forward_heads(patches, prep=prep), INT8_TIMED)
+        preds[route] = out['sem_pred']
+        res[route] = {'forward_ms_per_batch': fwd, 'e2e_ms_per_image': e2e, 'e2e_peak_gib': peak,
+                      'launches': launches,
+                      'argmax_share_vs_float': float((preds[route] != preds['float']).float().mean())}
+        print(f'{name} {route} ({card}): forward {fwd:.3f} ms per batch of {patch_batch} x 256^2, e2e {e2e:.2f} ms per '
+              f'{hw}^2 image (median of {INT8_E2E_REPS} dispatches of {len(imgs)}), peak {peak:.3f} GiB; post-processing '
+              f'launches {launches}; sem_pred differing from the float route on '
+              f'{res[route]["argmax_share_vs_float"]:.4%} of the pixels', flush=True)
+    seg.test_cfg['int8_eval'] = False
+
+    # every int8 conv of both executors on the patch batch: the _int_mm route against the plain version
+    fp, forms, resident = fold(seg), set(), None
+    with torch.inference_mode():
+        for route, run in execs.items():
+            with int8_recorded() as calls:
+                run(fp, seg._int8_fpq, patches)
+            forms |= {int8_form(c) for c in calls}
+            if route == 'int8 resident':
+                resident = calls
+            print(f'{name} {route}: {len(calls)} int8 convs on {patch_batch} x 256^2, each equal to its plain version '
+                  f'on its first {INT8_PLAIN_PATCHES} patches', flush=True)
+        heavy = sorted(resident, key=int8_call_ops, reverse=True)[:3]
+        sites = [time_int8_call(c) for c in heavy]
+    del resident, heavy
+    for s in sites:
+        print(f'{name} int8 site {s["form"]} ({s["gop"]:.1f} GOP, {card}): {s["ms"]:.4f} ms against cuDNN float32 '
+              f'{s["cudnn_f32_ms"]:.4f} ms; bound {s["bound_ms"]:.4f} ms by {s["bound_by"]}', flush=True)
+    res['card_vs_cpu'] = int8_card_vs_cpu(name, seg, seg._int8_fpq, patches_np)
+    res['int8_forms'] = sorted(forms)
+    res['heaviest_sites'] = sites
+    return res
+
+
+def int8_eval_path(args):
+    """The int8 eval of UNet, CDNet and HoVer-Net (heads/quant_decode.py, quant_cdnet.py, quant_hovernet.py)
+    through InferenceRunner, each net on its float, dequant int8 and resident int8 routes (int8_net_routes); the
+    UNet's out='pred' route on 16 x 256^2 whole images (B1 once per batch, its plane the argmax of the resident
+    logits bit for bit); tools/test.py --int8-calib 2 on the UNet checkpoint and val tiles of train_cli_path."""
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
+    from tiseg_tpu_torch.models.heads import quant_decode as qd
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep
+    from tiseg_tpu_torch.tools import test as test_cli
+
+    results = {}
+    # UNet: the MoNuSeg recipe's test_cfg on one 1000^2 image, calibrated on 16 centre crops of 256^2
+    seg, img = unet_recipe_seg(args)
+    calib = np.stack([make_nuclei(args.seed + 9100 + i, 320, nuclei_density(320))[0][32:288, 32:288]
+                      for i in range(INT8_CALIB_CROPS)])
+    t0 = time.perf_counter()
+    seg.calibrate_int8(calib)
+    torch.cuda.synchronize()
+    print(f'UNet int8: calibrated on {INT8_CALIB_CROPS} x {INT8_CALIB_HW}^2 in {time.perf_counter() - t0:.2f} s; '
+          f'{len(seg._int8_fpq["wq"])} int8 sites', flush=True)
+    results['UNet'] = int8_net_routes('UNet', seg, img, UNET_HW, '_device_instance_pp', b1_counters(),
+                                      B1_STRIP_LAUNCHES, args.patch_batch)
+
+    # the out='pred' route: the same net whole, one view, on 16 x 256^2: B1 once per batch, on the argmax plane
+    whole = type(seg)(2, test_cfg=dict(mode='whole', rotate_degrees=[0], flip_directions=['none'],
+                                       device_postprocess=True, radius=1, int8_eval=True), device='cuda')
+    whole.net.load_state_dict(seg.net.state_dict())
+    whole._int8_fpq = seg._int8_fpq
+    imgs = conic_images(args.seed + 9200, CONIC_BATCH, CONIC_HW)
+    outs, run_q8 = [], qd.apply_fast_unet_q8
+
+    def spy(*a, **kw):
+        outs.append(kw.get('out', 'logits'))
+        return run_q8(*a, **kw)
+
+    counters = b1_counters()
+    img_t = torch.from_numpy(imgs).cuda()
+    captured, device_pp = {}, whole._device_instance_pp
+
+    def capturing_pp(sem_pred):
+        captured['plane'] = sem_pred
+        return device_pp(sem_pred)
+
+    whole._device_instance_pp = capturing_pp
+    qd.apply_fast_unet_q8 = spy
+    try:
+        whole.inference_and_postprocess(img_t)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        outs.clear()
+        captured.clear()
+        out = whole.inference_and_postprocess(img_t)
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+    finally:
+        qd.apply_fast_unet_q8 = run_q8
+        whole._device_instance_pp = device_pp
+    plane = captured['plane']
+    with torch.inference_mode():
+        fp = whole._fold()
+        want = run_q8(fp['vgg'], fp['head'], whole._int8_fpq, img_t, dtype=torch.float32).argmax(-1).to(torch.int32)
+    b1_cluster = {'launches': 1, 'vectorized_launches': 0, 'cluster_launches': 1, 'strip_launches': 0,
+                  'global_launches': 0}
+    if outs != ['pred'] or launches != b1_cluster or not torch.equal(plane, want):
+        raise AssertionError(f"UNet out='pred': executor calls {outs}, B1 launches {launches}, plane equal to the "
+                             f'argmax: {torch.equal(plane, want)}')
+    print(f"UNet out='pred' route on {CONIC_BATCH} x {CONIC_HW}^2 whole images: B1 launches {launches} per batch; the "
+          f'plane equals the argmax of the resident logits bit for bit; foreground {float((plane > 0).float().mean()):.4f}, '
+          f'{sum(len(torch.unique(out["inst_pred"][b])) - 1 for b in range(CONIC_BATCH))} instances', flush=True)
+    results['UNet']['pred_route_launches'] = launches
+    del seg, whole
+    torch.cuda.empty_cache()
+
+    # CDNet: the CoNIC recipe on 16 x 256^2 (B7), calibrated on the batch itself
+    seg, imgs = cdnet_conic_seg(args)
+    seg.calibrate_int8(imgs)
+    counters = {'instance_postprocess_vectorized': (instance_postprocess_sweep, 'vectorized_launches'),
+                'cluster route': (instance_postprocess_sweep, 'cluster_launches'),
+                'global route': (instance_postprocess_sweep, 'global_launches')}
+    results['CDNet'] = int8_net_routes('CDNet', seg, imgs, CONIC_HW, '_device_instance_pp', counters,
+                                       {'global route': 0}, args.cd_patch_batch)
+    del seg
+    torch.cuda.empty_cache()
+
+    # HoVer-Net: the CoNIC recipe on 16 x 256^2 (B2 with B4 fused, B3, B5), the hv branch in float
+    seg, imgs = hovernet_conic_seg(args)
+    seg.calibrate_int8(imgs)
+    results['HoverNet'] = int8_net_routes('HoverNet', seg, imgs, CONIC_HW, '_instances', hover_counters(),
+                                          HOVER_LAUNCHES, args.hover_patch_batch)
+    del seg
+    torch.cuda.empty_cache()
+
+    # the entry point users run: tools/test.py --int8-calib 2 on train_cli_path's checkpoint and val tiles
+    work = os.path.join(ROOT, 'build', 'dev', 'cli_train')
+    best = os.path.join(work, 'checkpoints', 'best.pt')
+    test_data = [f'data.test.data_root={os.path.join(DATA_DIR, "cli_w0_s0")}', 'data.test.img_dir=',
+                 'data.test.ann_dir=', 'data.test.split=split.txt']
+    test_cfg = ['model.test_cfg.device_postprocess=True', 'model.test_cfg.device_metrics=True',
+                f'model.test_cfg.patch_batch={args.patch_batch}']
+    counters = b1_counters()
+    scores = {}
+    for label, extra in (('float', []), ('int8', ['--int8-calib', '2'])):
+        outs.clear()
+        qd.apply_fast_unet_q8 = spy
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        try:
+            scores[label] = test_cli.main([UNET_CONFIG, best, *extra, '--options', *test_data, *test_cfg])
+        finally:
+            qd.apply_fast_unet_q8 = run_q8
+        test_s = time.perf_counter() - t0
+        launches = read_counts(counters)
+        n_fwd = -(-200 // args.patch_batch) * CLI_VAL_TILES  # 25 windows x 8 views per tile, in chunks
+        if launches != {k: n * CLI_VAL_TILES for k, n in B1_STRIP_LAUNCHES.items()} or \
+                len(outs) != (n_fwd if label == 'int8' else 0):
+            raise AssertionError(f'tools/test.py {label}: B1 launches {launches}, resident executor calls {len(outs)}')
+        print(f'tools/test.py {" ".join(extra) or "(float)"} on {os.path.relpath(best, ROOT)} over {CLI_VAL_TILES} val '
+              f'tiles ({test_s:.1f} s, {card_line()}): {dict(scores[label])}; B1 launches {launches}, resident int8 '
+              f'forwards {len(outs)}', flush=True)
+    if not all(np.isfinite(v) for v in scores['int8'].values() if isinstance(v, float)):
+        raise AssertionError(f'tools/test.py --int8-calib 2: {scores["int8"]}')
+    results['test_cli'] = {k: {m: float(v) for m, v in s.items()} for k, s in scores.items()}
+    print(json.dumps({'int8_eval': results}, default=str), flush=True)
+
+
 def time_pp_main_path(model: str, sem_pred: torch.Tensor, radius: int, num_classes: int, launches: int):
     """B1 or B7 on a main path's semantic planes: the route, the earlier
     global chain and the route again, each the median of 25 calls; the
@@ -3045,30 +3425,37 @@ def randomize_bn_(net: torch.nn.Module, generator: torch.Generator) -> None:
             m.running_var.copy_((torch.rand(n, generator=generator) + 0.5).to(dev))
 
 
-def hover_main_path(args):
-    from tiseg_tpu_torch.apis import InferenceRunner
+def hovernet_conic_seg(args):
+    """HoVer-Net from its CoNIC recipe (device_postprocess, ``args.hover_patch_batch``) with seeded weights and
+    BN layers, and CONIC_BATCH images of CONIC_HW^2 at CoNIC density; the np classifier bias puts ~40% of view
+    0's pixels on the foreground side."""
     from tiseg_tpu_torch.datasets.synthetic import CONIC_NUCLEI_PER_PATCH, make_nuclei
     from tiseg_tpu_torch.models import build_segmentor
-    from tiseg_tpu_torch.ops import hover
-    from tiseg_tpu_torch.ops.flood import ccl_filter_sweep, ccl_sweep, fill_holes_sweep, size_filter
-    from tiseg_tpu_torch.ops.hover import hover_post_proc_device
-    from tiseg_tpu_torch.ops.watershed import _launch_global as ws_global
-    from tiseg_tpu_torch.ops.watershed import watershed, watershed_plain
     from tiseg_tpu_torch.utils import Config
-
-    n_img, hw = 16, 256
     cfg = Config.fromfile(os.path.join(ROOT, HOVER_CONFIG))
     cfg.model.test_cfg = dict(cfg.model.test_cfg, device_postprocess=True, patch_batch=args.hover_patch_batch)
     print(f'HoVer-Net model: {HOVER_CONFIG}, test_cfg {cfg.model.test_cfg}', flush=True)
     seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
     randomize_bn_(seg.net, torch.Generator().manual_seed(args.seed + 1))
-    imgs = np.stack([make_nuclei(args.seed + 5000 + i, hw, CONIC_NUCLEI_PER_PATCH)[0] for i in range(n_img)])
-    # np classifier bias: ~40% of view 0's pixels on the foreground side
+    imgs = np.stack([make_nuclei(args.seed + 5000 + i, CONIC_HW, CONIC_NUCLEI_PER_PATCH)[0]
+                     for i in range(CONIC_BATCH)])
     logit = seg.forward_heads(torch.from_numpy(imgs).cuda())['fore']
     bias = -float(torch.quantile((logit[..., 1] - logit[..., 0]).flatten()[::7], 0.6))
     with torch.no_grad():
         seg.net.decoder['np'].u0[2].bias.copy_(torch.tensor([0.0, bias]))
-    del logit
+    return seg, imgs
+
+
+def hover_main_path(args):
+    from tiseg_tpu_torch.apis import InferenceRunner
+    from tiseg_tpu_torch.ops import hover
+    from tiseg_tpu_torch.ops.flood import ccl_filter_sweep, ccl_sweep, fill_holes_sweep, size_filter
+    from tiseg_tpu_torch.ops.hover import hover_post_proc_device
+    from tiseg_tpu_torch.ops.watershed import _launch_global as ws_global
+    from tiseg_tpu_torch.ops.watershed import watershed, watershed_plain
+
+    n_img, hw = CONIC_BATCH, CONIC_HW
+    seg, imgs = hovernet_conic_seg(args)
     runner = InferenceRunner(seg)
     captured = {}
     instances = seg._instances
@@ -3357,18 +3744,17 @@ def time_path(name, runner, seg, imgs, hw, pp, patch_batch):
           f'({pp_ms / e2e_ms:.2%})', flush=True)
 
 
-def cdnet_main_path(args):
-    from tiseg_tpu_torch.apis import InferenceRunner
+def cdnet_conic_seg(args):
+    """CDNet from its CoNIC recipe (device_postprocess, ``args.cd_patch_batch``) with seeded weights, and
+    CONIC_BATCH images of CONIC_HW^2; the three classifiers standardized on view 0 and the background bias set
+    so that ~40% of the fused map is foreground."""
     from tiseg_tpu_torch.models import build_segmentor
-    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep, instance_postprocess_vectorized_plain
     from tiseg_tpu_torch.utils import Config
-
-    n_img, hw = CONIC_BATCH, CONIC_HW
     cfg = Config.fromfile(os.path.join(ROOT, CDNET_CONFIG))
     cfg.model.test_cfg = dict(cfg.model.test_cfg, device_postprocess=True, patch_batch=args.cd_patch_batch)
     print(f'CDNet model: {CDNET_CONFIG}, test_cfg {cfg.model.test_cfg}', flush=True)
     seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
-    imgs = conic_images(args.seed + 11000, n_img, hw)
+    imgs = conic_images(args.seed + 11000, CONIC_BATCH, CONIC_HW)
     img_t = torch.from_numpy(imgs).cuda()
     dgm = seg.net.head.postprocess
     standardize_classifier_(seg, img_t, 'point', dgm.point_conv, [0.3], scale=0.5)
@@ -3376,6 +3762,16 @@ def cdnet_main_path(args):
     standardize_classifier_(seg, img_t, 'dir', dgm.dir_conv, [9.0] + [0.0] * 8, scale=3.0)
     standardize_classifier_(seg, img_t, 'sem', dgm.mask_conv, [0.0] * CONIC_CLASSES + [-1.0])
     background_bias_(seg, img_t, 'sem', dgm.mask_conv, foreground, share=0.4)
+    return seg, imgs
+
+
+def cdnet_main_path(args):
+    from tiseg_tpu_torch.apis import InferenceRunner
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_sweep, instance_postprocess_vectorized_plain
+
+    n_img, hw = CONIC_BATCH, CONIC_HW
+    seg, imgs = cdnet_conic_seg(args)
+    img_t = torch.from_numpy(imgs).cuda()
     runner = InferenceRunner(seg)
     counters = {'instance_postprocess_vectorized': (instance_postprocess_sweep, 'vectorized_launches'),
                 'cluster route': (instance_postprocess_sweep, 'cluster_launches'),
@@ -3933,6 +4329,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     dist_rows = dist_eval_path(args)
     print(f'DIST eval phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    int8_eval_path(args)
+    print(f'int8 eval phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
 
     # -- phases 7 and 8 ------------------------------------------------------------

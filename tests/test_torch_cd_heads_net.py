@@ -48,5 +48,14 @@ def test_eval_logits_match_flax(case):
 
 
 def test_cdnet_int8_eval_is_refused():
-    with pytest.raises(NotImplementedError, match='int8_eval.*heads/quant_cdnet.py'):
-        build_segmentor(dict(type='CDNet', num_classes=2, test_cfg=dict(int8_eval=True)), device='cpu')
+    """``int8_eval`` in the test_cfg, once refused here, now builds: without a
+    calibration there is no int8 tree and the net's float forward runs
+    (the int8 route's parity with the JAX package is
+    ``test_torch_quant_cdnet.py``'s)."""
+    seg = build_segmentor(dict(type='CDNet', num_classes=2, test_cfg=dict(int8_eval=True)), device='cpu')
+    assert seg.prepare_inference() is None
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 32, 32, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want = seg.net(x)
+    got = seg.forward_heads(x)
+    assert all(torch.equal(got[k], want[k]) for k in ('sem', 'dir', 'point'))

@@ -12,11 +12,12 @@ others to score).
 - ``tools/test.py`` on ``best.pt``: its eval results and the pickled
   storage equal ``single_device_test`` + ``evaluate`` in-process on the same
   weights, exactly;
-- ``--int8-calib 2`` on the UNet-S2D config with a seeded checkpoint saved
-  through ``CheckpointManager``, on a 64^2 mini dataset: logs ``int8 eval:
-  calibrated on 2 test crops`` and evaluates through the int8 executor; on
-  UNet it raises the ``NotImplementedError`` naming
-  ``heads/quant_decode.py``."""
+- ``--int8-calib 2`` on the UNet-S2D, UNet and HoVer-Net MoNuSeg configs
+  with seeded checkpoints saved through ``CheckpointManager``, on a 64^2 mini
+  dataset: logs ``int8 eval: calibrated on 2 test crops`` and evaluates
+  through the int8 executor (UNet's and HoVer-Net's resident executors, one
+  call per image); HoVer-Net warns of its AJI cost on stderr."""
+import importlib
 import logging
 import os
 import os.path as osp
@@ -141,20 +142,53 @@ def test_test_cli_equals_in_process(trained, records):
     assert [m for m in records if m.startswith('eval results: ')] == [f'eval results: {got}']
 
 
-def test_int8_calibration(tmp_path, records):
+def _mini_options(tmp_path):
+    """--options that point a MoNuSeg config's test set at a 64^2 mini dataset of 2 images, evaluated whole."""
     data = mini_dataset(tmp_path / 'data', n=2, hw=64, seed=80)
-    seg = build_segmentor(Config.fromfile(S2D_CONFIG).model, device='cpu', seed=4)
-    CheckpointManager(str(tmp_path / 'work')).save_best(types.SimpleNamespace(net=seg.net, step=0), 'Aji', 0.0)
-    best = str(tmp_path / 'work' / 'checkpoints' / 'best.pt')
-    options = [f'data.test.data_root={data["data_root"]}', 'data.test.img_dir=', 'data.test.ann_dir=',
-               'data.test.split=split.txt', 'model.test_cfg.mode=whole', 'model.test_cfg.rotate_degrees=[0]',
-               "model.test_cfg.flip_directions=['none']"]
+    return [f'data.test.data_root={data["data_root"]}', 'data.test.img_dir=', 'data.test.ann_dir=',
+            'data.test.split=split.txt', 'model.test_cfg.mode=whole', 'model.test_cfg.rotate_degrees=[0]',
+            "model.test_cfg.flip_directions=['none']"]
+
+
+def _seeded_checkpoint(work, model, seed):
+    seg = build_segmentor(model, device='cpu', seed=seed)
+    CheckpointManager(str(work)).save_best(types.SimpleNamespace(net=seg.net, step=0), 'Aji', 0.0)
+    return str(work / 'checkpoints' / 'best.pt')
+
+
+def test_int8_calibration(tmp_path, records):
+    options = _mini_options(tmp_path)
+    best = _seeded_checkpoint(tmp_path / 'work', Config.fromfile(S2D_CONFIG).model, 4)
     got = test_cli.main([S2D_CONFIG, best, '--int8-calib', '2', '--device', 'cpu', '--options', *options])
     assert 'int8 eval: calibrated on 2 test crops' in records
     assert np.isfinite(got['mDice'])
-    unet = Config.fromfile(osp.join(ROOT, 'configs/unet/unet_vgg16_adam-lr1e-4_bs8_256x256_300e_monuseg.py'))
-    CheckpointManager(str(tmp_path / 'unet')).save_best(
-        types.SimpleNamespace(net=build_segmentor(unet.model, device='cpu').net, step=0), 'Aji', 0.0)
-    with pytest.raises(NotImplementedError, match='quant_decode'):
-        test_cli.main([unet.filename, str(tmp_path / 'unet' / 'checkpoints' / 'best.pt'), '--int8-calib', '2',
-                       '--device', 'cpu', '--options', *options])
+
+
+INT8_NETS = {'UNet': ('configs/unet/unet_vgg16_adam-lr1e-4_bs8_256x256_300e_monuseg.py', 'quant_decode',
+                      'apply_fast_unet_q8'),
+             'HoverNet': ('configs/hovernet/hovernet_adam-lr0.0001_bs8_256x256_300e_monuseg.py', 'quant_hovernet',
+                          'apply_hovernet_q8')}
+
+
+@pytest.mark.parametrize('name', sorted(INT8_NETS))
+def test_int8_calibration_of_seeded_nets(tmp_path, records, capsys, monkeypatch, name):
+    """``--int8-calib 2`` on a seeded UNet and HoVer-Net checkpoint: the
+    evaluation runs through the resident int8 executor (a spy counts its
+    calls); HoVer-Net's warning goes to stderr."""
+    config, module, fn = INT8_NETS[name]
+    cfg = Config.fromfile(osp.join(ROOT, config))
+    best = _seeded_checkpoint(tmp_path / 'work', cfg.model, 5)
+    mod = importlib.import_module(f'tiseg_tpu_torch.models.heads.{module}')
+    calls, run = [], getattr(mod, fn)
+
+    def spy(*a, **kw):
+        calls.append(a[-1].shape)
+        return run(*a, **kw)
+
+    monkeypatch.setattr(mod, fn, spy)
+    got = test_cli.main([cfg.filename, best, '--int8-calib', '2', '--device', 'cpu', '--options',
+                         *_mini_options(tmp_path)])
+    assert 'int8 eval: calibrated on 2 test crops' in records
+    assert np.isfinite(got['mDice'])
+    assert calls == [(1, 64, 64, 3)] * 2  # one whole-image forward per test image
+    assert ('WARNING: HoverNet int8' in capsys.readouterr().err) == (name == 'HoverNet')

@@ -18,6 +18,7 @@ from tiseg_tpu.models import build_segmentor as build_jax_segmentor
 from tiseg_tpu.models.heads import fast_decode as jfd
 from tiseg_tpu_torch.models import build_segmentor
 from tiseg_tpu_torch.models.heads import fast_decode as fd
+from tiseg_tpu_torch.models.heads import quant_decode as qd
 from tiseg_tpu_torch.utils.weights import _tconv, unet_state_dict_from_flax
 from torch_port_utils import random_unet_variables
 
@@ -172,12 +173,26 @@ def test_prep_follows_a_later_load_state_dict(nets):
 
 
 def test_int8_is_not_ported(nets):
+    """The int8 route, once missing here, now runs (its parity with the JAX
+    package is ``test_torch_quant_unet.py``'s): int8_eval without a
+    calibration keeps the float executor; calibrated, ``inference`` takes
+    the resident executor (spied) and its class probabilities stay within
+    0.05 of the float ones (8-bit rounding); the flag off again, the float
+    executor's output comes back exactly."""
     _, port, _, _ = nets
-    with pytest.raises(NotImplementedError, match='heads/quant_decode.py'):
-        port.calibrate_int8(torch.zeros(1, 32, 32, 3))
+    img = torch.from_numpy(_r(32, 1, 32, 32, 3))
+    float_sem = port.inference(img)['sem']
+    calls, run = [], qd.apply_fast_unet_q8
     port.test_cfg['int8_eval'] = True
     try:
-        with pytest.raises(NotImplementedError, match='int8_eval.*heads/quant_decode.py'):
-            port.inference(torch.zeros(1, 32, 32, 3))
+        assert torch.equal(port.inference(img)['sem'], float_sem)
+        port.calibrate_int8(img)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(qd, 'apply_fast_unet_q8', lambda *a, **kw: (calls.append(a[-1].shape), run(*a, **kw))[1])
+            int8_sem = port.inference(img)['sem']
+        assert calls == [(1, 32, 32, 3)]
+        assert 0 < float((int8_sem - float_sem).abs().max()) <= 0.05
     finally:
         del port.test_cfg['int8_eval']
+        port._int8_fpq = None
+    assert torch.equal(port.inference(img)['sem'], float_sem)

@@ -252,6 +252,27 @@ def dropout_off(monkeypatch):
 
 
 # -- few intra-op threads for the training tests ---------------------------------------------------
+# -- the int8 convolution's forms (tests/test_torch_int8_conv_general.py, test_torch_gpu_int8.py) --------------------
+# name -> (input NHWC, kernel HWIO, stride, padding, groups); the names say where the int8 executors use the form;
+# every output has more than 16 rows, so that the card's route (torch._int_mm) takes it
+INT8_CONV_FORMS = {
+    'unet.W0 4x4/2 pad 1': ((1, 18, 18, 3), (4, 4, 3, 64), 2, ((1, 1), (1, 1)), 1),
+    'unet.W1 2x2 pad 1': ((1, 9, 9, 32), (2, 2, 32, 32), 1, ((1, 1), (1, 1)), 1),
+    'unet.dec.ct 2x2 VALID': ((1, 9, 9, 64), (2, 2, 64, 64), 1, 'VALID', 1),
+    'unet.dec.cs_std 4x4/2 pad 1': ((1, 16, 16, 32), (4, 4, 32, 64), 2, ((1, 1), (1, 1)), 1),
+    'unet.s 3x3 SAME': ((1, 8, 8, 128), (3, 3, 128, 64), 1, 'SAME', 1),
+    'hovernet.stem 7x7 pad 3': ((1, 12, 12, 3), (7, 7, 3, 64), 1, ((3, 3), (3, 3)), 1),
+    'hovernet.c2 3x3/2 pad 1': ((1, 12, 12, 64), (3, 3, 64, 64), 2, ((1, 1), (1, 1)), 1),
+    'hovernet.down 1x1/2 SAME': ((1, 12, 12, 64), (1, 1, 64, 256), 2, 'SAME', 1),
+    'hovernet.c1 1x1 SAME': ((1, 8, 8, 256), (1, 1, 256, 64), 1, 'SAME', 1),
+    'hovernet.dense c2 3x3 groups 4': ((1, 8, 8, 128), (3, 3, 32, 32), 1, 'SAME', 4),
+    'hovernet.u0 1x1 to 7': ((1, 8, 8, 64), (1, 1, 64, 7), 1, 'SAME', 1),
+    'cdnet.d0c 3x3 on 80 channels': ((1, 8, 8, 80), (3, 3, 80, 16), 1, 'SAME', 1),
+    'odd side 3x3/2 SAME': ((1, 9, 11, 16), (3, 3, 16, 8), 2, 'SAME', 1),
+    'even kernel 2x2 SAME': ((1, 9, 9, 16), (2, 2, 16, 24), 1, 'SAME', 1),
+}
+
+
 TRAIN_TEST_THREADS = 2  # the suite runs six workers on eight cores: eight threads each would oversubscribe them
 
 

@@ -292,9 +292,9 @@ def hovernet_port(variables, test_cfg=None):
     return seg
 
 
-def scaled_hovernet_variables(seed, img, quantile=0.5):
-    """Seeded weights with the ``tp`` and ``np`` classifiers rescaled on the
-    first view of ``img``: a random 50-layer residual trunk gives logits of ~1e4 with
+def scaled_hovernet_variables(seed, img, quantile=0.5, variables=None):
+    """Seeded weights (or ``variables``) with the ``tp`` and ``np``
+    classifiers rescaled on the first view of ``img``: a random 50-layer residual trunk gives logits of ~1e4 with
     per-class offsets of the same size, which saturate the softmax. The
     ``sem`` logits are centred per class and scaled to a spatial standard
     deviation of about 2; the ``fore`` logit difference is scaled likewise
@@ -302,7 +302,8 @@ def scaled_hovernet_variables(seed, img, quantile=0.5):
     import torch
 
     from tiseg_tpu_torch.ops.sliding import split_inference
-    variables = random_hovernet_variables(seed=seed)
+    if variables is None:
+        variables = random_hovernet_variables(seed=seed)
     heads = split_inference(hovernet_port(variables).forward_heads, torch.from_numpy(img), 64, 16)
     params = variables['params']
     sem = heads['sem'].reshape(-1, HOVER_NUM_CLASSES)
@@ -377,3 +378,147 @@ def jax_fused_and_postprocessed(jseg, jvars, img):
     fused, out = jax.jit(lambda v, im: (jseg.inference(v, im), jseg.inference_and_postprocess(v, im)))(
         jvars, jax.numpy.asarray(img))
     return {k: np.asarray(v) for k, v in fused.items()}, {k: np.asarray(v) for k, v in out.items()}
+
+
+# -- the int8 executors (tests/test_torch_quant_*.py) -------------------------------------
+def torch_tree(tree):
+    """A JAX tree (dicts, lists, tuples of arrays, None) as CPU torch tensors."""
+    import torch
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: torch_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(torch_tree(v) for v in tree)
+    return torch.from_numpy(np.array(tree))
+
+
+def jitter_bn_stats(variables, seed: int):
+    """A copy of flax ``variables`` with every BN's running variance scaled
+    by U(0.5, 1.5) and its mean moved by N(0, 0.05) (numpy, ``seed``), as
+    ``tests/test_quant_decode.py`` does: folding must not hide behind the
+    initial statistics."""
+    rng = np.random.default_rng(seed)
+
+    def jitter(path, a):
+        if path[-1].key == 'var':
+            return (a * rng.uniform(0.5, 1.5, a.shape)).astype(np.float32)
+        return (a + rng.standard_normal(a.shape) * 0.05).astype(np.float32)
+
+    stats = jax.tree_util.tree_map_with_path(jitter, variables['batch_stats'])
+    return {'params': variables['params'], 'batch_stats': jax.tree_util.tree_map(np.asarray, stats)}
+
+
+def port_int8_calls(run):
+    """``run()`` with the port's int8 convolutions (``ops/int8_conv.py``, their
+    CPU route: the plain versions) recording each call's int8 input and int32
+    output: (result, calls)."""
+    import pytest
+
+    from tiseg_tpu_torch.ops import int8_conv
+    calls = []
+
+    def rec(fn):
+        def call(x, w, *a):
+            y = fn(x, w, *a)
+            calls.append((x, y))
+            return y
+        return call
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(int8_conv, 'conv2d_i8_plain', rec(int8_conv.conv2d_i8_plain))
+        mp.setattr(int8_conv, 'conv_transpose2x_i8_plain', rec(int8_conv.conv_transpose2x_i8_plain))
+        return run(), calls
+
+
+def jax_int8_calls(run):
+    """``run()`` with ``jax.lax.conv_general_dilated`` / ``conv_transpose``
+    recording each call whose input is int8 (traced values under ``jit``):
+    (result, calls)."""
+    import jax.numpy as jnp
+    import pytest
+    calls = []
+
+    def rec(fn):
+        def call(lhs, rhs, *a, **kw):
+            y = fn(lhs, rhs, *a, **kw)
+            if lhs.dtype == jnp.int8:
+                calls.append((lhs, y))
+            return y
+        return call
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.lax, 'conv_general_dilated', rec(jax.lax.conv_general_dilated))
+        mp.setattr(jax.lax, 'conv_transpose', rec(jax.lax.conv_transpose))
+        return run(), calls
+
+
+def check_int8_sites_eager(port_calls, eager_calls):
+    """Site by site, bit for bit: the int8 input entering each convolution
+    and its int32 output, the port against JAX run op by op."""
+    assert len(port_calls) == len(eager_calls) > 0
+    for i, ((x, y), (ex, ey)) in enumerate(zip(port_calls, eager_calls)):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(ex), err_msg=f'int8 input of conv {i}')
+        np.testing.assert_array_equal(y.numpy(), np.asarray(ey), err_msg=f'int32 output of conv {i}')
+
+
+def int8_sites_within_shares(port_calls, jit_calls, record_property, site_share: float, overall_share: float):
+    """The int8 inputs of each convolution against another program's, one
+    that rounds its float operations otherwise (the jitted JAX program:
+    reciprocal products, fused multiply-adds): at most ``site_share`` of any
+    site's values and ``overall_share`` of all of them differ, and by at most
+    one step at the first site where any does. The readings go to the
+    test's junit properties."""
+    assert len(port_calls) == len(jit_calls)
+    first, shares, n_diff = None, [], 0
+    for i, ((x, _), (jx, _)) in enumerate(zip(port_calls, jit_calls)):
+        diff = np.abs(x.numpy().astype(int) - np.asarray(jx).astype(int))
+        shares.append(float((diff > 0).mean()))
+        n_diff += int((diff > 0).sum())
+        if first is None and diff.any():
+            first = i
+            assert diff.max() <= 1, (i, diff.max())
+    overall = n_diff / sum(x.numel() for x, _ in port_calls)
+    record_property('int8_sites_differing_share', ' '.join(f'{v:.4f}' for v in shares))
+    record_property('int8_values_differing_share', overall)
+    record_property('first_differing_site', first)
+    assert max(shares) <= site_share, (int(np.argmax(shares)), max(shares))
+    assert overall <= overall_share, overall
+
+
+def leaves_close(got, want, path=''):
+    """A port parameter tree against a JAX one, leaf for leaf, within 1e-6
+    of each leaf's largest value."""
+    if want is None:
+        assert got is None, path
+        return
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            leaves_close(got[k], want[k], f'{path}/{k}')
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            leaves_close(g, w, f'{path}/{i}')
+    else:
+        w = np.asarray(want)
+        assert tuple(got.shape) == w.shape, path
+        assert np.abs(got.numpy() - w).max() <= 1e-6 * max(np.abs(w).max(), 1e-6), path
+
+
+def check_tree_against_jit(got, fpq):
+    """An int8 tree against the JAX package's ``calibrate_int8`` (one jitted
+    program: BN folded and the division by 127 taken as a product with its
+    reciprocal inside it): activation scales within 1e-5 relative (abs-maxes
+    of float32 forwards summed in other orders), weight scales within 1e-6 (a
+    few ulps), int8 weights within one step, at most 1e-4 of them moved."""
+    assert sorted(got['act']) == sorted(fpq['act']) and sorted(got['wq']) == sorted(fpq['wq'])
+    for k, a in fpq['act'].items():
+        np.testing.assert_allclose(float(got['act'][k]), float(a), rtol=1e-5, err_msg=k)
+    n_off = 0
+    for k, (jWq, js) in fpq['wq'].items():
+        np.testing.assert_allclose(got['wq'][k][1].numpy(), np.asarray(js), rtol=1e-6, atol=0, err_msg=k)
+        off = np.abs(got['wq'][k][0].numpy().astype(int) - np.asarray(jWq))
+        assert off.max() <= 1, k
+        n_off += int(off.sum())
+    assert n_off <= 1e-4 * sum(np.asarray(w).size for w, _ in fpq['wq'].values()), n_off

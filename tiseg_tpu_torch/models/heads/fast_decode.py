@@ -71,6 +71,20 @@ def _folded(conv, bn, kernel):
     return k.detach(), b.detach()
 
 
+def _fold_cm(cm):
+    """(HWIO kernel, bias) of a ``ConvModule`` (conv + BN) with BN folded."""
+    return _folded(cm.conv, cm.bn, _hwio(cm.conv.weight))
+
+
+def _map(fn, tree):
+    """``fn`` on every tensor of a tree of dicts, lists and tuples (None kept)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
 # ---------------------------------------------------------------------------
 # phase-space weight scatters (HWIO in, HWIO out)
 # ---------------------------------------------------------------------------

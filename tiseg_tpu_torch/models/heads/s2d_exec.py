@@ -27,15 +27,11 @@ from typing import Any, Dict, List
 import torch
 import torch.nn.functional as F
 
-from .fast_decode import _folded, _hwio, _max_pool_2x, tconv_to_flax
-from .quant_decode import _conv_i8, _deq_f32, _max_pool_2x_i8, _pad_to, _qround, _req, _tconv, _wquant
+from .fast_decode import _fold_cm, _folded, _hwio, _map, _max_pool_2x, tconv_to_flax
+from .quant_decode import (_absmax, _conv_i8, _deq_f32, _max_pool_2x_i8, _pad_to, _qround, _req, _scale_tree, _tconv,
+                           _wquant)
 
 VGG16_STAGE_CONVS = (2, 2, 3, 3, 3)
-
-
-def _fold_cm(cm):
-    """(HWIO kernel, bias) of a ``ConvModule`` (conv + BN) with BN folded."""
-    return _folded(cm.conv, cm.bn, _hwio(cm.conv.weight))
 
 
 @torch.no_grad()
@@ -55,14 +51,6 @@ def build_s2d_params(net) -> Dict[str, Any]:
     fp['dec0'] = _fold_cm(net.decode0_conv)
     fp['cls'] = (_hwio(net.cls.weight.detach()), net.cls.bias.detach())
     return _map(lambda t: t.float().contiguous(), fp)
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def s2d2(x: torch.Tensor) -> torch.Tensor:
@@ -85,10 +73,6 @@ def _conv(x, W):
     ``x``'s dtype, no bias (the JAX package adds it after the rounding)."""
     w = W.to(x.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     return F.conv2d(x.permute(0, 3, 1, 2), w, padding=W.shape[0] // 2).permute(0, 2, 3, 1)
-
-
-def _absmax(x):
-    return x.float().abs().amax()
 
 
 def _head(x, fp, dtype, out):
@@ -165,8 +149,7 @@ def quantize_s2d(fp, act_maxes: Dict[str, Any], margin: float = 1.0):
     'wq': {site: (W_q, s_w)}}``. Each stage output that feeds both the next
     stage and a decoder skip is held once, at the next stage's scale, and
     read by split concat convs: no scale is shared between sites."""
-    act = {k: (torch.as_tensor(v, dtype=torch.float32) * margin).clamp_min(1e-12) / 127.0
-           for k, v in act_maxes.items()}
+    act = _scale_tree(act_maxes, margin)
     wq = {'stem0': _wquant(fp['stem'][0][0]), 'stem1': _wquant(fp['stem'][1][0])}
     for s, convs in enumerate(fp['stages'], start=1):
         for ci, (k, _) in enumerate(convs):

@@ -59,7 +59,8 @@ def fuse_direction_views(seg: BaseSegmentor, img: torch.Tensor, ori_hw, prob_hea
     views = tta_views(seg.test_cfg)
     ws = seg.test_cfg.get('crop_size', (0,))[0]
     os_ = seg.test_cfg.get('overlap_size', (0,))[0]
-    outs = tta_forward_views(seg.forward_heads, img, views, mode, ws, os_,
+    prep = seg.prepare_inference()  # once per call, e.g. CDNet's folded int8 executor
+    outs = tta_forward_views(lambda patch: seg.forward_heads(patch, prep=prep), img, views, mode, ws, os_,
                              chunk=seg.test_cfg.get('patch_batch', 8))
     sums, dir_views = None, []
     for (rot, flip), out in zip(views, outs):
@@ -94,8 +95,11 @@ def fuse_direction_views(seg: BaseSegmentor, img: torch.Tensor, ori_hw, prob_hea
 @SEGMENTORS.register_module()
 class CDNet(BaseSegmentor):
     """``seed`` draws the initial weights (He-normal, ``nn.he_init_``);
-    load trained ones with ``net.load_state_dict``. The int8 eval route of
-    the JAX package (``test_cfg['int8_eval']``) is not ported and raises."""
+    load trained ones with ``net.load_state_dict``. With
+    ``test_cfg['int8_eval']`` set and an int8 tree from
+    :meth:`calibrate_int8`, the eval forward runs the int8-resident executor
+    of ``heads/quant_cdnet.py`` (its dequant twin for a tree without the
+    resident sites); without a calibration the net runs in float32."""
 
     device_pp_supported = True
     device_pp_strip_boundary = True
@@ -104,12 +108,43 @@ class CDNet(BaseSegmentor):
     def __init__(self, num_classes, train_cfg=None, test_cfg=None, num_angles: int = 8, device=None,
                  seed: int = 0):
         super().__init__(num_classes, train_cfg, test_cfg, device=device)
-        if self.test_cfg.get('int8_eval', False):
-            raise NotImplementedError('CDNet int8_eval is not ported (tiseg_tpu/models/heads/quant_cdnet.py)')
         self.num_angles = num_angles
+        self._int8_fpq = None
         self.net = CDNetNet(num_classes, num_angles, device=self.device)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
+
+    # -- int8 post-training-quantized eval (heads/quant_cdnet.py) ---------------
+    def prepare_inference(self):
+        """With the int8 route active (``test_cfg['int8_eval']`` and a
+        calibration), the BN-folded parameters and the int8 tree, built once
+        per ``inference`` call; else None (the net's own forward)."""
+        if not (self.test_cfg.get('int8_eval', False) and self._int8_fpq is not None):
+            return None
+        from ..heads.quant_cdnet import build_cdnet_fp
+        return {'fp': build_cdnet_fp(self.net), 'int8': self._int8_fpq}
+
+    def calibrate_int8(self, calib_img):
+        """Abs-max calibration on one NHWC batch and weight quantization,
+        on the segmentor's device: the int8 tree that
+        ``test_cfg['int8_eval']`` then routes the eval forward through."""
+        from ..heads.quant_cdnet import build_cdnet_fp, calibrate, quantize_params
+        self._int8_fpq = None
+        with torch.inference_mode():
+            fp = build_cdnet_fp(self.net)
+            img = torch.as_tensor(calib_img, dtype=torch.float32, device=self.device)
+            self._int8_fpq = quantize_params(fp, calibrate(fp, img, dtype=torch.float32))
+        return self._int8_fpq
+
+    def forward_heads(self, img, prep=None):
+        if prep is None:
+            prep = self.prepare_inference()
+        if prep is None:
+            return super().forward_heads(img)
+        from ..heads.quant_cdnet import apply_cdnet_q, apply_cdnet_q8, resident_ok
+        run = apply_cdnet_q8 if resident_ok(prep['int8']) else apply_cdnet_q
+        with torch.inference_mode():
+            return run(prep['fp'], prep['int8'], img, dtype=torch.float32)
 
     def loss(self, batch, generator=None):
         """CE and batch dice on ``sem_gt_w_bound`` (``num_classes + 1``

@@ -107,7 +107,13 @@ class HoverNet(BaseSegmentor):
     load trained ones with ``net.load_state_dict``.
 
     ``scale_factor != 1`` needs cv2's ``resize``, which is not ported: it
-    raises ``NotImplementedError`` on both routes."""
+    raises ``NotImplementedError`` on both routes.
+
+    With ``test_cfg['int8_eval']`` set and an int8 tree from
+    :meth:`calibrate_int8`, the eval forward runs the resident int8
+    executor of ``heads/quant_hovernet.py`` (the ``hv`` branch in float by
+    default); both post-processing routes take its heads. Without a
+    calibration the net runs in float32."""
 
     softmax_heads = ('sem', 'fore')
     first_view_heads = ('hv',)
@@ -118,6 +124,41 @@ class HoverNet(BaseSegmentor):
         self.net = HoverNetNet(num_classes, device=self.device)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
+        self._int8_fpq = None
+
+    # -- int8 post-training-quantized eval (heads/quant_hovernet.py) -------------
+    def prepare_inference(self):
+        """With the int8 route active (``test_cfg['int8_eval']`` and a
+        calibration), the folded parameters and the int8 tree, built once
+        per ``inference`` call; else None (the net's own forward)."""
+        if not (self.test_cfg.get('int8_eval', False) and self._int8_fpq is not None):
+            return None
+        from ..heads.quant_hovernet import build_hovernet_fp
+        return {'fp': build_hovernet_fp(self.net), 'int8': self._int8_fpq}
+
+    def calibrate_int8(self, calib_img, float_branches=('hv',), float_site_prefixes=()):
+        """Abs-max calibration on one NHWC batch and weight quantization, on
+        the segmentor's device. ``float_branches`` stay float (the ``hv``
+        branch by default); ``float_site_prefixes`` keeps the trunk sites
+        they prefix in float."""
+        from ..heads.quant_hovernet import build_hovernet_fp, calibrate, quantize_params
+        self._int8_fpq = None
+        with torch.inference_mode():
+            fp = build_hovernet_fp(self.net)
+            img = torch.as_tensor(calib_img, dtype=torch.float32, device=self.device)
+            self._int8_fpq = quantize_params(fp, calibrate(fp, img, dtype=torch.float32),
+                                             float_branches=tuple(float_branches),
+                                             float_site_prefixes=tuple(float_site_prefixes))
+        return self._int8_fpq
+
+    def forward_heads(self, img, prep=None):
+        if prep is None:
+            prep = self.prepare_inference()
+        if prep is None:
+            return super().forward_heads(img)
+        from ..heads.quant_hovernet import apply_hovernet_q8
+        with torch.inference_mode():
+            return apply_hovernet_q8(prep['fp'], prep['int8'], img, dtype=torch.float32)
 
     def loss(self, batch, generator=None):
         """On ``sem``: 5 x CE plus 0.5 x batch dice against ``sem_gt``; on

@@ -6,8 +6,9 @@ VGG16-BN encoder + UNet decoder; trained on the 1px-eroded semantic target
 eval by per-class fill-holes -> remove-small -> CCL -> disk dilation, on the
 device (``device_postprocess``) or on the host. The eval forward runs
 through the BN-folded phase-space executor (``heads/fast_decode.py``)
-unless ``test_cfg['fast_eval']`` is False; the train forward always runs the
-unfolded net.
+unless ``test_cfg['fast_eval']`` is False, or, with ``test_cfg['int8_eval']``
+and an int8 tree from ``calibrate_int8``, through its int8 executors
+(``heads/quant_decode.py``); the train forward always runs the unfolded net.
 """
 from __future__ import annotations
 
@@ -66,7 +67,15 @@ class FastVGGUNetEval:
     """Mixin: the phase-space eval forward for VGG16BN + UNetHead nets
     (``heads/fast_decode.py``), an exact rewrite of the net's eval forward
     with BN folded. Used when ``test_cfg['fast_eval']`` (default on) and the
-    input's height and width divide by 4; otherwise the unfolded net runs."""
+    input's height and width divide by 4; otherwise the unfolded net runs.
+
+    With ``test_cfg['int8_eval']`` set and an int8 tree from
+    :meth:`calibrate_int8`, the eval forward runs the int8-resident executor
+    (``heads/quant_decode.py``; its dequant twin for a head outside the
+    resident layout). Without a calibration the float executor runs; a
+    calibrated int8 eval that the phase-space path cannot take raises."""
+
+    _int8_fpq = None
 
     def _fast_eval_ok(self, hw) -> bool:
         return hw[0] % 4 == 0 and hw[1] % 4 == 0
@@ -74,26 +83,78 @@ class FastVGGUNetEval:
     def _fast_eval_enabled(self) -> bool:
         return self.test_cfg.get('fast_eval', True)
 
-    def prepare_inference(self):
-        """Fold BN and build the phase-space weights from the net's present
-        weights: once per ``inference`` call, not once per patch chunk."""
-        if self.test_cfg.get('int8_eval', False):
-            raise NotImplementedError('int8_eval is not ported (tiseg_tpu/models/heads/quant_decode.py)')
-        if not self._fast_eval_enabled():
-            return None
+    def _int8_active(self) -> bool:
+        return bool(self.test_cfg.get('int8_eval', False)) and self._int8_fpq is not None
+
+    def _fold(self):
         from ..heads.fast_decode import build_fast_unet_head_params, build_fast_vgg16_params
         return {'vgg': build_fast_vgg16_params(self.net.backbone), 'head': build_fast_unet_head_params(self.net.head)}
 
+    def prepare_inference(self):
+        """Fold BN and build the phase-space weights from the net's present
+        weights: once per ``inference`` call, not once per patch chunk. With
+        the int8 route active the prep carries the int8 tree too."""
+        if not self._fast_eval_enabled():
+            return None
+        prep = self._fold()
+        if self._int8_active():
+            prep['int8'] = self._int8_fpq
+        return prep
+
     def calibrate_int8(self, calib_img, margin: float = 1.0):
-        raise NotImplementedError('the int8 eval path is not ported (tiseg_tpu/models/heads/quant_decode.py)')
+        """Abs-max calibration on one batch (NHWC, sides divisible by 4) and
+        weight quantization, on the segmentor's device: the int8 tree that
+        ``test_cfg['int8_eval']`` then routes the eval forward through."""
+        from ..heads.quant_decode import calibrate, quantize_params
+        self._int8_fpq = None
+        if not self._fast_eval_enabled():
+            raise ValueError('int8 eval requires the fast eval path (fast_eval=True)')
+        with torch.inference_mode():
+            fp = self._fold()
+            img = torch.as_tensor(calib_img, dtype=torch.float32, device=self.device)
+            scales = calibrate(fp['vgg'], fp['head'], img, dtype=torch.float32)
+            self._int8_fpq = quantize_params(fp['vgg'], fp['head'], scales, margin=margin)
+        return self._int8_fpq
+
+    def inference_and_postprocess(self, img, ori_hw=None):
+        """With the int8 route active on a single-view whole-image eval at
+        the input's own size, the resident executor returns the argmax plane
+        (``out='pred'``: taken in the phase layout, no full-resolution
+        logits) straight to the device instance post-processing; otherwise
+        the generic route."""
+        from ...ops.sliding import tta_views
+        from ..heads.quant_decode import apply_fast_unet_q8, resident_ok
+        img = torch.as_tensor(img, device=self.device)
+        use_pred = (self.device_pp_supported and self.test_cfg.get('device_postprocess', False)
+                    and ori_hw is None and self.test_cfg.get('mode', 'whole') == 'whole'
+                    and len(tta_views(self.test_cfg)) == 1
+                    and self._fast_eval_enabled() and self._fast_eval_ok(img.shape[1:3]) and self._int8_active())
+        if use_pred:
+            with torch.inference_mode():
+                prep = self.prepare_inference()
+                if resident_ok(prep['head']):
+                    sem_pred = apply_fast_unet_q8(prep['vgg'], prep['head'], prep['int8'], img,
+                                                  dtype=torch.float32, out='pred')
+                    if self.device_pp_strip_boundary:
+                        sem_pred = torch.where(sem_pred == self.num_classes, 0, sem_pred)
+                    sem_out, inst_out = self._device_instance_pp(sem_pred)
+                    return {'sem_pred': sem_out, 'inst_pred': inst_out}
+        return super().inference_and_postprocess(img, ori_hw)
 
     def forward_heads(self, img, prep=None):
         if not self._fast_eval_enabled() or not self._fast_eval_ok(img.shape[1:3]):
+            if self._int8_active():
+                raise ValueError(f'int8 eval runs the phase-space executor: fast_eval on and sides divisible by 4, '
+                                 f'got {tuple(img.shape[1:3])}')
             return super().forward_heads(img)
         from ..heads.fast_decode import apply_fast_unet_head, apply_fast_vgg16
         with torch.inference_mode():
             if prep is None:
                 prep = self.prepare_inference()
+            if 'int8' in prep:
+                from ..heads.quant_decode import apply_fast_unet_q, apply_fast_unet_q8, resident_ok
+                run = apply_fast_unet_q8 if resident_ok(prep['head']) else apply_fast_unet_q
+                return {'sem': run(prep['vgg'], prep['head'], prep['int8'], img, dtype=torch.float32)}
             feats = apply_fast_vgg16(prep['vgg'], img)
             return {'sem': apply_fast_unet_head(prep['head'], feats[-1], feats[:-1])}
 

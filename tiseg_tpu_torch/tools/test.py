@@ -16,18 +16,27 @@ import argparse
 import os
 import os.path as osp
 import pickle
+import sys
 
 import numpy as np
 
 
 def calibrate_int8_from_dataset(segmentor, dataset, n: int, hw: int = 256):
     """Post-training-quantize the eval forward: abs-max calibrate on ``n``
-    center crops of the test dataset, then set ``test_cfg['int8_eval']`` so
-    that the evaluation runs through the int8 executor. UNet-S2D has it; the
-    other segmentors' ``calibrate_int8`` raise ``NotImplementedError``
-    naming the JAX module that is not ported yet."""
+    center crops of the test dataset (one common side, at most ``hw`` and
+    divisible by 4), then set ``test_cfg['int8_eval']`` so that the
+    evaluation runs through the int8 executor: ``heads/quant_decode.py`` for
+    UNet and CUNet, ``quant_cdnet.py`` for CDNet, ``quant_hovernet.py`` for
+    HoVer-Net, ``s2d_exec.py`` for UNet-S2D. The JAX package's converged-model
+    study reads the int8 route's AJI at 0.0 points from float for UNet, +0.3
+    for CDNet and -1.8 for HoVer-Net (its ``hv`` branch stays float; the int8
+    trunk perturbs it)."""
     if not hasattr(segmentor, 'calibrate_int8'):
-        raise SystemExit(f'{type(segmentor).__name__} has no int8 eval path')
+        raise SystemExit(f'{type(segmentor).__name__} has no int8 eval path '
+                         '(supported: UNet, CUNet, CDNet, HoverNet, UNetS2D)')
+    if type(segmentor).__name__ == 'HoverNet':
+        print('WARNING: HoverNet int8 costs ~1.8 Aji pts at converged weights (the hv regression branch is '
+              'sensitive to the int8 trunk): prefer float unless throughput-critical.', file=sys.stderr, flush=True)
     imgs = [np.asarray(dataset[i]['data']['img'], np.float32) for i in range(min(n, len(dataset)))]
     # one common /4-divisible crop size so that the batch stacks
     s = min([hw] + [min(im.shape[:2]) for im in imgs]) // 4 * 4
@@ -55,7 +64,7 @@ def main(argv=None):
     p.add_argument('--show-folder', default=None)
     p.add_argument('--int8-calib', type=int, default=0, metavar='N',
                    help='post-training-quantize the eval forward: calibrate on N test-set center crops, then '
-                        'run inference through the int8 executor')
+                        'run inference through the int8 executor (UNet/CUNet, CDNet, HoverNet, UNetS2D)')
     p.add_argument('--device', default=None, help='torch device (default: cuda)')
     p.add_argument('--options', nargs='+', default=[])
     args = p.parse_args(argv)
