@@ -278,6 +278,21 @@
    is DIST's: its launches there and its times on DIST's seed plane; B2's and
    B5's rows carry DIST's numbers as ``dist_*`` beside HoVer-Net's.
 
+10. The data-parallel path (data_parallel_path, after the int8 eval): two
+   gloo ranks sharing the card (spawned; NCCL refuses two ranks on one
+   device) run the UNet recipe at full width on a global batch of 8 (4 per
+   rank) in float64 at 128^2 for 2 steps and FullNet with dropout for 1 step,
+   every parameter and BN statistic held to the one-rank step on the card
+   within tests/test_torch_ddp_step.py's tolerances; 5 float32 steps at 256^2
+   timed per rank beside one rank on the whole batch (the collectives'
+   overhead, not a speed-up), with the collectives and bytes per step; each
+   rank's share of the eval hook on 2 val tiles of 1000^2 (B1 strip route
+   once per tile per rank), merged and held to the one-rank loop by image
+   name, exactly; tools/train.py under torch.distributed.run on one rank
+   (nccl) against train_cli_path's first epoch (losses within rtol 2e-3);
+   HoVer-Net's host route at scale_factor 0.5 and 2 on 4 CoNIC tiles, ms per
+   tile.
+
 TF32 is off for convolutions and matrix products in every comparison.
 Prints, before its last two lines, one JSON object with each kernel's
 numbers, then the card line; the last line is
@@ -4145,6 +4160,346 @@ def stencil_yardstick(case_sets, timed, dist_row):
     return dict(dist_row, **{f'max_{k}': v for k, v in out.items()})
 
 
+DP_RANKS = 2  # two gloo ranks sharing the card: NCCL refuses two ranks on one device
+DP_BATCH = 8  # the recipe's samples_per_gpu as the global batch: 4 per rank
+DP_CHECK_HW, DP_TIMED_HW = 128, 256  # the float64 checks; the float32 timing
+DP_WARMUP, DP_TIMED = 2, 5  # float32 steps before timing, then timed
+DP_TOL = dict(logs=1e-10, displacement=1e-7, stats=1e-9)  # tests/test_torch_ddp_step.py's tolerances
+DP_F32_LOSS_RTOL = 1e-5  # the float32 first step's loss, two ranks against one: sums in another order
+DP_HOVER_TILES, DP_HOVER_SCALES = 4, (0.5, 2)
+
+
+def dp_state_diff(got: dict, want: dict, start: dict) -> dict:
+    """Each parameter's largest error over its largest displacement and each
+    BN statistic's largest relative error, where they pass DP_TOL's bounds:
+    the entries outside them (empty when all hold)."""
+    bad = {}
+    for name, w in want.items():
+        if name.endswith('num_batches_tracked'):
+            continue
+        g = got[name].double()
+        if name.endswith(('running_mean', 'running_var')):
+            err = float(((g - w.double()).abs() / w.double().abs().clamp_min(1e-300)).max())
+            if err > DP_TOL['stats']:
+                bad[name] = err
+        else:
+            moved, err = float((w.double() - start[name].double()).abs().max()), float((g - w.double()).abs().max())
+            if err > DP_TOL['displacement'] * moved and not moved == err == 0:
+                bad[name] = (err, moved)
+    return bad
+
+
+def dp_logs_diff(got: list, want: list) -> dict:
+    return {(t, k): (got[t].get(k), x) for t, logs in enumerate(want) for k, x in logs.items()
+            if k not in got[t] or abs(got[t][k] - x) > DP_TOL['logs'] * abs(x)}
+
+
+def dp_rank(rank: int, init_file: str, jobs_file: str, out_file: str) -> None:
+    """One of the DP_RANKS ranks sharing cuda:0 (spawned): the float64 check
+    cases, the float32 steps timed, and its share of the eval hook."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_RANKS), LOCAL_RANK=str(rank))
+    sys.path[:0] = [ROOT, os.path.join(ROOT, 'tests')]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import torch_ddp_worker
+    from tiseg_tpu_torch import parallel
+    from tiseg_tpu_torch.apis import build_train_state, gather_object_shards, multi_process_test
+    from tiseg_tpu_torch.datasets import build_dataset
+    from tiseg_tpu_torch.engine import make_train_step
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.utils import Config
+    parallel.init_distributed(backend='gloo', init_method=f'file://{init_file}', device='cuda:0')
+    try:
+        jobs = torch.load(jobs_file, weights_only=False)
+        out = {'checks': {name: torch_ddp_worker.run_case(case, 'cuda:0') for name, case in jobs['checks'].items()}}
+
+        # float32 steps on this rank's rows of one global batch: ms per step (CUDA events; each step waits for the
+        # other rank in its collectives) and the collectives of a step
+        timed = jobs['timed']
+        cfg = Config.fromfile(os.path.join(ROOT, UNET_CONFIG))
+        seg = build_segmentor(cfg.model, device='cuda', seed=timed['seed'])
+        state = build_train_state(seg, cfg, iters_per_epoch=1, seed=timed['seed'])
+        step = make_train_step(seg, group=torch.distributed.group.WORLD)
+        batch = torch_ddp_worker.batch_to(torch_ddp_worker.rows(timed['batch'], rank, DP_RANKS), 'cuda',
+                                          torch.float32)
+        events, counts, losses = [], [], []
+        for i in range(DP_WARMUP + DP_TIMED):
+            parallel.data.COUNTS.update(collectives=0, bytes=0)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, logs = step(state, batch)
+            b.record()
+            events.append((a, b))
+            counts.append(dict(parallel.data.COUNTS))
+            losses.append(logs['loss'])
+        torch.cuda.synchronize()
+        out['timed'] = {'ms': [a.elapsed_time(b) for a, b in events[DP_WARMUP:]], 'counts': counts[-1],
+                        'loss': float(losses[0])}
+        del state, step, seg, batch
+        torch.cuda.empty_cache()
+
+        # the eval hook's share: multi_process_test + gather_object_shards, B1's launches on this rank
+        ev = jobs['eval']
+        seg = build_segmentor(ev['model'], device='cuda')
+        seg.net.load_state_dict(ev['state'])
+        ds = build_dataset(ev['dataset'], default_args=dict(test_mode=True))
+        counters = b1_counters()
+        zero_counts(counters)
+        shard = multi_process_test(seg, ds)
+        torch.cuda.synchronize()
+        out['eval'] = {'shard': shard, 'merged': gather_object_shards(shard), 'b1': read_counts(counters)}
+        torch.save(out, out_file)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_spawn(jobs: dict, tmp: str, timeout: float = 300):
+    """The DP_RANKS ranks of ``dp_rank`` on ``jobs``; their outputs, in rank
+    order. Raises if a rank fails or outlives ``timeout``."""
+    import multiprocessing
+    jobs_file, init = os.path.join(tmp, 'jobs.pt'), os.path.join(tmp, 'init')
+    torch.save(jobs, jobs_file)
+    outs = [os.path.join(tmp, f'rank{r}.pt') for r in range(DP_RANKS)]
+    ctx = multiprocessing.get_context('spawn')
+    procs = [ctx.Process(target=dp_rank, args=(r, init, jobs_file, outs[r])) for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.join(max(deadline - time.perf_counter(), 1))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join()
+    if alive or any(p.exitcode for p in procs):
+        raise RuntimeError(f'data-parallel ranks: exit codes {[p.exitcode for p in procs]}'
+                           + (f', {len(alive)} killed after {timeout} s' if alive else ''))
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def dp_global_batch(seed: int, hw: int) -> dict:
+    """DP_BATCH images of ``hw``^2 (numpy, float64) with the UNet recipe's labels and FullNet's
+    ``sem_gt_w_bound`` (its recipe's BoundLabelMake)."""
+    from tiseg_tpu_torch.datasets.ops import BoundLabelMake
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
+    batch = train_batch(seed, DP_BATCH, hw, 'cpu')
+    out = {g: {k: v.numpy().astype(np.float64) if v.is_floating_point() else v.numpy() for k, v in batch[g].items()}
+           for g in ('data', 'label')}
+    bound = BoundLabelMake(edge_id=2, selem_radius=(0, 2))
+    out['label']['sem_gt_w_bound'] = np.stack([
+        bound({'inst_gt': inst, 'sem_gt': (inst > 0).astype(np.int32), 'seg_fields': []})['sem_gt_w_bound']
+        for inst in (make_nuclei(seed + i, hw, nuclei_density(hw))[2] for i in range(DP_BATCH))]).astype(np.int32)
+    return out
+
+
+def same_tree(a, b) -> bool:
+    """Nested dicts, lists and arrays equal entry for entry."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(map(same_tree, a, b))
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def data_parallel_path(args):
+    """The data-parallel path on the card (``parallel/``, the global-batch BatchNorm, dropout, heads and labels,
+    the gradient sum): DP_RANKS ``gloo`` ranks sharing the card against the one-rank step in this process
+    (``dp_ranks_check``); the train CLI under ``torch.distributed.run`` on ``nccl`` (``dp_cli_check``);
+    HoVer-Net's host route at ``scale_factor`` 0.5 and 2 (``dp_hover_scale``)."""
+    numbers = dp_ranks_check(args)
+    numbers['cli_s'] = dp_cli_check(args)
+    numbers['hover_scale'] = dp_hover_scale(args)
+    print(json.dumps({'data_parallel': numbers}), flush=True)
+
+
+def dp_ranks_check(args) -> dict:
+    """The float64 checks (UNet 2 steps, FullNet 1 step with dropout), the float32 steps timed and the sharded
+    eval hook on DP_RANKS ranks sharing the card, against one rank in this process."""
+    import shutil
+    import tempfile
+    sys.path.insert(0, os.path.join(ROOT, 'tests'))
+    import torch_ddp_worker
+    from tiseg_tpu_torch.apis import build_train_state, single_device_test
+    from tiseg_tpu_torch.datasets import build_dataset
+    from tiseg_tpu_torch.engine import make_train_step
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.utils import Config
+
+    card = card_line()
+    cfg = Config.fromfile(os.path.join(ROOT, UNET_CONFIG))
+    fullnet_cfg = Config.fromfile(os.path.join(ROOT, ZOO_CONFIG['FullNet']))
+    optimizer = dict(cfg.optimizer)
+
+    def check_case(model, seed, batches):
+        seg = build_segmentor(model, device='cpu', seed=seed)
+        seg.net.double()
+        return dict(model=model, state=seg.net.state_dict(), batches=batches, optimizer=optimizer,
+                    dtype=torch.float64)
+
+    checks = {'UNet': check_case(cfg.model, args.seed + 40, [dp_global_batch(args.seed + 41000 + 10 * t, DP_CHECK_HW)
+                                                           for t in range(2)]),
+              'FullNet': check_case(fullnet_cfg.model, args.seed + 41, [dp_global_batch(args.seed + 41100, DP_CHECK_HW)])}
+    timed_batch = dp_global_batch(args.seed + 41200, DP_TIMED_HW)
+    timed = dict(seed=args.seed, batch=timed_batch)
+    eval_seg, _ = unet_recipe_seg(args)
+    eval_seg.test_cfg['device_metrics'] = True
+    val_kw, _ = write_tiles('dp_w0_s0', range(args.seed + 42000, args.seed + 42000 + DP_RANKS), LOOP_HW, LOOP_NUCLEI)
+    dataset = dict(val_kw, processes=cfg.data.test.processes)
+    jobs = {'checks': checks, 'timed': timed,
+            'eval': dict(model=dict(cfg.model, test_cfg=dict(eval_seg.test_cfg)), dataset=dataset,
+                         state={k: v.cpu() for k, v in eval_seg.net.state_dict().items()})}
+
+    # the one-rank references on the card, before the ranks start
+    t0 = time.perf_counter()
+    one = {name: torch_ddp_worker.run_case(case, 'cuda') for name, case in checks.items()}
+    val_ds = build_dataset(dataset, default_args=dict(test_mode=True))
+    counters = b1_counters()
+    zero_counts(counters)
+    one_eval = single_device_test(eval_seg, val_ds, progress=False)
+    one_b1 = read_counts(counters)
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+    state, step = build_train_state(seg, cfg, iters_per_epoch=1, seed=args.seed), make_train_step(seg)
+    batch = torch_ddp_worker.batch_to(timed_batch, 'cuda', torch.float32)
+    events, losses = [], []
+    for i in range(DP_WARMUP + DP_TIMED):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, logs = step(state, batch)
+        b.record()
+        events.append((a, b))
+        losses.append(logs['loss'])
+    torch.cuda.synchronize()
+    one_ms = [a.elapsed_time(b) for a, b in events[DP_WARMUP:]]
+    one_loss = float(losses[0])
+    del state, step, seg, batch, eval_seg
+    torch.cuda.empty_cache()
+    refs_s = time.perf_counter() - t0
+
+    os.makedirs(os.path.join(ROOT, 'build', 'dev'), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(ROOT, 'build', 'dev'))
+    t0 = time.perf_counter()
+    try:
+        ranks = dp_spawn(jobs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks_s = time.perf_counter() - t0
+
+    # float64 checks: rank 0 against the one-rank step; both ranks hold one state
+    for name, want in one.items():
+        got = [r['checks'][name] for r in ranks]
+        state_bad = dp_state_diff(got[0]['state'], want['state'], checks[name]['state'])
+        logs_bad = dp_logs_diff(got[0]['logs'], want['logs'])
+        same = all(torch.equal(got[0]['state'][k], got[1]['state'][k]) for k in got[0]['state'])
+        worst = max(((float((got[0]['state'][k].double() - w.double()).abs().max()), k)
+                     for k, w in want['state'].items() if not k.endswith('num_batches_tracked')))
+        print(f'data parallel, {name} float64 ({DP_RANKS} gloo ranks on cuda:0, global batch {DP_BATCH} x '
+              f'{DP_CHECK_HW}^2, {len(want["logs"])} step(s)): losses {[l["loss"] for l in got[0]["logs"]]} against one '
+              f'rank {[l["loss"] for l in want["logs"]]}; largest entry error {worst[0]:.3e} ({worst[1]}); outside the '
+              f'bounds {DP_TOL}: logs {logs_bad}, state {list(state_bad.items())[:5]}; ranks bit-equal {same}; '
+              f'collectives per step {got[0]["collectives"][-1]}', flush=True)
+        if state_bad or logs_bad or not same:
+            raise AssertionError(f'data parallel, {name}: the {DP_RANKS}-rank step differs from the one-rank step')
+
+    # the sharded eval hook: every rank merged both shares; equal to the one-rank loop by image name, exactly
+    merged = [{p['name']: p for p in r['eval']['merged']} for r in ranks]
+    want = {p['name']: p for p in one_eval}
+    shards = [[p['name'] for p in r['eval']['shard']] for r in ranks]
+    b1 = [r['eval']['b1'] for r in ranks]
+    same_eval = all(same_tree(m, want) for m in merged)
+    print(f'data parallel, eval hook ({DP_RANKS} ranks, {len(want)} val tiles of {LOOP_HW}^2): shares {shards}; merged '
+          f'packages equal the one-rank loop by name: {same_eval}; B1 launches per rank {b1} (one rank over both tiles: '
+          f'{one_b1})', flush=True)
+    if not same_eval or any(c != B1_STRIP_LAUNCHES for c in b1) or sorted(sum(shards, [])) != sorted(want):
+        raise AssertionError('data parallel: the sharded eval hook differs from the one-rank loop')
+
+    # float32 timing: two ranks sharing one card measure the collectives' overhead, not a speed-up
+    rank_ms = [statistics.median(r['timed']['ms']) for r in ranks]
+    counts = ranks[0]['timed']['counts']
+    n_params = sum(v.numel() for k, v in checks['UNet']['state'].items() if not k.endswith(('running_mean',
+                   'running_var', 'num_batches_tracked')))
+    loss_rel = abs(ranks[0]['timed']['loss'] - one_loss) / abs(one_loss)
+    print(f'data parallel numbers ({card}; UNet float32, global batch {DP_BATCH} x {DP_TIMED_HW}^2, {DP_TIMED} steps '
+          f'after {DP_WARMUP}): ms per step, {DP_RANKS} gloo ranks sharing the card (4 images each) {rank_ms} (each '
+          f'{[round(ms, 2) for ms in ranks[0]["timed"]["ms"]]}), one rank on the whole batch '
+          f'{statistics.median(one_ms):.2f}: this is the collectives\' overhead of two ranks on one card, not a '
+          f'speed-up; collectives per step {counts["collectives"]}, bytes reduced per step {counts["bytes"]} '
+          f'({n_params} parameters in the net); the first step\'s loss relative to the one rank\'s {loss_rel:.2e}; '
+          f'one-rank '
+          f'references {refs_s:.1f} s, ranks {ranks_s:.1f} s', flush=True)
+    if not np.isfinite(rank_ms).all() or counts['collectives'] < 1 or loss_rel > DP_F32_LOSS_RTOL:
+        raise AssertionError('data parallel: the float32 steps')
+    return {'rank_ms_per_step': rank_ms, 'one_rank_ms_per_step': statistics.median(one_ms),
+            'collectives_per_step': counts['collectives'], 'bytes_reduced_per_step': counts['bytes']}
+
+
+def dp_cli_check(args) -> float:
+    """tools/train.py under torch.distributed.run on one rank (nccl) against the first epoch of
+    ``train_cli_path``'s run on the same windows and seed (run that phase first); returns its seconds."""
+    import shutil
+    from tiseg_tpu_torch.utils import JsonlLogger
+    work = os.path.join(ROOT, 'build', 'dev', 'dp_cli_train')
+    shutil.rmtree(work, ignore_errors=True)
+    data = [f'data.{split}.{k}={v}' for split, name in (('train', 'cli_w512_s256'), ('val', 'cli_w0_s0'))
+            for k, v in (('data_root', os.path.join(DATA_DIR, name)), ('img_dir', ''), ('ann_dir', ''),
+                         ('split', 'split.txt'))]
+    options = [*data, 'evaluation.interval=1', 'checkpoint_config.interval=1', 'checkpoint_config.max_keep_ckpts=1',
+               'log_config.interval=1', 'model.test_cfg.device_postprocess=True', 'model.test_cfg.device_metrics=True',
+               f'model.test_cfg.patch_batch={args.patch_batch}', 'runner.max_epochs=1']
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, '-m', 'torch.distributed.run', '--standalone', '--nproc_per_node', '1', '-m',
+                          'tiseg_tpu_torch.tools.train', UNET_CONFIG, '--work-dir', work, '--seed', str(args.seed),
+                          '--options', *options], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, NVIDIA_TF32_OVERRIDE='0'))  # TF32 off, as in this process
+    cli_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f'torch.distributed.run tools/train.py: {run.stdout[-3000:]}{run.stderr[-3000:]}')
+    group_line = [l for l in run.stdout.splitlines() if 'process group: ' in l]
+    got = [r for r in JsonlLogger(os.path.join(work, 'log.jsonl')).read() if r['mode'] == 'train']
+    first = [r for r in JsonlLogger(os.path.join(ROOT, 'build', 'dev', 'cli_train', 'log.jsonl')).read()
+             if r['mode'] == 'train' and r['epoch'] == 1]
+    rel = [abs(a['loss'] - b['loss']) / abs(b['loss']) for a, b in zip(got, first)]
+    print(f'data parallel, torch.distributed.run --nproc_per_node 1 tools/train.py ({cli_s:.1f} s): '
+          f'{group_line[-1].split(" - ")[-1] if group_line else "no process group line"}; losses '
+          f'{[round(r["loss"], 5) for r in got]} against the non-distributed run\'s first epoch '
+          f'{[round(r["loss"], 5) for r in first]}, largest relative difference {max(rel) if rel else None}', flush=True)
+    if (not group_line or 'backend nccl, world size 1' not in group_line[-1] or len(got) != len(first) or not first
+            or max(rel) > 2e-3):
+        raise AssertionError('data parallel: the nccl train CLI run differs from the non-distributed one')
+    return cli_s
+
+
+def dp_hover_scale(args) -> dict:
+    """HoVer-Net's host route at scale_factor 0.5 and 2 on DP_HOVER_TILES CoNIC tiles (the device route
+    declines), beside the host route at 1; ms per tile."""
+    card = card_line()
+    seg, imgs = hovernet_conic_seg(args)
+    fused = {k: v.cpu().numpy() for k, v in seg.inference(torch.from_numpy(imgs[:DP_HOVER_TILES]).cuda()).items()}
+    seg.test_cfg['device_postprocess'] = False
+    base = [seg.postprocess({k: v[i] for k, v in fused.items()})['inst_pred'] for i in range(DP_HOVER_TILES)]
+    seg.test_cfg['device_postprocess'] = True
+    per_scale = {}
+    for scale in DP_HOVER_SCALES:
+        seg.test_cfg['scale_factor'] = scale
+        if seg.inference_and_postprocess(torch.from_numpy(imgs[:1]).cuda()) is not None:
+            raise AssertionError(f'HoVer-Net at scale_factor {scale}: the device route took the call')
+        t0 = time.perf_counter()
+        out = [seg.postprocess({k: v[i] for k, v in fused.items()}) for i in range(DP_HOVER_TILES)]
+        ms = (time.perf_counter() - t0) * 1e3 / DP_HOVER_TILES
+        inst = [o['inst_pred'] for o in out]
+        fg_iou = [float(((a > 0) & (b > 0)).sum() / max(((a > 0) | (b > 0)).sum(), 1)) for a, b in zip(inst, base)]
+        per_scale[scale] = dict(ms_per_tile=ms, instances=[int(len(np.unique(a)) - 1) for a in inst],
+                                foreground_iou_vs_scale1=fg_iou)
+        if any(a.shape != (CONIC_HW, CONIC_HW) or a.dtype != np.int32 for a in inst) or not any(
+                len(np.unique(a)) > 1 for a in inst):
+            raise AssertionError(f'HoVer-Net at scale_factor {scale}: instances {per_scale[scale]}')
+    print(f'data parallel, HoVer-Net host route ({card}; {DP_HOVER_TILES} CoNIC tiles of {CONIC_HW}^2, the host '
+          f'route at scale_factor 1 beside): {per_scale}; instances at scale 1 '
+          f'{[int(len(np.unique(a)) - 1) for a in base]}', flush=True)
+    return {str(k): v for k, v in per_scale.items()}
+
+
 SOURCES = {
     'instance_postprocess_sweep': ('tiseg_tpu_torch/csrc/instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:478'),
     'instance_postprocess_vectorized': ('tiseg_tpu_torch/csrc/instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:353'),
@@ -4333,6 +4688,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     int8_eval_path(args)
     print(f'int8 eval phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data_parallel_path(args)
+    print(f'data-parallel phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
 
     # -- phases 7 and 8 ------------------------------------------------------------

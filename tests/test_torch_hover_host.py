@@ -1,4 +1,4 @@
-"""HoVer-Net's host post-processing at ``scale_factor=1``
+"""HoVer-Net's host post-processing
 (``models/utils/postprocess.py:hover_post_proc``) and the cv2-free twins of
 ``utils/imgproc.py`` that it runs.
 
@@ -12,7 +12,8 @@
   ``cv2.morphologyEx(uint8, MORPH_OPEN, ellipse 5x5)``.
 - ``hover_post_proc`` equals the JAX package's bit for bit on seeded
   synthetic fore/HV maps (CoNIC density, 64^2 to 256^2, a ragged plane, an
-  empty foreground), and ``scale_factor != 1`` (cv2 ``resize``) raises.
+  empty foreground), and at ``scale_factor=2`` (``tests/test_torch_hover_scale.py``
+  holds the resize twin and the other factors).
 """
 import cv2
 import numpy as np
@@ -97,5 +98,6 @@ def test_hover_post_proc_empty_foreground_and_scale():
     none = np.zeros_like(fore)
     np.testing.assert_array_equal(port_pp.hover_post_proc(none, hv), jax_pp.hover_post_proc(none, hv))
     assert not port_pp.hover_post_proc(none, hv).any()
-    with pytest.raises(NotImplementedError, match='cv2 resize'):
-        port_pp.hover_post_proc(fore, hv, scale_factor=2)
+    scaled = port_pp.hover_post_proc(fore, hv, scale_factor=2)
+    np.testing.assert_array_equal(scaled, jax_pp.hover_post_proc(fore, hv, scale_factor=2))
+    assert scaled.dtype == np.int32 and scaled.shape == fore.shape and len(np.unique(scaled)) > 3

@@ -13,7 +13,7 @@ ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TESTS = osp.join(ROOT, 'tests')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tiseg_tpu')
 CARD_TESTS = sorted(glob.glob(osp.join(TESTS, 'test_torch_gpu_*.py')))
-CARD_TEST_MODULES = [osp.join(TESTS, 'torch_cases.py')]  # the local modules the card tests may import
+CARD_TEST_MODULES = [osp.join(TESTS, n) for n in ('torch_cases.py', 'torch_ddp_worker.py')]  # what card tests import
 
 
 def _sources():

@@ -21,8 +21,8 @@ kept score.
 The helpers around them: ``JsonlLogger`` writes the JAX package's lines,
 ``get_bounding_box`` and ``set_random_seed`` give its results, and
 ``multi_process_test`` / ``gather_object_shards`` stride and gather (a
-process group faked by monkeypatching; the gloo run waits for ROADMAP item
-10)."""
+process group faked by monkeypatching; ``tests/test_torch_ddp_cli.py``
+runs them on two ``gloo`` ranks)."""
 import types
 
 import numpy as np
@@ -119,7 +119,7 @@ def _stubs(monkeypatch, module, apis_test, events, tensors, restore_step, best=N
         def best_meta(self):
             return best
 
-    def make_train_step(segmentor, mesh=None):
+    def make_train_step(segmentor, mesh=None, group=None):
         def step(state, batch):
             assert 'metas' not in batch
             state.step += 1
@@ -186,8 +186,11 @@ def test_runner_against_jax(monkeypatch, tmp_path, cfg_name, restore_step):
 
 
 def test_runner_rejects_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match='item 10'):
-        port_runner.EpochBasedRunner(None, None, Loader(1), Config.fromdict({}), str(tmp_path), mesh=object())
+    """The runner's data-parallel group is the default process group (the
+    port has no mesh object): anything else raises before a step is
+    built."""
+    with pytest.raises(ValueError, match='default process group'):
+        port_runner.EpochBasedRunner(None, None, Loader(1), Config.fromdict({}), str(tmp_path), group=object())
 
 
 @pytest.mark.parametrize('kept, saved_at', [(60.0, []), (50.0, [21]), (None, [9, 21])],

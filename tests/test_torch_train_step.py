@@ -13,6 +13,8 @@ steps each parameter leaf within 1e-7 of its largest displacement (4.6e-9
 seen), each BN statistic within rtol 1e-9; the eval forward of the trained
 net: the executor within 1e-12 of the unfolded net and within 1e-11 of the
 JAX net's softmax maps."""
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -258,11 +260,40 @@ def test_step_generator_is_seeded_by_seed_and_step():
     assert not torch.equal(draws[0], draws[2]) and not torch.equal(draws[0], draws[3])
 
 
-def test_mesh_raises_and_seed_is_kept():
-    with pytest.raises(NotImplementedError, match='parallel/'):
-        make_train_step(UNet(2, device='cpu'), mesh=object())
+def test_mesh_raises_and_seed_is_kept(tmp_path):
+    """The step's data-parallel group (the JAX package's ``mesh``) is the
+    default process group: another object raises. Inside a one-rank
+    ``gloo`` group the step takes the group (nothing to reduce) and
+    ``init_random_seed`` keeps a given seed and draws one below 2^31 on
+    rank 0. Inside a group of more than one rank the step, built with or
+    without ``group``, checks the rows of its first batch and sums the
+    gradients in every step."""
+    seg = UNet(2, device='cpu')
+    with pytest.raises(ValueError, match='default process group'):
+        make_train_step(seg, group=object())
     assert init_random_seed(123) == 123
     assert 0 <= init_random_seed() < 2 ** 31
+    torch.distributed.init_process_group('gloo', init_method=f'file://{tmp_path}/init', world_size=1, rank=0)
+    try:
+        make_train_step(seg, group=torch.distributed.group.WORLD)
+        assert init_random_seed(123) == 123 and 0 <= init_random_seed() < 2 ** 31
+    finally:
+        torch.distributed.destroy_process_group()
+    with pytest.MonkeyPatch.context() as mp:
+        from tiseg_tpu_torch.engine import train_state
+        calls = []
+        mp.setattr(train_state, 'data_parallel', lambda: True)
+        mp.setattr(train_state, 'check_equal_rows', lambda n, device: calls.append(('rows', n)))
+        mp.setattr(train_state, 'reduce_gradients', lambda params: calls.append(('sum', len(params))))
+        net = torch.nn.Linear(2, 1)
+        toy = types.SimpleNamespace(loss=lambda batch, generator=None: (net(batch['data']['img']).sum(), {}))
+        for group in (None, torch.distributed.group.WORLD):
+            calls.clear()
+            step = make_train_step(toy, group=group)
+            state = train_state.TrainState.create(net, torch.optim.SGD(net.parameters(), lr=0.1))
+            for _ in range(2):
+                state, _ = step(state, {'data': {'img': torch.ones(3, 2)}})
+            assert calls == [('rows', 3), ('sum', 2), ('sum', 2)] and state.step == 2
 
 
 def test_eval_step_is_the_segmentors_inference():

@@ -1,10 +1,14 @@
 """train_segmentor: config -> data loader -> weights -> train state -> runner
 (port of tiseg_tpu/apis/train.py; reference tiseg/apis/train.py:15-149).
 
-One process trains on one device (the segmentor's): the batch is
-``samples_per_gpu`` on that device. :func:`build_train_state` is the wiring
-between the loader and the runner: total iterations, LR schedule, gradient
-clip, optimizer chain.
+One process trains on one device (the segmentor's): its batch is
+``samples_per_gpu`` on that device. Data parallel (``distributed=True``,
+inside the default ``torch.distributed`` group that
+``parallel.init_distributed`` starts), each rank loads its share of every
+epoch (``EpochSampler``), and the global batch is ``samples_per_gpu`` times
+the world size, as the JAX package's mesh makes it.
+:func:`build_train_state` is the wiring between the loader and the runner:
+total iterations, LR schedule, gradient clip, optimizer chain.
 """
 from __future__ import annotations
 
@@ -19,15 +23,18 @@ from ..engine.runner import EpochBasedRunner, IterBasedRunner
 from ..engine.train_state import TrainState, trainable_parameters
 from ..models.backbones.torch_port import maybe_load_pretrained
 from ..models.nn import he_init_
+from ..parallel import broadcast_object, check_replicas
 from ..utils import get_logger, set_random_seed
+from ..utils.device import world_rank
 
 
 def init_random_seed(seed: Optional[int] = None) -> int:
-    """The given seed, else a fresh one below 2^31 (every process of a run
-    computes the same seed from the config)."""
+    """The given seed, else a fresh one below 2^31, drawn on rank 0 and
+    broadcast, so that every rank of a data-parallel run takes the same
+    (the JAX package draws one in each process)."""
     if seed is not None:
         return seed
-    return int(np.random.SeedSequence().generate_state(1)[0] % (2**31))
+    return broadcast_object(int(np.random.SeedSequence().generate_state(1)[0] % (2**31)))
 
 
 def build_train_state(segmentor, cfg, iters_per_epoch: int, seed: int = 0) -> TrainState:
@@ -60,9 +67,17 @@ def train_segmentor(segmentor, datasets, cfg, distributed: bool = False, validat
     torchvision backbone weights where there are any. With ``validate`` the
     eval hook runs on ``cfg.data.val`` built with ``test_mode=True``.
     ``cfg.resume_from == 'auto'`` or ``cfg.auto_resume`` resume from the
-    latest checkpoint in ``work_dir``."""
-    if distributed:
-        raise NotImplementedError('data-parallel training is not ported (ROADMAP queue A item 10)')
+    latest checkpoint in ``work_dir``.
+
+    ``distributed``: every rank of the default process group calls this
+    with the same config and seed; each loads its share of the epoch,
+    ``samples_per_gpu`` per step, and builds the same initial weights
+    (checked across ranks). Rank 0 writes the work dir."""
+    world, rank = world_rank()
+    if distributed and not torch.distributed.is_initialized():
+        raise RuntimeError('distributed training needs a process group: call parallel.init_distributed first')
+    if not distributed and world > 1:
+        raise RuntimeError(f'a process group of {world} ranks is active: pass distributed=True')
     logger = get_logger()
     work_dir = work_dir or cfg.get('work_dir', './work_dirs/tmp')
     set_random_seed(seed)
@@ -72,19 +87,22 @@ def train_segmentor(segmentor, datasets, cfg, distributed: bool = False, validat
     train_dataset = datasets[0]
     batch = cfg.data['samples_per_gpu']
     loader = build_dataloader(train_dataset, samples_per_gpu=batch, workers_per_gpu=cfg.data.get('workers_per_gpu', 4),
-                              shuffle=True, seed=seed, drop_last=True)
+                              dist=distributed, shuffle=True, seed=seed, world_size=world, rank=rank, drop_last=True)
     if len(loader) == 0:
         raise ValueError(
-            f'empty train loader: dataset has {len(train_dataset)} items but the batch is {batch} with drop_last — '
-            f'an EpochBased/IterBased runner would spin forever on zero batches')
-    iters_per_epoch = len(loader)
+            f'empty train loader: dataset has {len(train_dataset)} items but the global batch is {batch * world} '
+            f'({batch} per rank on {world}) with drop_last — an EpochBased/IterBased runner would spin forever on '
+            f'zero batches')
+    iters_per_epoch = len(loader)  # this rank's loader: the steps of an epoch, as in the JAX package
 
     he_init_(segmentor.net, torch.Generator().manual_seed(seed))
     if maybe_load_pretrained(segmentor):
         logger.info('initialized the backbone from cached torchvision weights')
+    check_replicas(segmentor.net)
     state = build_train_state(segmentor, cfg, iters_per_epoch, seed=seed)
     n_params = sum(p.numel() for p in segmentor.net.parameters())
-    logger.info(f'model params: {n_params / 1e6:.2f}M, train iters/epoch: {iters_per_epoch}')
+    logger.info(f'model params: {n_params / 1e6:.2f}M, train iters/epoch: {iters_per_epoch}, global batch '
+                f'{batch * world} ({world} rank{"s" if world > 1 else ""})')
 
     val_dataset = None
     if validate and 'val' in cfg.data:

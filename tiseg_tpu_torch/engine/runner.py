@@ -11,6 +11,15 @@ reference tiseg/apis/train.py:64-149, tiseg/utils/hooks/eval_hook.py:21-216).
 - the eval hook with ``interval`` and ``custom_intervals`` /
   ``custom_milestones`` (denser evaluation near the end) and ``save_best``;
 - periodic checkpoints with max_keep, and resume from the latest.
+
+Data parallel (inside a process group of more than one rank; ``group``
+stands for the JAX runner's ``mesh`` and is only checked, see
+``make_train_step``): every rank trains on its loader's share, runs the
+eval hook on its share of the val set and gets the merged results; rank 0
+alone writes ``log.jsonl``, tensorboard, the checkpoints and
+``best_meta.json``. Rank 0's scores are broadcast, so every rank takes the
+same best decision; the ranks check that they resume from one step; every
+rank waits at a barrier after each write of rank 0's.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..parallel.mesh import barrier, broadcast_object, same_on_every_rank
 from ..utils import JsonlLogger, get_logger
 from ..utils.device import world_rank
 from .checkpoint import CheckpointManager
@@ -68,9 +78,7 @@ class LogBuffer:
 
 class EpochBasedRunner:
 
-    def __init__(self, segmentor, state: TrainState, train_loader, cfg, work_dir: str, mesh=None, val_dataset=None):
-        if mesh is not None:
-            raise NotImplementedError('data-parallel training is not ported (ROADMAP queue A item 10)')
+    def __init__(self, segmentor, state: TrainState, train_loader, cfg, work_dir: str, group=None, val_dataset=None):
         self.segmentor = segmentor
         self.state = state
         self.train_loader = train_loader
@@ -80,7 +88,8 @@ class EpochBasedRunner:
         self.logger = get_logger()
         self.jsonl = JsonlLogger(osp.join(work_dir, 'log.jsonl'))
         self.ckpt = CheckpointManager(work_dir, max_keep=cfg.get('checkpoint_config', {}).get('max_keep_ckpts', 5))
-        self.train_step = make_train_step(segmentor)
+        self.train_step = make_train_step(segmentor, group=group)
+        self.is_master = world_rank()[1] == 0
         self.max_epochs = cfg.get('runner', {}).get('max_epochs', 1)
         self.log_interval = cfg.get('log_config', {}).get('interval', 10)
         self.evaluation = dict(cfg.get('evaluation', {}) or {})
@@ -89,7 +98,7 @@ class EpochBasedRunner:
         self.best_score = None
         self.best_rule = self.evaluation.get('rule', 'greater')
         self.tb = None
-        if cfg.get('log_config', {}).get('tensorboard', True) and world_rank()[1] == 0:
+        if cfg.get('log_config', {}).get('tensorboard', True) and self.is_master:
             try:
                 from tensorboardX import SummaryWriter
                 self.tb = SummaryWriter(osp.join(work_dir, 'tf_logs'))
@@ -107,17 +116,26 @@ class EpochBasedRunner:
         """The LR of the next update (``state.tx.lr_schedule`` at the step)."""
         return float(self.state.tx.lr_schedule(int(self.state.step)))
 
+    def save_checkpoint(self, step: int):
+        """Rank 0 writes ``<step>.pt``; every rank waits for it."""
+        if self.is_master:
+            self.ckpt.save(step, self.state)
+        barrier()
+
     # ------------------------------------------------------------------
     def resume(self):
         """Restore the latest checkpoint and the best score so far. The JAX runner forgets the best score, so
         the first evaluation after a resume replaces ``best.pt`` however it scores; mmcv's EvalHook keeps it
-        (``runner.meta['hook_msgs']['best_score']``), and so does this runner, from ``best_meta.json``."""
+        (``runner.meta['hook_msgs']['best_score']``), and so does this runner, from ``best_meta.json``. Every
+        rank restores the latest step of the one checkpoint directory; all raise unless they found one step."""
         state, step = self.ckpt.restore(self.state)
+        if not same_on_every_rank(step):
+            raise RuntimeError(f'the ranks resumed from different checkpoints (this one from step {step})')
         if step is not None:
             self.state = state
             iters_per_epoch = max(len(self.train_loader), 1)
             self.start_epoch = int(state.step) // iters_per_epoch
-            best = self.ckpt.best_meta()
+            best = broadcast_object(self.ckpt.best_meta())
             if best is not None and best['metric'] == self.evaluation.get('save_best'):
                 self.best_score = best['value']
             self.logger.info(f'auto-resumed from checkpoint step {step} (epoch {self.start_epoch}, best '
@@ -134,7 +152,7 @@ class EpochBasedRunner:
                 self.evaluate(epoch)
             ck_int = self.checkpoint_config.get('interval', 0)
             if ck_int and (epoch + 1) % ck_int == 0:
-                self.ckpt.save(int(self.state.step), self.state)
+                self.save_checkpoint(int(self.state.step))
         return self.state
 
     def _debug_dump(self, batch, epoch: int, it: int):
@@ -170,22 +188,24 @@ class EpochBasedRunner:
                                  f'lr: {lr:.2e}, time/iter: {dt:.3f}s | {msg}')
                 record = {'mode': 'train', 'epoch': epoch + 1, 'iter': it + 1, 'lr': lr, 'time': dt}
                 record.update(avg)
-                if world_rank()[1] == 0:
+                if self.is_master:
                     self.jsonl.log(record)
                     self._tb_log(record, int(self.state.step), 'train')
                 buf.clear()
 
     def evaluate(self, epoch: int):
+        """The eval hook: every rank scores its share, rank 0 evaluates the
+        merged results and logs them, every rank takes rank 0's scores."""
         # imported here: apis imports the engine
         from ..apis.test import gather_object_shards, multi_process_test
         results = gather_object_shards(multi_process_test(self.segmentor, self.val_dataset))
-        if world_rank()[1] != 0:
-            return
-        eval_results, _ = self.val_dataset.evaluate(results)
-        record = {'mode': 'val', 'epoch': epoch + 1}
-        record.update({k: float(v) for k, v in eval_results.items()})
-        self.jsonl.log(record)
-        self._tb_log(record, epoch + 1, 'val')
+        eval_results = self.val_dataset.evaluate(results)[0] if self.is_master else None
+        eval_results = broadcast_object(eval_results)
+        if self.is_master:
+            record = {'mode': 'val', 'epoch': epoch + 1}
+            record.update({k: float(v) for k, v in eval_results.items()})
+            self.jsonl.log(record)
+            self._tb_log(record, epoch + 1, 'val')
 
         save_best = self.evaluation.get('save_best')
         if save_best:
@@ -194,8 +214,10 @@ class EpochBasedRunner:
                       (score > self.best_score if self.best_rule == 'greater' else score < self.best_score))
             if np.isfinite(score) and better:
                 self.best_score = score
-                self.ckpt.save_best(self.state, save_best, score)
-                self.logger.info(f'new best {save_best}: {score:.2f} (epoch {epoch + 1})')
+                if self.is_master:
+                    self.ckpt.save_best(self.state, save_best, score)
+                    self.logger.info(f'new best {save_best}: {score:.2f} (epoch {epoch + 1})')
+                barrier()
 
 
 class IterBasedRunner(EpochBasedRunner):
@@ -221,13 +243,14 @@ class IterBasedRunner(EpochBasedRunner):
                     self.logger.info(f'Iter [{it}/{max_iters}] | {msg}')
                     record = {'mode': 'train', 'iter': it}
                     record.update(avg)
-                    self.jsonl.log(record)
+                    if self.is_master:
+                        self.jsonl.log(record)
                     buf.clear()
                 interval = self.evaluation.get('interval', 0)
                 if self.val_dataset is not None and interval and it % interval == 0:
                     self.evaluate(it)
                 ck_int = self.checkpoint_config.get('interval', 0)
                 if ck_int and it % ck_int == 0:
-                    self.ckpt.save(it, self.state)
+                    self.save_checkpoint(it)
             epoch += 1
         return self.state

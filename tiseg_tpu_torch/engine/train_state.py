@@ -8,6 +8,16 @@ place: forward in train mode, backward through autograd (cuDNN's
 convolutions on a CUDA device), one step of the optimizer chain
 (``engine/optim.py``), ``step`` advanced. The net is in ``.eval()`` between
 steps, as the eval entry points expect.
+
+Data parallel (the JAX step over a mesh): each rank computes the loss of
+the global batch (``models/segmentors/base.py``), so its gradients are its
+own rows' share; one ``all_reduce`` after ``backward`` sums them over
+ranks before the clip and the optimizer see them. The sum is explicit
+rather than ``DistributedDataParallel``'s: the parameter names stay the
+one-rank names (no ``module.`` prefix in a checkpoint), and the reduction
+is one collective of every gradient of the step, with no hooks to keep in
+order with the collectives of the global BatchNorm and the gather. It does
+not overlap the backward, which DDP's buckets would.
 """
 from __future__ import annotations
 
@@ -16,7 +26,10 @@ from typing import Callable, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ..parallel.data import check_equal_rows, data_parallel, reduce_gradients
 
 
 def trainable_parameters(net: nn.Module) -> List[nn.Parameter]:
@@ -57,18 +70,35 @@ class TrainState:
         self.step += 1
 
 
-def make_train_step(segmentor, mesh=None) -> Callable:
+def make_train_step(segmentor, group=None) -> Callable:
     """``train_step(state, batch) -> (state, logs)``: the loss and its
     gradients, one optimizer step, ``state.step`` advanced and the BN
     statistics updated, all in place. ``logs`` holds the loss terms and
-    metrics as 0-d tensors on the device (no host synchronisation)."""
-    if mesh is not None:
-        raise NotImplementedError('data-parallel training is not ported (tiseg_tpu/parallel/)')
+    metrics as 0-d tensors on the device (no host synchronisation).
+
+    Inside a ``torch.distributed`` group of more than one rank
+    (``parallel.data_parallel``, read when the step is built) the step is
+    the JAX step over a mesh: each rank's batch is its share of the global
+    batch, of one size on every rank (checked on the first step), and the
+    gradients of the trainable parameters are summed over ranks once per
+    step. ``group``, the JAX package's ``mesh``, can only name that default
+    group: None or ``torch.distributed.group.WORLD``."""
+    if group is not None and group is not dist.group.WORLD:
+        raise ValueError('the data-parallel step runs over the default process group (its BatchNorm statistics '
+                         'and global batch do): pass torch.distributed.group.WORLD or None')
+    reduce = data_parallel()
+    unchecked = reduce
 
     def train_step(state: TrainState, batch: Dict):
+        nonlocal unchecked
+        if unchecked:  # the global batch, the dropout rows and the BN counts assume equal shares
+            check_equal_rows(len(batch['data']['img']), next(state.net.parameters()).device)
+            unchecked = False
         state.tx.zero_grad(set_to_none=True)
         total, logs = segmentor.loss(batch, generator=state.generator())
         total.backward()
+        if reduce:
+            reduce_gradients(trainable_parameters(state.net))
         state.apply_gradients()
         return state, {k: v.detach() for k, v in logs.items()}
 

@@ -6,6 +6,12 @@ momentum 0.1 (flax's 0.9 counted the other way) and updates its running
 variance with the biased batch variance, as flax does (:class:`BatchNorm2d`).
 Dropout draws its mask from the generator the train step hands it
 (:class:`Dropout`), never from torch's global stream.
+
+Inside a data-parallel group (``parallel/``) a train-mode BatchNorm takes
+its statistics over every rank's samples and a dropout draws its mask at
+the global batch's shape and keeps this rank's rows, so that the N-rank
+step computes what the one-rank step computes on the global batch (the
+JAX package's step over the mesh).
 """
 from __future__ import annotations
 
@@ -14,6 +20,37 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sliding import resize_bilinear
+from ..parallel.data import all_reduce_sum, data_parallel
+from ..utils.device import world_rank
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """``(x - mean) * invstd * weight + bias`` with ``mean`` and ``invstd``
+    the statistics of the global batch (``count`` samples per channel over
+    every rank). The backward is the batch-norm gradient with its two
+    channel sums taken over every rank (one ``all_reduce``), so each rank's
+    rows receive the terms that flow through the statistics from the other
+    ranks' rows. The weight and bias gradients are this rank's share, summed
+    over ranks with the other parameters'."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, invstd, count):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        xhat = (x - mean.view(shape)) * invstd.view(shape)
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.count = count
+        return xhat * weight.view(shape) + bias.view(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xhat, weight, invstd = ctx.saved_tensors
+        dims = [0] + list(range(2, grad.dim()))
+        shape = (1, -1) + (1,) * (grad.dim() - 2)
+        grad_bias, grad_weight = grad.sum(dims), (grad * xhat).sum(dims)
+        sums = all_reduce_sum(torch.cat([grad_bias, grad_weight])) / ctx.count
+        mean_dy, mean_dy_xhat = sums.chunk(2)
+        grad_x = (grad - mean_dy.view(shape) - xhat * mean_dy_xhat.view(shape)) * (weight * invstd).view(shape)
+        return grad_x, grad_weight, grad_bias, None, None, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -21,17 +58,39 @@ class BatchNorm2d(nn.BatchNorm2d):
     the biased batch variance, as flax ``nn.BatchNorm`` does (torch's own
     takes the unbiased one). Normalisation uses the batch statistics in
     train mode; eval mode is ``nn.BatchNorm2d``. State-dict keys and
-    ``isinstance`` checks are those of ``nn.BatchNorm2d``."""
+    ``isinstance`` checks are those of ``nn.BatchNorm2d``. In train mode
+    inside a data-parallel group the batch is the global batch
+    (:meth:`forward_global`)."""
 
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if data_parallel():
+            return self.forward_global(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, [0] + list(range(2, x.dim())), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def forward_global(self, x):
+        """Train mode over every rank's samples: the global mean first, then
+        the global centred sum of squares (two ``all_reduce`` of a channel
+        vector; a one-pass ``E[x^2] - E[x]^2`` would lose digits), the
+        running statistics updated with the biased global variance as on
+        one rank."""
+        dims = [0] + list(range(2, x.dim()))
+        count = x.numel() // x.shape[1] * world_rank()[0]  # equal shares (parallel.check_equal_rows)
+        with torch.no_grad():
+            mean = all_reduce_sum(x.sum(dims)) / count
+            xc = x - mean.view((1, -1) + (1,) * (x.dim() - 2))
+            var = all_reduce_sum((xc * xc).sum(dims)) / count
+            del xc
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return _GlobalBatchNorm.apply(x, self.weight, self.bias, mean, torch.rsqrt(var + self.eps), count)
 
 
 class ConvModule(nn.Module):
@@ -68,10 +127,19 @@ def dropout_mask(shape, p: float, generator, device, dtype) -> torch.Tensor:
     """The multiplier of a train-mode dropout: 1 / (1 - p) where a draw of
     ``generator`` on ``device`` keeps the element (probability 1 - p), else
     0. The one place a dropout draws: replaced by ones, every dropout is the
-    identity (the parity checks with dropout off)."""
+    identity (the parity checks with dropout off). Inside a data-parallel
+    group ``shape[0]`` is this rank's share of the batch: the draw is made at
+    the global batch's shape, as one rank would make it, and this rank's
+    rows are kept (rank order, as the global batch is concatenated)."""
     if generator is None:
         raise ValueError('a train-mode dropout draws from the train step\'s generator: none was given')
-    keep = torch.rand(shape, generator=generator, device=device) < 1.0 - p
+    world, rank = world_rank()
+    if world > 1:
+        b = shape[0]
+        draw = torch.rand((world * b,) + tuple(shape[1:]), generator=generator, device=device)[rank * b:(rank + 1) * b]
+    else:
+        draw = torch.rand(shape, generator=generator, device=device)
+    keep = draw < 1.0 - p
     return keep.to(dtype) / (1.0 - p)
 
 

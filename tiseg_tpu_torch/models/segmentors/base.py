@@ -9,6 +9,13 @@ its weights, and a train forward updates its BN statistics in place.
 Training-time loss dicts follow the reference convention: every key
 containing 'loss' sums into the total; other keys are logged metrics
 (reference base.py:13-47 ``_parse_losses``).
+
+Inside a data-parallel group (``parallel/``) ``forward_train`` returns the
+heads of the global batch and ``label`` its labels, gathered from every
+rank in rank order: every segmentor's ``loss`` reads its heads and labels
+through them, so each rank computes the loss of the global batch (batch
+dice, ratios over the batch and batch-level metrics included), as the JAX
+package's step over the mesh does.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ...ops.sliding import resize_bilinear, reverse_tta_transform, tta_forward_views, tta_views
+from ...parallel.data import data_parallel, gather_rows, global_batch
 from ...utils.device import resolve_device
 
 
@@ -65,13 +73,16 @@ class BaseSegmentor:
         in place (the JAX package's ``forward_heads(train=True,
         mutable=True)``). A net with dropout takes ``generator``, the step's
         random stream, for its masks. The net is back in ``.eval()`` on
-        return."""
+        return. Inside a data-parallel group: the heads of the global batch
+        (``parallel.global_batch``), gradients flowing back to this rank's
+        rows."""
+        img = torch.as_tensor(img, device=self.device)
         self.net.train()
         try:
-            img = torch.as_tensor(img, device=self.device)
-            return self.net(img) if generator is None else self.net(img, generator=generator)
+            heads = self.net(img) if generator is None else self.net(img, generator=generator)
         finally:
             self.net.eval()
+        return global_batch(heads)
 
     # -- losses (abstract) ----------------------------------------------------
     def loss(self, batch: Dict, generator: Optional[torch.Generator] = None):
@@ -83,9 +94,13 @@ class BaseSegmentor:
 
     def label(self, batch: Dict, key: str) -> Optional[torch.Tensor]:
         """``batch['label'][key]`` as a tensor on the segmentor's device;
-        None where the batch has no such label."""
+        None where the batch has no such label. Inside a data-parallel group:
+        the label of the global batch."""
         value = batch['label'].get(key)
-        return None if value is None else torch.as_tensor(value, device=self.device)
+        if value is None:
+            return None
+        value = torch.as_tensor(value, device=self.device)
+        return gather_rows(value) if data_parallel() else value
 
     def training_metrics(self, sem_logit, sem_gt) -> Dict[str, torch.Tensor]:
         from ..losses import mdice, tdice

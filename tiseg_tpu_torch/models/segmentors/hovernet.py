@@ -8,9 +8,10 @@ maps) joined by Kronecker 2x upsampling and skip additions. TTA fuses
 ``sem``/``fore`` by softmax mean but keeps only the first (identity) view's
 HV maps. Training: CE and dice on the types and the foreground, MSE and the
 gradient MSE on the HV maps. Instances come from the Sobel/marker watershed
-on the device (``ops/hover.py``), or with ``device_postprocess=False`` on the
-host (``models/utils/postprocess.py:hover_post_proc``, ``scale_factor=1``
-only: cv2's ``resize`` is not ported). Module names follow the reference state dict
+on the device (``ops/hover.py``), or with ``device_postprocess=False`` or
+``scale_factor != 1`` on the host (``models/utils/postprocess.py:
+hover_post_proc``, which resizes the maps by ``scale_factor`` first), as
+the JAX package routes them. Module names follow the reference state dict
 (``conv_bot``, ``decoder.{tp,np,hv}.u{3,2,1,0}``).
 """
 from __future__ import annotations
@@ -106,8 +107,8 @@ class HoverNet(BaseSegmentor):
     """``seed`` draws the initial weights (He-normal, ``nn.he_init_``);
     load trained ones with ``net.load_state_dict``.
 
-    ``scale_factor != 1`` needs cv2's ``resize``, which is not ported: it
-    raises ``NotImplementedError`` on both routes.
+    ``scale_factor != 1`` takes the host route on either setting of
+    ``device_postprocess``.
 
     With ``test_cfg['int8_eval']`` set and an int8 tree from
     :meth:`calibrate_int8`, the eval forward runs the resident int8
@@ -117,7 +118,12 @@ class HoverNet(BaseSegmentor):
 
     softmax_heads = ('sem', 'fore')
     first_view_heads = ('hv',)
-    device_pp_supported = True
+    @property
+    def device_pp_supported(self) -> bool:
+        """The fused device path serves ``scale_factor`` 1 only, so that the
+        eval loop (``apis/test.py:InferenceRunner``) runs the inference and
+        then the host route, which resizes, at any other scale."""
+        return self.test_cfg.get('scale_factor', 1) == 1
 
     def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
         super().__init__(num_classes, train_cfg, test_cfg, device=device)
@@ -182,10 +188,10 @@ class HoverNet(BaseSegmentor):
                        'fore_mdice': mdice(fore_logit, fore_gt, 2)})
         return parse_losses(losses)
 
-    def _check_scale(self):
-        if self.test_cfg.get('scale_factor', 1) != 1:
-            raise NotImplementedError('HoVer-Net post-processing with scale_factor != 1 needs cv2 resize, which is '
-                                      'not ported (ROADMAP queue A item 11)')
+    def _device_route(self) -> bool:
+        """``device_postprocess`` at ``scale_factor`` 1; otherwise the host
+        route, which resizes."""
+        return self.device_pp_supported and self.test_cfg.get('device_postprocess', False)
 
     def _instances(self, fused):
         sem_pred = torch.argmax(fused['sem'], dim=-1).to(torch.uint8)
@@ -193,19 +199,19 @@ class HoverNet(BaseSegmentor):
 
     def inference_and_postprocess(self, img: torch.Tensor, ori_hw=None):
         """Fused eval on the device: inference, argmax of ``sem``, and
-        instances from ``fore[..., 1]`` and ``hv``."""
-        if not self.test_cfg.get('device_postprocess', False):
+        instances from ``fore[..., 1]`` and ``hv``. None off the device
+        route (the host route follows the inference)."""
+        if not self._device_route():
             return None
-        self._check_scale()
         return self._instances(self.inference(img, ori_hw=ori_hw))
 
     def postprocess(self, fused):
         """One image's fused maps -> instances, on the device route
-        (``device_postprocess``) or the host route."""
-        self._check_scale()
-        if self.test_cfg.get('device_postprocess', False):
+        (``device_postprocess`` at ``scale_factor`` 1) or the host route."""
+        if self._device_route():
             maps = {k: torch.as_tensor(np.asarray(fused[k]), device=self.device)[None] for k in ('sem', 'fore', 'hv')}
             return {k: v[0].cpu().numpy() for k, v in self._instances(maps).items()}
         sem_pred = np.argmax(np.asarray(fused['sem']), axis=-1).astype(np.uint8)
-        inst_pred = hover_post_proc(np.asarray(fused['fore'])[..., 1], np.asarray(fused['hv']))
+        inst_pred = hover_post_proc(np.asarray(fused['fore'])[..., 1], np.asarray(fused['hv']),
+                                    scale_factor=self.test_cfg.get('scale_factor', 1))
         return {'sem_pred': sem_pred, 'inst_pred': inst_pred}

@@ -2,9 +2,8 @@
 tiseg_tpu/models/utils/postprocess.py):
 
 - DIST's dynamic watershed (reference dist.py:31-129);
-- HoVer-Net's Sobel/marker watershed (reference hovernet.py:283-365) at
-  ``scale_factor=1``, its cv2 calls replaced by the twins of
-  ``utils/imgproc.py``;
+- HoVer-Net's Sobel/marker watershed (reference hovernet.py:283-365), its
+  cv2 calls replaced by the twins of ``utils/imgproc.py``;
 - ``align_foreground``, the multi-task segmentors' bounded re-expansion.
 
 These are the host routes (``device_postprocess=False``); the device
@@ -84,11 +83,12 @@ def hover_post_proc(fore_map: np.ndarray, hv_map: np.ndarray, fx: float = 1, sca
     maps, ksize-21 Sobel edges, ``overall = max(sobelh, sobelv)``, markers =
     blb - (overall >= 0.4) opened, marker watershed on the blurred inverse
     energy. ``overall - (1 - blb)`` promotes float32 to float64, as numpy
-    does in the reference. ``scale_factor != 1`` (cv2 ``resize``) is not
-    ported and raises."""
+    does in the reference. ``scale_factor != 1`` resizes both maps by it
+    (linear) first and the instances back to the maps' size (nearest)."""
+    raw_h, raw_w = hv_map.shape[:2]
     if scale_factor != 1:
-        raise NotImplementedError('HoVer-Net host post-processing with scale_factor != 1 needs cv2 resize, which '
-                                  'is not ported (ROADMAP queue A item 11)')
+        fore_map = imgproc.resize(np.asarray(fore_map, np.float32), scale_factor)
+        hv_map = imgproc.resize(np.asarray(hv_map, np.float32), scale_factor)
     blb = (fore_map >= 0.5).astype(np.int32)
     blb = ndimage.label(blb)[0]  # 4-connectivity, like scipy measurements.label
     blb = m.remove_small_objects(blb, min_size=10)
@@ -121,6 +121,8 @@ def hover_post_proc(fore_map: np.ndarray, hv_map: np.ndarray, fx: float = 1, sca
     marker = m.remove_small_objects(marker, min_size=obj_size)
 
     proced = m.watershed(dist, marker, mask=blb > 0, connectivity=1)
+    if scale_factor != 1:
+        proced = imgproc.resize(proced.astype(np.int32), size=(raw_w, raw_h))
     return proced.astype(np.int32)
 
 

@@ -9,6 +9,14 @@ Usage::
 best.pt`` or ``<step>.pt``), read by ``CheckpointManager.load_variables``.
 Every ``data.test`` entry is evaluated; ``eval results: {...}`` is logged
 and the metric storage pickled to ``work_dir/eval/<checkpoint stem>.p``.
+
+Sharded, one process per card::
+
+    python -m torch.distributed.run --nproc_per_node N -m tiseg_tpu_torch.tools.test <config.py> <checkpoint.pt> ...
+
+Each rank evaluates the images ``rank::N`` on its device (as the train CLI
+chooses it), the per-image results are merged in rank order, and rank 0
+evaluates them, logs them and writes the pickle.
 """
 from __future__ import annotations
 
@@ -50,11 +58,12 @@ def calibrate_int8_from_dataset(segmentor, dataset, n: int, hw: int = 256):
 
 def main(argv=None):
     """Evaluate the checkpoint on every test dataset; returns the last
-    dataset's eval results."""
-    from ..apis import single_device_test
+    dataset's eval results (on every rank)."""
+    from ..apis import gather_object_shards, multi_process_test
     from ..datasets import build_dataset
     from ..engine.checkpoint import CheckpointManager, load_net_state
     from ..models import build_segmentor
+    from ..parallel import broadcast_object, launcher_group
     from ..utils import Config, get_logger, parse_option_value
 
     p = argparse.ArgumentParser(description='Evaluate a segmentor checkpoint (PyTorch port)')
@@ -73,31 +82,36 @@ def main(argv=None):
     if args.options:
         cfg.merge_from_options({kv.split('=', 1)[0]: parse_option_value(kv.split('=', 1)[1]) for kv in args.options})
 
-    logger = get_logger()
-    segmentor = build_segmentor(cfg.model, device=args.device)
-    ckpt = osp.abspath(args.checkpoint)
-    work_dir = osp.dirname(osp.dirname(ckpt))
-    load_net_state(segmentor.net, CheckpointManager(work_dir).load_variables(ckpt))
+    with launcher_group(args.device) as (world, rank, device):
+        logger = get_logger()
+        segmentor = build_segmentor(cfg.model, device=device)
+        ckpt = osp.abspath(args.checkpoint)
+        work_dir = osp.dirname(osp.dirname(ckpt))
+        load_net_state(segmentor.net, CheckpointManager(work_dir).load_variables(ckpt))
 
-    test_cfgs = cfg.data['test']
-    if not isinstance(test_cfgs, list):
-        test_cfgs = [test_cfgs]
-    calibrated = False
-    eval_results = None
-    for tc in test_cfgs:
-        dataset = build_dataset(tc, default_args=dict(test_mode=True))
-        if args.int8_calib and not calibrated:
-            calibrate_int8_from_dataset(segmentor, dataset, args.int8_calib)
-            logger.info(f'int8 eval: calibrated on {args.int8_calib} test crops')
-            calibrated = True
-        results = single_device_test(segmentor, dataset, show=args.show, show_folder=args.show_folder)
-        eval_results, storage = dataset.evaluate(results)
-        out = osp.join(work_dir, 'eval')
-        os.makedirs(out, exist_ok=True)
-        with open(osp.join(out, osp.splitext(osp.basename(ckpt))[0] + '.p'), 'wb') as f:
-            pickle.dump(storage, f)
-        logger.info(f'eval results: {eval_results}')
-    return eval_results
+        test_cfgs = cfg.data['test']
+        if not isinstance(test_cfgs, list):
+            test_cfgs = [test_cfgs]
+        calibrated = False
+        eval_results = None
+        for tc in test_cfgs:
+            dataset = build_dataset(tc, default_args=dict(test_mode=True))
+            if args.int8_calib and not calibrated:
+                calibrate_int8_from_dataset(segmentor, dataset, args.int8_calib)
+                logger.info(f'int8 eval: calibrated on {args.int8_calib} test crops')
+                calibrated = True
+            results = gather_object_shards(multi_process_test(segmentor, dataset, show=args.show,
+                                                              show_folder=args.show_folder))
+            eval_results = None
+            if rank == 0:
+                eval_results, storage = dataset.evaluate(results)
+                out = osp.join(work_dir, 'eval')
+                os.makedirs(out, exist_ok=True)
+                with open(osp.join(out, osp.splitext(osp.basename(ckpt))[0] + '.p'), 'wb') as f:
+                    pickle.dump(storage, f)
+                logger.info(f'eval results: {eval_results}')
+            eval_results = broadcast_object(eval_results)
+        return eval_results
 
 
 if __name__ == '__main__':

@@ -42,7 +42,22 @@ And the cv2 calls of HoVer-Net's host post-processing
   dilation with its minimum; :func:`ellipse_kernel` is
   ``cv2.getStructuringElement(MORPH_ELLIPSE, (k, k))``.
 
-``tests/test_torch_imgproc.py`` holds each one against cv2.
+And the resize of HoVer-Net's post-processing at ``scale_factor != 1``:
+
+- :func:`resize`: ``cv2.resize(src, (0, 0), fx=f, fy=f)`` (``INTER_LINEAR``)
+  of a float32 plane of one or two channels, and ``cv2.resize(labels,
+  (w, h), interpolation=INTER_NEAREST)`` of an int32 plane. The output side
+  is ``round(side * f)`` (half to even) but the coordinates map with
+  ``1 / f``. One channel goes through Intel IPP in cv2's wheels:
+  ``a + t * (b - a)`` with one fused multiply-add, rows then columns, ``t``
+  from the float64 coordinate, the far border read at ``t = 1`` unless both
+  sides scale exactly. Two channels take cv2's own code: float32 taps
+  ``(1 - t, t)`` summed without fusing, and at ``f = 0.5`` the 2 x 2 box
+  mean (cv2 turns a linear halving into its area route). Nearest takes
+  ``floor(dx * in / out)``, clamped, in float64.
+
+``tests/test_torch_imgproc.py`` and ``tests/test_torch_hover_scale.py`` hold
+each one against cv2.
 """
 from __future__ import annotations
 
@@ -56,6 +71,22 @@ def _fma32(a, b, c) -> np.ndarray:
     """float32 ``a * b + c`` with one rounding (the product of two float32
     values is exact in float64)."""
     return (np.asarray(a, _F64) * np.asarray(b, _F64) + np.asarray(c, _F64)).astype(_F32)
+
+
+def _fma32_exact(a, b, c) -> np.ndarray:
+    """:func:`_fma32` with the float64 sum's own rounding undone: where that
+    sum lands on a float32 midpoint, its error (two-sum) decides the side,
+    as a fused multiply-add's one rounding does."""
+    p = np.asarray(a, _F32).astype(_F64) * np.asarray(b, _F32).astype(_F64)
+    c = np.asarray(c, _F32).astype(_F64)
+    s = p + c
+    v = s - p
+    err = (p - (s - v)) + (c - v)
+    r = s.astype(_F32)
+    r64 = r.astype(_F64)
+    other = np.nextafter(r, np.where(s >= r64, _F32(np.inf), _F32(-np.inf))).astype(_F64)
+    midpoint = (err != 0) & (s != r64) & (2 * np.abs(s - r64) == np.abs(other - r64))
+    return np.where(midpoint, np.where(err > 0, np.maximum(r64, other), np.minimum(r64, other)).astype(_F32), r)
 
 
 def _inverse_affine(M) -> list:
@@ -264,3 +295,78 @@ def morph_open(src: np.ndarray, kernel: np.ndarray) -> np.ndarray:
     fp = kernel.astype(bool)
     eroded = ndimage.grey_erosion(src, footprint=fp, mode='constant', cval=np.iinfo(src.dtype).max)
     return ndimage.grey_dilation(eroded, footprint=fp, mode='constant', cval=0)
+
+
+def _ipp_taps(n_in: int, n_out: int, f: float, exact: bool):
+    """IPP's linear taps along one side: (left index, right index, float32
+    weight of the right tap). ``exact``: both sides scale exactly."""
+    x = np.maximum((np.arange(n_out, dtype=_F64) + 0.5) * (1. / f) - 0.5, 0)
+    if exact:  # past the last pixel, its copy
+        i = np.minimum(np.floor(x).astype(np.int64), n_in - 1)
+        t = np.where(x > n_in - 1, 0., x - i)
+    else:  # past the last pixel, the last two at weight 1
+        x = np.minimum(x, n_in - 1)
+        i = np.minimum(np.floor(x).astype(np.int64), max(n_in - 2, 0))
+        t = x - i
+    return i, np.minimum(i + 1, n_in - 1), t.astype(_F32)
+
+
+def _cv_taps(n_in: int, n_out: int, f: float, clamp: bool):
+    """cv2's own linear taps: float32 coordinates, weights ``(1 - t, t)``;
+    ``clamp`` zeroes ``t`` beyond the borders (cv2 does so along x, not y)."""
+    x = ((np.arange(n_out, dtype=_F64) + 0.5) * (1. / f) - 0.5).astype(_F32)
+    i = np.floor(x).astype(np.int64)
+    t = (x - i.astype(_F32)).astype(_F32)
+    if clamp:
+        t = np.where((i < 0) | (i >= n_in - 1), _F32(0), t)
+        i = np.clip(i, 0, n_in - 1)
+    return np.clip(i, 0, n_in - 1), np.clip(i + 1, 0, n_in - 1), (_F32(1) - t).astype(_F32), t
+
+
+def _area_halve(src: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """cv2's area route for a halving: each 2 x 2 cell summed in its row
+    order and times 0.25; a cell cut by the border, the mean of what it
+    holds."""
+    src = src[:2 * oh, :2 * ow]  # a last odd row or column that no cell reaches
+    h, w = src.shape[:2]
+    x = np.pad(src, [(0, 2 * oh - h), (0, 2 * ow - w)] + [(0, 0)] * (src.ndim - 2))
+    a, b, c, d = x[0::2, 0::2], x[0::2, 1::2], x[1::2, 0::2], x[1::2, 1::2]
+    out = (((a + b) + c) + d) * _F32(0.25)
+    if 2 * oh > h or 2 * ow > w:  # the cut cells: their pixels summed from zero, row by row
+        inside = np.pad(np.ones((h, w), bool), [(0, 2 * oh - h), (0, 2 * ow - w)])
+        n = inside[0::2, 0::2].astype(int) + inside[0::2, 1::2] + inside[1::2, 0::2] + inside[1::2, 1::2]
+        cut = n < 4
+        total = _F32(0)
+        for part, keep in ((a, inside[0::2, 0::2]), (b, inside[0::2, 1::2]), (c, inside[1::2, 0::2]),
+                           (d, inside[1::2, 1::2])):
+            total = np.where(keep[(...,) + (None,) * (src.ndim - 2)], total + part, total)
+        mean = (total / n[(...,) + (None,) * (src.ndim - 2)].astype(_F32)).astype(_F32)
+        out = np.where(cut[(...,) + (None,) * (src.ndim - 2)], mean, out)
+    return out.astype(_F32)
+
+
+def resize(src: np.ndarray, f: float = None, size=None) -> np.ndarray:
+    """``cv2.resize(src, (0, 0), fx=f, fy=f)`` of a float32 (H, W) or (H, W,
+    2) map, or ``cv2.resize(src, size, interpolation=cv2.INTER_NEAREST)`` of
+    an int32 plane to ``size = (w, h)``."""
+    h, w = src.shape[:2]
+    if size is not None:
+        ow, oh = size
+        ys = np.minimum(np.floor(np.arange(oh) * (1. / (oh / h))).astype(np.int64), h - 1)
+        xs = np.minimum(np.floor(np.arange(ow) * (1. / (ow / w))).astype(np.int64), w - 1)
+        return src[ys[:, None], xs[None, :]]
+    if src.dtype != _F32 or src.ndim not in (2, 3) or (src.ndim == 3 and src.shape[2] != 2):
+        raise TypeError(f'resize takes float32 maps of one or two channels, got {src.dtype} {src.shape}')
+    ow, oh = int(np.rint(w * f)), int(np.rint(h * f))
+    if src.ndim == 2:  # Intel IPP's route
+        exact = ow == w * f and oh == h * f
+        x0, x1, tx = _ipp_taps(w, ow, f, exact)
+        y0, y1, ty = _ipp_taps(h, oh, f, exact)
+        rows = _fma32_exact(tx, src[:, x1] - src[:, x0], src[:, x0])
+        return _fma32_exact(ty[:, None], rows[y1] - rows[y0], rows[y0])
+    if f == 0.5:
+        return _area_halve(src, oh, ow)
+    x0, x1, ax, bx = _cv_taps(w, ow, f, clamp=True)
+    y0, y1, ay, by = _cv_taps(h, oh, f, clamp=False)
+    rows = src[:, x0] * ax[:, None] + src[:, x1] * bx[:, None]
+    return rows[y0] * ay[:, None, None] + rows[y1] * by[:, None, None]
