@@ -292,6 +292,19 @@
    (nccl) against train_cli_path's first epoch (losses within rtol 2e-3);
    HoVer-Net's host route at scale_factor 0.5 and 2 on 4 CoNIC tiles, ms per
    tile.
+11. The last modules (last_modules_path, after the data-parallel path): a
+   loader batch of the UNet recipe's train pipeline with Resize,
+   RandomSparseRotate, RandomRotate, RandomElasticDeform and
+   AlbuColorJitter inserted before the crop (8 windows of 512^2, the batch
+   held to the mapper on the same seeds) through one float32 UNet train
+   step at 8 x 256^2; tools/inference.py on train_cli_path's best.pt and a
+   1000^2 tile with --device-postprocess (B1 once on its strip route, the
+   instances bit for bit B1's plain version on the CLI's own semantic map,
+   the panel file of 1000 x 3016), timed; the seven registered ResNets at
+   1 x 3 x 256^2 on the card against the same module on the CPU (each
+   stage within 1e-4 of its largest magnitude); tools/get_inf_time.py and
+   tools/get_flops.py on the UNet recipe at 8 x 256^2 (get_flops at 1 x
+   256^2), their printed lines.
 
 TF32 is off for convolutions and matrix products in every comparison.
 Prints, before its last two lines, one JSON object with each kernel's
@@ -4500,6 +4513,147 @@ def dp_hover_scale(args) -> dict:
     return {str(k): v for k, v in per_scale.items()}
 
 
+# -- phase 11: the last modules ---------------------------------------------------------
+LAST_WINDOWS = 8  # one batch of the recipe's samples_per_gpu
+NEW_OPS = [dict(type='Resize', scale_factor=1.25, resize_mode='scale'), dict(type='RandomSparseRotate', prob=1.0),
+           dict(type='RandomRotate', prob=1.0, degree=30), dict(type='RandomElasticDeform', prob=1.0),
+           dict(type='AlbuColorJitter', prob=1.0)]  # every op draws and changes every sample
+RESNET_HW, RESNET_RTOL = 256, 1e-4  # each stage within RESNET_RTOL of its largest magnitude, card against CPU
+RESNETS = ('TorchResNet', 'ResNet18', 'ResNet34', 'ResNet50', 'ResNet101', 'DeeplabResNet50', 'DeeplabResNet101')
+
+
+def last_modules_path(args) -> dict:
+    """The five new transforms feeding a train step, the inference CLI on a port checkpoint, the seven ResNets
+    and the two timing tools (phase 11 of the module docstring). Returns B1's launches on the CLI's path."""
+    import io
+    from PIL import Image
+    from tiseg_tpu_torch.apis import build_train_state
+    from tiseg_tpu_torch.datasets import build_dataloader, build_dataset, collate, sample_seed
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei
+    from tiseg_tpu_torch.engine import make_train_step
+    from tiseg_tpu_torch.models import build_backbone, build_segmentor
+    from tiseg_tpu_torch.models.segmentors.base import BaseSegmentor
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain
+    from tiseg_tpu_torch.tools import get_flops, get_inf_time, inference
+    from tiseg_tpu_torch.utils import Config
+
+    # part 1: the new transforms through the loader into a train step
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(os.path.join(ROOT, UNET_CONFIG))
+    kw, _ = write_tiles('last_w512', range(args.seed + 70000, args.seed + 70000 + LAST_WINDOWS), WINDOW_HW,
+                        WINDOW_NUCLEI)
+    processes = list(cfg.data.train.processes)
+    crop = next(i for i, p in enumerate(processes) if p['type'] == 'RandomCrop')
+    processes = processes[:crop] + NEW_OPS + processes[crop:]
+    ds = build_dataset(dict(kw, processes=processes))
+    loader = build_dataloader(ds, samples_per_gpu=cfg.data.samples_per_gpu, workers_per_gpu=cfg.data.workers_per_gpu,
+                              seed=args.seed)
+    t1 = time.perf_counter()
+    batch = next(iter(loader))
+    loader_s = time.perf_counter() - t1
+    want = collate([ds.sample(int(i), sample_seed(args.seed, 0, int(i))) for i in loader.batches()[0]])
+    same = all(np.array_equal(batch[g][k], want[g][k]) for g in ('data', 'label') for k in want[g])
+    shapes = {f'{g}/{k}': tuple(v.shape) for g in ('data', 'label') for k, v in batch[g].items()}
+    if not (same and shapes['data/img'] == (8, 256, 256, 3)):
+        raise AssertionError(f'last modules, train: loader batch equal to the mapper: {same}; {shapes}')
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed)
+    state = build_train_state(seg, cfg, iters_per_epoch=1, seed=args.seed)
+    step = make_train_step(seg)
+    staged = {g: {k: torch.from_numpy(v).cuda() for k, v in batch[g].items()} for g in ('data', 'label')}
+    state, logs = step(state, staged)
+    loss = float(logs['loss'])
+    if not np.isfinite(loss):
+        raise AssertionError(f'last modules, train: loss not finite {logs}')
+    print(f'last modules, train: processes {[p["type"] for p in processes]}; the first loader batch ({shapes}) in '
+          f'{loader_s:.2f} s, equal to the mapper on its indices and seeds; one float32 train step on the card, '
+          f'loss {loss:.5f}; part 1 {time.perf_counter() - t0:.1f} s', flush=True)
+    del seg, state, step, staged
+    torch.cuda.empty_cache()
+
+    # part 2: tools/inference.py on the train CLI's best checkpoint and a 1000^2 tile
+    t0 = time.perf_counter()
+    best = os.path.join(ROOT, 'build', 'dev', 'cli_train', 'checkpoints', 'best.pt')
+    tile = os.path.join(DATA_DIR, 'inference_tile.png')
+    Image.fromarray(np.round(make_nuclei(args.seed + 71000, UNET_HW, LOOP_NUCLEI)[0] * 255).astype(np.uint8)).save(tile)
+    panel = os.path.join(DATA_DIR, 'inference_tile_panel.png')
+    cli = [os.path.join(ROOT, UNET_CONFIG), best, tile, '--out', panel, '--device-postprocess']
+    captured = []
+    device_pp = BaseSegmentor._device_instance_pp
+
+    def capturing_pp(self, sem_pred):
+        captured.append(sem_pred)
+        return device_pp(self, sem_pred)
+
+    counters = b1_counters()
+    BaseSegmentor._device_instance_pp = capturing_pp
+    try:
+        inference.main(cli)  # warm-up: the card's first convolutions of this shape
+        zero_counts(counters)
+        captured.clear()
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            pred = inference.main(cli)
+        cli_s = time.perf_counter() - t1
+        launches = read_counts(counters)
+    finally:
+        BaseSegmentor._device_instance_pp = device_pp
+    line = out.getvalue().splitlines()[-1]
+    if launches != B1_STRIP_LAUNCHES or len(captured) != 1:
+        raise AssertionError(f'inference CLI: B1 launches {launches}, expected {B1_STRIP_LAUNCHES}; '
+                             f'{len(captured)} post-processing calls')
+    ps, pi = instance_postprocess_plain(captured[0])
+    if not (np.array_equal(pred['sem_pred'], ps[0].cpu().numpy()) and np.array_equal(pred['inst_pred'],
+                                                                                     pi[0].cpu().numpy())):
+        raise AssertionError("inference CLI: instances differ from B1's plain version on the CLI's semantic map")
+    with Image.open(panel) as im:
+        panel_shape = (im.height, im.width, len(im.getbands()))
+    if panel_shape != (UNET_HW, 3 * UNET_HW + 16, 3) or line != f'saved {panel}; instances: {pred["inst_pred"].max()}':
+        raise AssertionError(f'inference CLI: panel {panel_shape}, last line {line!r}')
+    print(f'last modules, inference CLI on {os.path.relpath(best, ROOT)} and a {UNET_HW}^2 tile: {line!r}; B1 '
+          f'{launches}, instances equal to its plain version on the CLI\'s semantic map; panel {panel_shape}; '
+          f'{cli_s:.3f} s per call (config, net build, checkpoint load, inference, panel); part 2 '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+    # part 3: the seven ResNets, card against CPU
+    t0 = time.perf_counter()
+    x = torch.from_numpy(np.random.default_rng(args.seed).standard_normal((1, 3, RESNET_HW, RESNET_HW),
+                                                                          dtype=np.float32))
+    errs = {}
+    for name in RESNETS:
+        torch.manual_seed(args.seed)
+        net = build_backbone(dict(type=name), device='cpu').eval()
+        with torch.no_grad():
+            want = net(x)
+            got = net.cuda()(x.cuda())
+        errs[name] = max(float((g.cpu() - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+        if len(got) != 4 or errs[name] > RESNET_RTOL:
+            raise AssertionError(f'{name}: {len(got)} stages, card against CPU {errs[name]:.2e} (bound {RESNET_RTOL})')
+        del net, got
+    print(f'last modules, ResNets at 1 x 3 x {RESNET_HW}^2, card against CPU (largest relative error per net, '
+          f'bound {RESNET_RTOL}): {json.dumps(errs)}; part 3 {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+
+    # part 4: the timing tools on the UNet recipe
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        inf_s = get_inf_time.main([os.path.join(ROOT, UNET_CONFIG), '--batch', '8', '--iters', '20', '--shape',
+                                   '256', '256', '--warmup', '5'])
+        n_params, flops = get_flops.main([os.path.join(ROOT, UNET_CONFIG), '--shape', '256', '256'])
+    lines = out.getvalue().splitlines()
+    if not (lines[0].startswith('160 images in ') and len(lines) == 4 and n_params > 0 and flops > 0):
+        raise AssertionError(f'timing tools: {lines}')
+    print(f'last modules, tools/get_inf_time.py: {lines[0]!r}; tools/get_flops.py: {lines[1:]}; part 4 '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    print(json.dumps({'last_modules': {'train_loss': loss, 'loader_first_batch_s': loader_s, 'inference_cli_s': cli_s,
+                                       'inference_cli_b1': launches, 'resnet_card_vs_cpu': errs,
+                                       'get_inf_time_img_per_s': 160 / inf_s, 'get_inf_time_s': inf_s,
+                                       'params': n_params, 'gflops_256': flops / 1e9}}), flush=True)
+    return {'inference_cli_launches': launches['launches']}
+
+
 SOURCES = {
     'instance_postprocess_sweep': ('tiseg_tpu_torch/csrc/instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:478'),
     'instance_postprocess_vectorized': ('tiseg_tpu_torch/csrc/instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:353'),
@@ -4692,6 +4846,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     data_parallel_path(args)
     print(f'data-parallel phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stats['instance_postprocess_sweep'].update(last_modules_path(args))
+    print(f'last modules phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
 
     # -- phases 7 and 8 ------------------------------------------------------------

@@ -194,7 +194,9 @@ def test_inference_cli_runs_fullnet_and_accepts_dcan(tmp_path, capsys):
                    "model = dict(test_cfg=dict(mode='whole', rotate_degrees=[0], flip_directions=['none']))\n")
     np.savez(tmp_path / 'vars.npz', **flatten_variables(random_variables('FullNet', 2, seed=0)))
     np.save(tmp_path / 'img.npy', (IMG[0] * 255).astype(np.uint8))
-    args = [str(cfg), str(tmp_path / 'img.npy'), '--weights', str(tmp_path / 'vars.npz'), '--device', 'cpu']
+    args = [str(cfg), str(tmp_path / 'vars.npz'), str(tmp_path / 'img.npy'), '--device', 'cpu']
     with torch_threads():
-        n_dev = main(args + ['--device-postprocess'])
-    assert n_dev > 0 and f'instances: {n_dev}' in capsys.readouterr().out
+        pred = main(args + ['--device-postprocess'])
+    n_dev = pred['inst_pred'].max()
+    assert n_dev > 0 and capsys.readouterr().out.splitlines()[-1] == (
+        f"saved {tmp_path / 'img_pred.png'}; instances: {n_dev}")

@@ -13,7 +13,14 @@
   which the flax net lacks, zero and without a gradient.
 - The trained parameters are the flax parameter leaves, one for one.
 - A batch of the MoNuSeg recipe's train pipeline (``HVLabelMake`` in C++,
-  crops cut to 48^2) through ``make_train_step`` for one step on the CPU."""
+  crops cut to 48^2) through ``make_train_step`` for one step on the CPU.
+
+Under the test workers this file comes late to a process that has compiled
+hundreds of JAX programs; its first float64 compile once crashed such a
+worker in a thread of XLA's own. ``_fresh_jax`` frees the earlier files'
+programs first, so that the file compiles in a state like the one it
+passes in when run alone."""
+import gc
 import os
 
 import jax
@@ -51,6 +58,14 @@ def _batch(n: int, hw: int, seed: int):
         hvs.append(HVLabelMake()({'inst_gt': inst, 'seg_fields': []})['hv_gt'])
     return {'data': {'img': np.stack(imgs).astype(np.float64)},
             'label': {'sem_gt': np.stack(sems), 'hv_gt': np.stack(hvs).astype(np.float64)}}
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _fresh_jax():
+    """Drop JAX's caches of the programs earlier files compiled in this
+    process, and collect them, before this file's first compile."""
+    jax.clear_caches()
+    gc.collect()
 
 
 def _carry64(variables):

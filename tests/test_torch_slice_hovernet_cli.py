@@ -33,9 +33,10 @@ def test_inference_cli_runs_a_hovernet_config(tmp_path, capsys):
     np.save(tmp_path / 'img.npy', img8)
     views = {k: HOVER_TEST_CFG[k] for k in ('crop_size', 'overlap_size', 'rotate_degrees', 'flip_directions')}
     (tmp_path / 'cfg.py').write_text(f"_base_ = ['{CONFIG}']\nmodel = dict(test_cfg={views!r})\n")
-    n = main([str(tmp_path / 'cfg.py'), str(tmp_path / 'img.npy'), '--weights', str(tmp_path / 'vars.npz'),
-              '--device', 'cpu', '--device-postprocess'])
-    assert f'instances: {n}' in capsys.readouterr().out
+    pred = main([str(tmp_path / 'cfg.py'), str(tmp_path / 'vars.npz'), str(tmp_path / 'img.npy'),
+                 '--device', 'cpu', '--device-postprocess'])
+    assert capsys.readouterr().out.endswith(f"instances: {pred['inst_pred'].max()}\n")
+    n = len(np.unique(pred['inst_pred'][pred['inst_pred'] > 0]))
     cfg = Config.fromfile(str(tmp_path / 'cfg.py'))
     seg = hovernet_port(variables, dict(cfg.model.test_cfg, device_postprocess=True))
     out = InferenceRunner(seg)(Normalize()({'img': img8})['img'][None], (HOVER_HW, HOVER_HW))

@@ -116,8 +116,9 @@ def test_inference_cli_runs_the_config_on_cpu(tmp_path, capsys):
     np.save(tmp_path / 'img.npy', img)
     cfg = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))),
                    'configs/unet/unet_vgg16_adam-lr1e-4_bs8_256x256_300e_monuseg.py')
-    n = main([cfg, str(tmp_path / 'img.npy'), '--weights', str(tmp_path / 'vars.npz'), '--device', 'cpu'])
-    assert f'instances: {n}' in capsys.readouterr().out
+    pred = main([cfg, str(tmp_path / 'vars.npz'), str(tmp_path / 'img.npy'), '--device', 'cpu'])
+    assert capsys.readouterr().out.endswith(f"instances: {pred['inst_pred'].max()}\n")
+    n = len(np.unique(pred['inst_pred'][pred['inst_pred'] > 0]))
     # the same config, weights and image straight through the segmentor's host path
     from tiseg_tpu_torch.utils import Config
     seg = build_segmentor(Config.fromfile(cfg).model, device='cpu')

@@ -2,7 +2,10 @@
 ``formatting.py``, ``mapper.py``) against the JAX package's, on samples of
 a mini dataset of 67 x 93 images in the MoNuSeg layout, with the same seeds:
 ``random.seed(s); np.random.seed(s)`` before the JAX op, ``Rng.seeded(s)``
-handed to the port's.
+handed to the port's: the recipe's ops, and the five that no recipe runs
+(``Resize``, ``AlbuColorJitter``, ``RandomRotate``, ``RandomSparseRotate``,
+``RandomElasticDeform``) alone, on uint8, int32 and float32 label fields,
+and inserted into the recipe's pipeline.
 
 ``UNetLabelMake`` alone is held in ``test_torch_label_maps.py``.
 
@@ -115,11 +118,88 @@ def test_train_pipeline_matches_jax_mapper(samples, record_property):
     record_property('largest_share_of_image_values_differing', props['pipeline'])
 
 
-def test_unported_ops_raise():
-    for name in ('Resize', 'RandomRotate', 'RandomSparseRotate', 'RandomElasticDeform', 'AlbuColorJitter'):
-        with pytest.raises(NotImplementedError, match=name):
-            class_dict[name]()
+# the five ops the recipes of MoNuSeg's UNet do not run, each in the settings the configs and the JAX op allow
+NEW_OPS = {
+    'Resize-fix': dict(type='Resize', min_size=40),
+    'Resize-ratio': dict(type='Resize', min_size=50, max_size=80, resize_mode='ratio'),
+    'Resize-scale-down': dict(type='Resize', scale_factor=0.7, resize_mode='scale'),
+    'Resize-scale-up': dict(type='Resize', scale_factor=1.3, resize_mode='scale'),
+    'AlbuColorJitter': dict(type='AlbuColorJitter'),
+    'AlbuColorJitter-always': dict(type='AlbuColorJitter', brightness=0.4, contrast=0.3, saturation=0.5, hue=0.2,
+                                   prob=1.0),
+    'RandomRotate': dict(type='RandomRotate', prob=0.5, degree=90),
+    'RandomRotate-padded': dict(type='RandomRotate', prob=1.0, degree=(-30, 170), pad_val=7, seg_pad_val=255),
+    'RandomSparseRotate': dict(type='RandomSparseRotate'),
+    'RandomSparseRotate-padded': dict(type='RandomSparseRotate', prob=1.0, pad_val=(9, 8, 7), seg_pad_val=3),
+    'RandomElasticDeform': dict(type='RandomElasticDeform'),
+    'RandomElasticDeform-always': dict(type='RandomElasticDeform', prob=1.0, sigma=20, alpha_affine=10),
+}
+
+
+def test_class_dict_holds_every_jax_op():
     assert sorted(class_dict) == sorted(jax_class_dict)
+    for name in ('Resize', 'RandomRotate', 'RandomSparseRotate', 'RandomElasticDeform', 'AlbuColorJitter'):
+        assert class_dict[name].__module__ == 'tiseg_tpu_torch.datasets.ops.transforms', name
+
+
+@pytest.mark.parametrize('name', sorted(NEW_OPS))
+def test_new_op_matches_jax(samples, name, record_property):
+    """Each op on the image, the uint8 ``sem_gt`` and the int32 ``inst_gt``,
+    and on a float32 label field, over the seeds."""
+    cfg = dict(NEW_OPS[name])
+    kind = cfg.pop('type')
+    port_op, jax_op = class_dict[kind](**cfg), jax_class_dict[kind](**cfg)
+    props, changed = {}, 0
+    for seed in SEEDS:
+        for data in samples[0]:
+            data = dict(data, reg_gt=data['inst_gt'].astype(np.float32) / 7, seg_fields=data['seg_fields'] + ['reg_gt'])
+            assert data['sem_gt'].dtype == np.uint8 and data['inst_gt'].dtype == np.int32
+            random.seed(seed)
+            np.random.seed(seed)
+            want = jax_op(copy.deepcopy(data))
+            got = port_op(copy.deepcopy(data), Rng.seeded(seed))
+            _compare(got, want, props, name)
+            changed += not np.array_equal(want['img'], data['img'])
+    assert changed > 0, name
+    record_property('largest_share_of_image_values_differing', props.get(name, 0.0))
+
+
+@pytest.mark.parametrize('name', ['AlbuColorJitter-always', 'RandomRotate', 'RandomSparseRotate',
+                                  'RandomElasticDeform'])
+def test_new_op_draws_follow_the_jax_streams(samples, name):
+    """After the op, both streams stand where the JAX op left the global ones."""
+    cfg = dict(NEW_OPS[name])
+    kind = cfg.pop('type')
+    data = samples[0][0]
+    for seed in range(4):
+        rng = Rng.seeded(seed)
+        random.seed(seed)
+        np.random.seed(seed)
+        class_dict[kind](**cfg)(copy.deepcopy(data), rng)
+        jax_class_dict[kind](**cfg)(copy.deepcopy(data))
+        assert rng.np.rand() == np.random.rand() and rng.py.random() == random.random()
+
+
+def test_pipeline_with_new_ops_matches_jax(samples, record_property):
+    """The recipe's train pipeline with the five ops inserted before the
+    crop, through ``build_dataset`` of both packages."""
+    _, kw = samples
+    inserted = [NEW_OPS[k] for k in ('Resize-scale-up', 'RandomSparseRotate', 'RandomRotate', 'RandomElasticDeform',
+                                     'AlbuColorJitter')]
+    crop = next(i for i, p in enumerate(TRAIN) if p['type'] == 'RandomCrop')
+    processes = [dict(type='CenterCrop', crop_size=(H, W))] + TRAIN[:crop] + inserted + TRAIN[crop:]
+    cfg = dict(kw, processes=processes)
+    port, jds = build_dataset(cfg), build_jax_dataset(cfg)
+    props = {}
+    for seed in SEEDS:
+        for i in range(len(port)):
+            random.seed(seed)
+            np.random.seed(seed)
+            want = jds[i]
+            got = port.sample(i, seed)
+            _compare(got, want, props, 'pipeline')
+            assert got['data']['img'].shape == (48, 48, 3)
+    record_property('largest_share_of_image_values_differing', props['pipeline'])
 
 
 def test_read_image_matches_jax(tmp_path):

@@ -143,8 +143,8 @@ def test_config_builds_and_entry_points_default_to_cuda(tmp_path):
     np.savez(tmp_path / 'vars.npz', **flatten_variables(variables))
     img = (np.random.default_rng(5).random((64, 64, 3)) * 255).astype(np.uint8)
     Image.fromarray(img).save(tmp_path / 'img.png')
-    n_inst = main([CONFIG, str(tmp_path / 'img.png'), '--weights', str(tmp_path / 'vars.npz'), '--device', 'cpu'])
-    assert isinstance(n_inst, int)
+    pred = main([CONFIG, str(tmp_path / 'vars.npz'), str(tmp_path / 'img.png'), '--device', 'cpu'])
+    assert pred['inst_pred'].shape == (64, 64) and (tmp_path / 'img_pred.png').exists()
 
 
 def _batch(seed, n=2, hw=64):

@@ -9,7 +9,7 @@ from ..utils.metrics import (pre_eval_aji, pre_eval_all_semantic_metric, pre_eva
                              pre_eval_to_imw_aji, pre_eval_to_imw_pq, pre_eval_to_imw_sem_metrics, pre_eval_to_pq,
                              pre_eval_to_sem_metrics)
 from .builder import DATASETS
-from .custom import _SHOW, CustomDataset
+from .custom import SHOW_FOLDER, CustomDataset
 from .utils.instance import assign_sem_class_to_insts, re_instance
 
 
@@ -24,8 +24,6 @@ class CoNICDataset(CustomDataset):
         super().__init__(**kwargs)
 
     def pre_eval(self, preds, indices, show=False, show_folder=None):
-        if show:
-            raise NotImplementedError(_SHOW)
         if not isinstance(indices, list):
             indices = [indices]
         if not isinstance(preds, list):
@@ -47,6 +45,8 @@ class CoNICDataset(CustomDataset):
                      bin_aji_pre_eval_res=pre_eval_bin_aji(inst_pred, inst_gt),
                      pq_pre_eval_res=pre_eval_pq(inst_pred, inst_gt, pred_per_class, gt_per_class, n_cls),
                      bin_pq_pre_eval_res=pre_eval_bin_pq(inst_pred, inst_gt)))
+            if show:
+                self._show(pred, index, show_folder or SHOW_FOLDER)
         return results
 
     def evaluate(self, results, logger=None, **kwargs):

@@ -23,7 +23,7 @@ from .builder import DATASETS
 from .mapper import DatasetMapper, read_image
 from .utils.instance import re_instance
 
-_SHOW = 'show is not ported: it draws with matplotlib (tiseg_tpu/datasets/utils/draw.py; ROADMAP queue A item 4)'
+SHOW_FOLDER = '.nuclei_show'  # where show=True draws when no folder is given
 
 
 def scandir(root: str, suffix: str):
@@ -100,9 +100,8 @@ class CustomDataset:
 
     def pre_eval(self, preds, indices, show=False, show_folder=None):
         """Per-image metric pre-eval packages for {'sem_pred', 'inst_pred'}
-        results (reference custom.py:219-305)."""
-        if show:
-            raise NotImplementedError(_SHOW)
+        results (reference custom.py:219-305); ``show`` also draws each
+        image's panels into ``show_folder``."""
         if not isinstance(indices, list):
             indices = [indices]
         if not isinstance(preds, list):
@@ -117,7 +116,23 @@ class CustomDataset:
                      sem_pre_eval_res=pre_eval_all_semantic_metric(pred['sem_pred'], sem_gt, len(self.CLASSES)),
                      bin_aji_pre_eval_res=pre_eval_bin_aji(inst_pred, inst_gt),
                      bin_pq_pre_eval_res=pre_eval_bin_pq(inst_pred, inst_gt)))
+            if show:
+                self._show(pred, index, show_folder or SHOW_FOLDER)
         return results
+
+    def _show(self, pred, index, show_folder):
+        """The image's comparison panel, and its direction panel where the
+        prediction holds ``dir_pred`` (``utils/draw.py``)."""
+        from .utils.draw import draw_all, draw_direction
+        os.makedirs(show_folder, exist_ok=True)
+        sem_gt, inst_gt = self._load_gts(index)
+        info = self.data_infos[index]
+        name = info['data_id'].replace('/', '_')
+        draw_all(show_folder, name, info['file_name'], pred['sem_pred'], sem_gt, re_instance(pred['inst_pred']),
+                 re_instance(inst_gt), pred.get('tc_sem_pred', pred['sem_pred']), None)
+        if 'dir_pred' in pred:
+            draw_direction(show_folder, name, info['file_name'], pred, sem_gt, inst_gt,
+                           num_angles=int(pred.get('dir_num_angles', 8)))
 
     def pre_eval_device(self, preds, indices, max_instances: int = 1024, device=None):
         """On-device pre-eval on ``device`` (``cuda`` when None): relabel,
@@ -306,8 +321,6 @@ class OSCDDataset(CustomDataset):
 
     def pre_eval(self, preds, indices, show=False, show_folder=None):
         from ..utils.metrics import binary_aggregated_jaccard_index, dice_similarity_coefficient, precision_recall
-        if show:
-            raise NotImplementedError(_SHOW)
         if not isinstance(indices, list):
             indices = [indices]
         if not isinstance(preds, list):
@@ -323,6 +336,8 @@ class OSCDDataset(CustomDataset):
             dice = dice_similarity_coefficient(sem_pred, sem_gt, 2)[1]
             aji = binary_aggregated_jaccard_index(re_instance(inst_pred), inst_gt)
             results.append(dict(Aji=aji, Dice=dice, Recall=recall[1], Precision=precision[1]))
+            if show:
+                self._show(pred, index, show_folder or SHOW_FOLDER)
         return results
 
     def evaluate(self, results, logger=None, **kwargs):

@@ -1,24 +1,7 @@
 from .formatting import Formatting, format_img, format_reg, format_seg
 from .label_maps import BoundLabelMake, DirectionLabelMake, DistanceLabelMake, HVLabelMake, UNetLabelMake
-from .transforms import (Affine, CenterCrop, ColorJitter, Identity, Normalize, Pad, RandomBlur, RandomCrop, RandomFlip,
-                         Rng)
-
-
-def _not_ported(name: str, where: str, item: str):
-    """A pipeline op of the JAX package that the port does not have yet: it
-    raises when a config builds it."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f'{name} is not ported (tiseg_tpu/datasets/ops/{where}; ROADMAP queue A item {item})')
-
-    return type(name, (), {'__init__': __init__, '__doc__': f'Not ported: tiseg_tpu/datasets/ops/{where}.'})
-
-
-Resize = _not_ported('Resize', 'transforms.py', '4')
-RandomRotate = _not_ported('RandomRotate', 'transforms.py', '4')
-RandomSparseRotate = _not_ported('RandomSparseRotate', 'transforms.py', '4')
-RandomElasticDeform = _not_ported('RandomElasticDeform', 'transforms.py', '4')
-AlbuColorJitter = _not_ported('AlbuColorJitter', 'transforms.py', '4')
+from .transforms import (Affine, AlbuColorJitter, CenterCrop, ColorJitter, Identity, Normalize, Pad, RandomBlur,
+                         RandomCrop, RandomElasticDeform, RandomFlip, RandomRotate, RandomSparseRotate, Resize, Rng)
 
 __all__ = [
     'BoundLabelMake', 'DirectionLabelMake', 'DistanceLabelMake', 'HVLabelMake', 'UNetLabelMake', 'Affine',

@@ -1,6 +1,5 @@
-"""Geometric and photometric augmentations on the host (port of the
-operations of tiseg_tpu/datasets/ops/transforms.py that the MoNuSeg UNet
-recipe runs, plus CenterCrop and Identity; reference
+"""Geometric and photometric augmentations on the host (port of
+tiseg_tpu/datasets/ops/transforms.py; reference
 tiseg/datasets/ops/transform.py:9-561).
 
 Each op takes and returns the pipeline ``data`` dict {img, sem_gt, inst_gt,
@@ -42,6 +41,19 @@ def _flip(arr, direction):
     if direction == 'diagonal':
         return np.ascontiguousarray(arr[::-1, ::-1])
     raise ValueError(direction)
+
+
+def _rotate(arr, angle, border_value=0, center=None, nearest=False):
+    """Rotate clockwise by ``angle`` degrees around ``center`` (mmcv.imrotate
+    convention); arrays neither uint8 nor float32 are warped as float32 and
+    cast back."""
+    h, w = arr.shape[:2]
+    if center is None:
+        center = ((w - 1) * 0.5, (h - 1) * 0.5)
+    matrix = imgproc.get_rotation_matrix_2d(center, -angle, 1.0)
+    dtype = arr.dtype
+    src = arr.astype(np.float32) if dtype not in (np.uint8, np.float32) else arr
+    return imgproc.warp_affine(src, matrix, nearest=nearest, border_value=border_value).astype(dtype)
 
 
 class ColorJitter:
@@ -98,6 +110,68 @@ class ColorJitter:
         return data
 
 
+class AlbuColorJitter:
+    """torchvision/albumentations-style ColorJitter (uniform factors)."""
+
+    def __init__(self, brightness=0.2, contrast=0.2, saturation=0.2, hue=0.1, prob=0.5):
+        self.brightness = brightness
+        self.contrast = contrast
+        self.saturation = saturation
+        self.hue = hue
+        self.prob = prob
+
+    def __call__(self, data, rng: Rng):
+        if rng.np.rand() >= self.prob:
+            return data
+        img = data['img'].astype(np.float32)
+        if self.brightness:
+            img = np.clip(img * rng.py.uniform(1 - self.brightness, 1 + self.brightness), 0, 255)
+        if self.contrast:
+            mean = img.mean()
+            img = np.clip((img - mean) * rng.py.uniform(1 - self.contrast, 1 + self.contrast) + mean, 0, 255)
+        img = img.astype(np.uint8)
+        if self.saturation:
+            hsv = imgproc.rgb2hsv(img).astype(np.float32)
+            hsv[:, :, 1] = np.clip(hsv[:, :, 1] * rng.py.uniform(1 - self.saturation, 1 + self.saturation), 0, 255)
+            img = imgproc.hsv2rgb(hsv.astype(np.uint8))
+        if self.hue:
+            hsv = imgproc.rgb2hsv(img)
+            shift = int(rng.py.uniform(-self.hue, self.hue) * 180)
+            hsv[:, :, 0] = (hsv[:, :, 0].astype(int) + shift) % 180
+            img = imgproc.hsv2rgb(hsv.astype(np.uint8))
+        data['img'] = img
+        return data
+
+
+class Resize:
+
+    def __init__(self, min_size=None, max_size=None, scale_factor=None, resize_mode='fix'):
+        self.min_size = min_size
+        self.max_size = max_size
+        self.scale_factor = scale_factor
+        self.resize_mode = resize_mode
+
+    def _target_size(self, h, w):
+        if self.resize_mode == 'fix':
+            return self.min_size, self.min_size
+        if self.resize_mode == 'ratio':
+            scale_f = self.min_size / min(h, w)
+            if scale_f * max(h, w) > self.max_size:
+                scale_f = self.max_size / max(h, w)
+            return int(round(w * scale_f)), int(round(h * scale_f))
+        if self.resize_mode == 'scale':
+            return int(round(w * self.scale_factor)), int(round(h * self.scale_factor))
+        raise ValueError(self.resize_mode)
+
+    def __call__(self, data, rng=None):
+        h, w = data['img'].shape[:2]
+        size = self._target_size(h, w)
+        data['img'] = imgproc.resize_linear_u8(data['img'], size)
+        for key in data['seg_fields']:
+            data[key] = imgproc.resize(data[key], size=size)
+        return data
+
+
 class CenterCrop:
 
     def __init__(self, crop_size):
@@ -134,6 +208,95 @@ class RandomFlip:
             data['img'] = _flip(data['img'], d)
             for key in data['seg_fields']:
                 data[key] = _flip(data[key], d)
+        return data
+
+
+class RandomRotate:
+
+    def __init__(self, prob, degree, pad_val=0, seg_pad_val=0, center=None, auto_bound=False):
+        self.prob = prob
+        if isinstance(degree, (int, float)):
+            if degree <= 0:
+                raise ValueError(f'rotation degree {degree} is not positive')
+            degree = (-degree, degree)
+        if len(degree) != 2:
+            raise ValueError(f'rotation degree {degree} is not a (min, max) pair')
+        self.degree = degree
+        self.pad_val = pad_val
+        self.seg_pad_val = seg_pad_val
+        self.center = center
+
+    def __call__(self, data, rng: Rng):
+        rotate = rng.np.rand() < self.prob
+        angle = rng.np.uniform(min(*self.degree), max(*self.degree))
+        if rotate:
+            data['img'] = _rotate(data['img'], angle, self.pad_val, self.center)
+            for key in data['seg_fields']:
+                data[key] = _rotate(data[key], angle, self.seg_pad_val, self.center, nearest=True)
+        return data
+
+
+class RandomSparseRotate:
+
+    def __init__(self, degree_list=(90, 180, 270), prob=0.5, pad_val=0, seg_pad_val=0, center=None, auto_bound=False):
+        self.degree_list = list(degree_list)
+        self.prob = prob
+        self.pad_val = pad_val
+        self.seg_pad_val = seg_pad_val
+        self.center = center
+
+    def __call__(self, data, rng: Rng):
+        rotate = rng.np.rand() < self.prob
+        angle = self.degree_list[rng.np.randint(0, len(self.degree_list))]
+        if rotate:  # through the rotation matrix as the JAX op: at 90 degrees its cosine is not exactly 0
+            data['img'] = _rotate(data['img'], angle, self.pad_val, self.center)
+            for key in data['seg_fields']:
+                data[key] = _rotate(data[key], angle, self.seg_pad_val, self.center, nearest=True)
+        return data
+
+
+class RandomElasticDeform:
+    """Elastic deformation: random gaussian-smoothed displacement field plus
+    a random affine jitter of the corner triangle (albumentations
+    ElasticTransform semantics with interpolation=0, border=constant 0)."""
+
+    def __init__(self, prob=0.5, alpha=1, sigma=50, alpha_affine=50):
+        self.prob = prob
+        self.alpha = alpha
+        self.sigma = sigma
+        self.alpha_affine = alpha_affine
+
+    def __call__(self, data, rng: Rng):
+        if rng.np.rand() >= self.prob:
+            return data
+        img = data['img']
+        h, w = img.shape[:2]
+
+        # affine jitter
+        center_square = np.float32((h, w)) // 2
+        square_size = min(h, w) // 3
+        pts1 = np.float32([
+            center_square + square_size,
+            [center_square[0] + square_size, center_square[1] - square_size],
+            center_square - square_size,
+        ])
+        pts2 = pts1 + rng.np.uniform(-self.alpha_affine, self.alpha_affine, size=pts1.shape).astype(np.float32)
+        M = imgproc.get_affine_transform(pts1, pts2)
+
+        # displacement field
+        dx = imgproc.gaussian_blur_f32(rng.np.rand(h, w).astype(np.float32) * 2 - 1, 17, self.sigma) * self.alpha
+        dy = imgproc.gaussian_blur_f32(rng.np.rand(h, w).astype(np.float32) * 2 - 1, 17, self.sigma) * self.alpha
+        x, y = np.meshgrid(np.arange(w), np.arange(h))
+        map_x = (x + dx).astype(np.float32)
+        map_y = (y + dy).astype(np.float32)
+
+        def _apply(arr):
+            return imgproc.remap_nearest(imgproc.warp_affine(arr, M, nearest=True), map_x, map_y)
+
+        data['img'] = _apply(img)
+        for key in data['seg_fields']:
+            seg = data[key]
+            data[key] = _apply(seg.astype(np.float32)).astype(seg.dtype)
         return data
 
 

@@ -1,4 +1,6 @@
-from .resnet import BasicBlock, Bottleneck, ResNet, ResNetExt
+from .resnet import (BasicBlock, Bottleneck, DeeplabResNet50, DeeplabResNet101, ResNet, ResNet18, ResNet34, ResNet50,
+                     ResNet101, ResNetExt, TorchResNet)
 from .vgg import VGG, VGG16BN, VGG19BN
 
-__all__ = ['BasicBlock', 'Bottleneck', 'ResNet', 'ResNetExt', 'VGG', 'VGG16BN', 'VGG19BN']
+__all__ = ['BasicBlock', 'Bottleneck', 'DeeplabResNet50', 'DeeplabResNet101', 'ResNet', 'ResNet18', 'ResNet34',
+           'ResNet50', 'ResNet101', 'ResNetExt', 'TorchResNet', 'VGG', 'VGG16BN', 'VGG19BN']

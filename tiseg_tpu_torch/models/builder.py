@@ -3,7 +3,20 @@ from ..utils.registry import Registry
 
 BACKBONES = Registry('backbone')
 HEADS = Registry('head')
+LOSSES = Registry('loss')
 SEGMENTORS = Registry('segmentor')
+
+
+def build_backbone(cfg, **default_args):
+    return BACKBONES.build(cfg, default_args or None)
+
+
+def build_head(cfg, **default_args):
+    return HEADS.build(cfg, default_args or None)
+
+
+def build_loss(cfg, **default_args):
+    return LOSSES.build(cfg, default_args or None)
 
 
 def build_segmentor(cfg, **default_args):

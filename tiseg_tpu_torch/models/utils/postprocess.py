@@ -4,7 +4,9 @@ tiseg_tpu/models/utils/postprocess.py):
 - DIST's dynamic watershed (reference dist.py:31-129);
 - HoVer-Net's Sobel/marker watershed (reference hovernet.py:283-365), its
   cv2 calls replaced by the twins of ``utils/imgproc.py``;
-- ``align_foreground``, the multi-task segmentors' bounded re-expansion.
+- ``align_foreground``, the multi-task segmentors' bounded re-expansion;
+- ``mudslide_watershed``, the direction-field guided splitting (reference
+  postprocess.py:163-200; no segmentor calls it, as in the reference).
 
 These are the host routes (``device_postprocess=False``); the device
 routes live in :mod:`tiseg_tpu_torch.ops`.
@@ -143,3 +145,113 @@ def align_foreground(pred: np.ndarray, foreground: np.ndarray, time: int) -> np.
             break
         pred[newly] = grown[newly]
     return pred
+
+
+# ---------------------------------------------------------------------------
+# mudslide watershed: direction-graph guided foreground splitting
+# (reference mudslide_watershed, postprocess.py:163-200 + numba helpers)
+# ---------------------------------------------------------------------------
+_DIR_OFFSETS = np.array([[0, 0], [0, -1], [-1, -1], [-1, 0], [-1, 1], [0, 1], [1, 1], [1, 0], [1, -1]])
+
+
+def _graph_degree(dir_graph: np.ndarray) -> np.ndarray:
+    """In-degree of each pixel under the direction field: pixel q points to
+    q - offset[dir(q)] (reference get_graph_degree)."""
+    h, w = dir_graph.shape
+    degree = np.zeros((h, w), dtype=np.int16)
+    ys, xs = np.nonzero(dir_graph > 0)
+    offs = _DIR_OFFSETS[dir_graph[ys, xs]]
+    ny = ys - offs[:, 0]
+    nx = xs - offs[:, 1]
+    ok = (ny >= 0) & (ny < h) & (nx >= 0) & (nx < w)
+    np.add.at(degree, (ny[ok], nx[ok]), 1)
+    return degree
+
+
+def mudslide_watershed(seg: np.ndarray, dir_graph: np.ndarray, fore: np.ndarray):
+    """Direction-field guided instance splitting ('mudslide').
+
+    Behavioral rebuild of the reference's numba BFS (tiseg/models/utils/
+    postprocess.py:163-200 + prepare/get_graph_degree). Note the live model
+    paths only use :func:`align_foreground`; mudslide is exposed for parity
+    (the reference call site, cdnet.py:146, is commented out).
+
+    Algorithm: ridge pixels where >1 direction links converge are carved
+    out of the segmentation; a BFS seeded at contour/edge pixels sinks
+    through the segmentation — along direction links it always advances,
+    across plain 8-neighborhoods it only claims pixels nobody points to —
+    demoting each reached pixel's level; pixels demoted to <= 0 become the
+    split foreground.
+    """
+    from collections import deque
+
+    seg = ndimage.binary_fill_holes(seg > 0)
+    fore = ndimage.binary_fill_holes(fore > 0)
+    fore = m.remove_small_objects(fore, 20)
+    seg = (seg & fore).astype(np.int16)
+    contour = (fore ^ (seg > 0))
+
+    dir_graph = dir_graph.astype(np.int16).copy()
+    dir_pos = m.remove_small_objects(dir_graph > 0, 20)
+    dir_graph[~dir_pos] = 0
+    small_area = m.remove_small_objects(seg > 0, 60) ^ (seg > 0)
+
+    du = _graph_degree(dir_graph) > 1
+    du = m.remove_small_objects(du, 3)
+    seg[du] = 0
+
+    h, w = seg.shape
+    # hfa: pixels some direction link points at (cannot be claimed laterally)
+    hfa = np.zeros((h, w), dtype=bool)
+    ys, xs = np.nonzero(dir_graph > 0)
+    offs = _DIR_OFFSETS[dir_graph[ys, xs]]
+    ny, nx = ys + offs[:, 0], xs + offs[:, 1]
+    ok = (ny >= 0) & (ny < h) & (nx >= 0) & (nx < w)
+    hfa[ny[ok], nx[ok]] = True
+
+    # seeds: contour pixels + seg pixels with a non-seg 8-neighbor
+    pad = np.pad(seg > 0, 1, constant_values=False)
+    nbr_all = np.ones((h, w), dtype=bool)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy == 0 and dx == 0:
+                continue
+            nbr_all &= pad[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+    seeds = ((seg > 0) & ~nbr_all) | contour
+
+    level = np.ones((h, w), dtype=np.int16)
+    visited = seeds.copy()
+    Q = deque(zip(*np.nonzero(seeds)))
+    while Q:
+        NQ = deque()
+        # pass 1: advance along direction links
+        for (y, x) in Q:
+            d = dir_graph[y, x]
+            if d != 0:
+                ty, tx = y + _DIR_OFFSETS[d][0], x + _DIR_OFFSETS[d][1]
+                if 0 <= ty < h and 0 <= tx < w and seg[ty, tx] > 0:
+                    if not visited[ty, tx]:
+                        NQ.append((ty, tx))
+                        visited[ty, tx] = True
+                    level[ty, tx] = min(level[ty, tx], level[y, x] - 1)
+                    if dir_graph[ty, tx] == 0:
+                        dir_graph[ty, tx] = d
+        # pass 2: lateral spread to unclaimed, un-pointed-at seg pixels
+        for (y, x) in Q:
+            for d in range(1, 9):
+                ty, tx = y + _DIR_OFFSETS[d][0], x + _DIR_OFFSETS[d][1]
+                if 0 <= ty < h and 0 <= tx < w and seg[ty, tx] > 0 and not visited[ty, tx] and not hfa[ty, tx]:
+                    NQ.append((ty, tx))
+                    visited[ty, tx] = True
+                    if dir_graph[ty, tx] == 0:
+                        dir_graph[ty, tx] = d
+                        level[ty, tx] = min(level[ty, tx], level[y, x] - 1)
+                    if level[y, x] <= -1:
+                        level[ty, tx] = min(level[ty, tx], level[y, x])
+        Q = NQ
+
+    pred = level <= 0
+    boundary = level > 0
+    pred = m.remove_small_objects(pred, 15, connectivity=1)
+    pred = pred ^ small_area
+    return pred, boundary

@@ -56,8 +56,31 @@ And the resize of HoVer-Net's post-processing at ``scale_factor != 1``:
   mean (cv2 turns a linear halving into its area route). Nearest takes
   ``floor(dx * in / out)``, clamped, in float64.
 
-``tests/test_torch_imgproc.py`` and ``tests/test_torch_hover_scale.py`` hold
-each one against cv2.
+And the cv2 calls of the geometric augmentations (``Resize``,
+``RandomRotate``, ``RandomSparseRotate``, ``RandomElasticDeform``):
+
+- :func:`resize_linear_u8`: ``cv2.resize(img, (w, h))`` (``INTER_LINEAR``)
+  of a uint8 image in cv2's fixed point: float32 coordinates, 11-bit
+  weights; the weights along x are clamped at the borders, those along y
+  are not (their rows are); the horizontal pass in integers and the
+  vertical one as cv2's vector code does it, each product shifted right by
+  4 and 16 before the sum is rounded by 2 bits.
+- :func:`get_rotation_matrix_2d`: ``cv2.getRotationMatrix2D`` in float64,
+  the centre as float32.
+- :func:`get_affine_transform`: ``cv2.getAffineTransform``: cv2's 6 x 6 LU
+  solve in float64 (partial pivoting, back-substitution by division).
+- :func:`gaussian_blur_f32`: ``cv2.GaussianBlur(src, (k, k), sigma)`` of a
+  float32 plane: the float64 kernel rounded to float32, rows then columns
+  (symmetric), ``BORDER_REFLECT_101``, fused multiply-adds on the pixels
+  cv2's vector code takes (rows in fours, columns in eights) and separate
+  roundings on the rest.
+- :func:`remap_nearest`: ``cv2.remap(src, map_x, map_y, INTER_NEAREST,
+  borderValue=0)`` with float32 maps rounded half to even.
+- :func:`warp_affine` takes cv2's ``borderValue``: a number is the first
+  channel's border, the others' 0, as cv2's ``Scalar``.
+
+``tests/test_torch_imgproc.py``, ``tests/test_torch_hover_scale.py`` and
+``tests/test_torch_imgproc_geometry.py`` hold each one against cv2.
 """
 from __future__ import annotations
 
@@ -104,25 +127,45 @@ def _inverse_affine(M) -> list:
     return m
 
 
-def _gather(src: np.ndarray, sy: np.ndarray, sx: np.ndarray) -> np.ndarray:
-    """``src[sy, sx]``, 0 where the tap lies outside ``src``: a tap outside
-    is clamped onto a border of zeros around it."""
+def _border(value, src: np.ndarray) -> np.ndarray:
+    """cv2's ``borderValue`` for ``src``: a number fills the first channel
+    and 0 the others (cv2's ``Scalar(v)``), a sequence one value per
+    channel; saturated to the dtype as cv2 does."""
+    c = src.shape[2] if src.ndim == 3 else 1
+    v = np.zeros(c, _F64)
+    vals = np.atleast_1d(np.asarray(value, _F64))[:c]
+    v[:len(vals)] = vals
+    if np.issubdtype(src.dtype, np.integer):
+        info = np.iinfo(src.dtype)
+        v = np.clip(np.rint(v), info.min, info.max)
+    return v.astype(src.dtype) if src.ndim == 3 else v[0].astype(src.dtype)
+
+
+def _gather(src: np.ndarray, sy: np.ndarray, sx: np.ndarray, border_value=0) -> np.ndarray:
+    """``src[sy, sx]``, ``border_value`` (as :func:`_border`) where the tap
+    lies outside ``src``: a tap outside is clamped onto a one-pixel border
+    around it."""
     h, w = src.shape[:2]
-    padded = np.pad(src, [(1, 1), (1, 1)] + [(0, 0)] * (src.ndim - 2)).reshape((h + 2) * (w + 2), *src.shape[2:])
+    padded = np.empty((h + 2, w + 2) + src.shape[2:], src.dtype)
+    padded[...] = _border(border_value, src)
+    padded[1:-1, 1:-1] = src
+    padded = padded.reshape((h + 2) * (w + 2), *src.shape[2:])
     return np.take(padded, (np.clip(sy, -1, h) + 1) * (w + 2) + np.clip(sx, -1, w) + 1, axis=0)
 
 
-def warp_affine(src: np.ndarray, M, nearest: bool = False) -> np.ndarray:
+def warp_affine(src: np.ndarray, M, nearest: bool = False, border_value=0) -> np.ndarray:
     """``cv2.warpAffine(src, M, (w, h), flags=INTER_LINEAR or INTER_NEAREST,
-    borderValue=0)`` of an (H, W) or (H, W, C) image: uint8 for linear,
-    any dtype for nearest (the pipeline warps its labels as float32)."""
+    borderValue=border_value)`` of an (H, W) or (H, W, C) image: uint8 for
+    linear, any dtype for nearest (the pipeline warps its labels as
+    float32)."""
     h, w = src.shape[:2]
     m = [_F32(v) for v in _inverse_affine(M)]
     ys, xs = np.mgrid[:h, :w].astype(_F32)
     sx = _fma32(m[0], xs, m[1] * ys + m[2])
     sy = _fma32(m[3], xs, m[4] * ys + m[5])
     if nearest:
-        return _gather(src, np.rint(sy).astype(np.int64), np.rint(sx).astype(np.int64)).astype(src.dtype)
+        return _gather(src, np.rint(sy).astype(np.int64), np.rint(sx).astype(np.int64),
+                       border_value).astype(src.dtype)
     if src.dtype != np.uint8:
         raise TypeError(f'linear warp_affine takes uint8 images, got {src.dtype}')
     ix, iy = np.floor(sx), np.floor(sy)
@@ -130,8 +173,8 @@ def warp_affine(src: np.ndarray, M, nearest: bool = False) -> np.ndarray:
     ix, iy = ix.astype(np.int64), iy.astype(np.int64)
     if src.ndim == 3:
         a, b = a[..., None], b[..., None]
-    p00, p01 = _gather(src, iy, ix).astype(_F32), _gather(src, iy, ix + 1).astype(_F32)
-    p10, p11 = _gather(src, iy + 1, ix).astype(_F32), _gather(src, iy + 1, ix + 1).astype(_F32)
+    p00, p01 = (_gather(src, iy, ix + d, border_value).astype(_F32) for d in (0, 1))
+    p10, p11 = (_gather(src, iy + 1, ix + d, border_value).astype(_F32) for d in (0, 1))
     v0 = _fma32(a, p01 - p00, p00)
     v1 = _fma32(a, p11 - p10, p10)
     return np.clip(np.rint(_fma32(b, v1 - v0, v0)), 0, 255).astype(np.uint8)
@@ -165,6 +208,101 @@ def gaussian_blur(img: np.ndarray, k: int) -> np.ndarray:
     rows = sum(t * p[:, j:j + w] for j, t in enumerate(taps))
     out = sum(t * rows[i:i + h] for i, t in enumerate(taps))
     return ((out + (1 << 15)) >> 16).astype(np.uint8)
+
+
+def gaussian_kernel(k: int, sigma: float) -> np.ndarray:
+    """``cv2.getGaussianKernel(k, sigma)`` for ``sigma > 0``: float64, summed
+    and scaled in cv2's order."""
+    scale2x = -0.5 / (sigma * sigma)
+    taps = [float(np.exp(scale2x * (i - (k - 1) * 0.5) ** 2)) for i in range(k)]
+    total = 0.
+    for t in taps:
+        total += t
+    total = 1. / total
+    return np.array([t * total for t in taps])
+
+
+_ROW_VECTOR, _COLUMN_VECTOR = 4, 8  # float32 lanes of cv2's row and column filter loops; the rest of a row is scalar
+
+
+def gaussian_blur_f32(src: np.ndarray, k: int, sigma: float) -> np.ndarray:
+    """``cv2.GaussianBlur(src, (k, k), sigma)`` of a float32 (H, W) plane,
+    k odd, ``sigma > 0``."""
+    taps = gaussian_kernel(k, sigma).astype(_F32)
+    r = k // 2
+    h, w = src.shape
+    p = _reflect101(np.asarray(src, _F32), r)
+    fused = unfused = p[:, :w] * taps[0]
+    for j in range(1, k):
+        fused = _fma32_exact(p[:, j:j + w], taps[j], fused)
+        unfused = unfused + p[:, j:j + w] * taps[j]
+    cols = np.arange(w)
+    rows = np.where(cols < w // _ROW_VECTOR * _ROW_VECTOR, fused, unfused)
+    fused = unfused = rows[r:r + h] * taps[r]
+    for j in range(1, r + 1):
+        pair = rows[r + j:r + j + h] + rows[r - j:r - j + h]
+        fused = _fma32_exact(pair, taps[r + j], fused)
+        unfused = unfused + pair * taps[r + j]
+    return np.where(cols < w // _COLUMN_VECTOR * _COLUMN_VECTOR, fused, unfused)
+
+
+def remap_nearest(src: np.ndarray, map_x: np.ndarray, map_y: np.ndarray) -> np.ndarray:
+    """``cv2.remap(src, map_x, map_y, cv2.INTER_NEAREST,
+    borderMode=cv2.BORDER_CONSTANT, borderValue=0)`` with float32 maps."""
+    def coord(m):
+        return np.clip(np.rint(np.asarray(m, _F32)), -32768, 32767).astype(np.int64)
+
+    return _gather(src, coord(map_y), coord(map_x))
+
+
+def get_rotation_matrix_2d(center, angle: float, scale: float = 1.0) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: float64, the
+    centre rounded to float32 as cv2's ``Point2f``."""
+    cx, cy = float(_F32(center[0])), float(_F32(center[1]))
+    angle = angle * (np.pi / 180)
+    alpha, beta = float(np.cos(angle)) * scale, float(np.sin(angle)) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], _F64)
+
+
+def _lu_solve(a: list, b: list) -> list:
+    """cv2's ``LUImpl`` on a square float64 system (lists, solved in place)."""
+    m = len(b)
+    for i in range(m):
+        k = i
+        for j in range(i + 1, m):
+            if abs(a[j][i]) > abs(a[k][i]):
+                k = j
+        if abs(a[k][i]) < np.finfo(_F64).eps * 10:
+            raise np.linalg.LinAlgError('singular system')
+        if k != i:
+            a[i], a[k] = a[k], a[i]
+            b[i], b[k] = b[k], b[i]
+        d = -1 / a[i][i]
+        for j in range(i + 1, m):
+            alpha = a[j][i] * d
+            for c in range(i + 1, m):
+                a[j][c] += alpha * a[i][c]
+            b[j] += alpha * b[i]
+    for i in range(m - 1, -1, -1):
+        s = b[i]
+        for c in range(i + 1, m):
+            s -= a[i][c] * b[c]
+        b[i] = s / a[i][i]
+    return b
+
+
+def get_affine_transform(src_pts, dst_pts) -> np.ndarray:
+    """``cv2.getAffineTransform(src_pts, dst_pts)`` of three float32 point
+    pairs: the 2 x 3 float64 matrix."""
+    src = np.asarray(src_pts, _F32).astype(_F64)
+    dst = np.asarray(dst_pts, _F32).astype(_F64)
+    a, b = [], []
+    for i in range(3):
+        x, y = float(src[i, 0]), float(src[i, 1])
+        a += [[x, y, 1., 0., 0., 0.], [0., 0., 0., x, y, 1.]]
+        b += [float(dst[i, 0]), float(dst[i, 1])]
+    return np.array(_lu_solve(a, b), _F64).reshape(2, 3)
 
 
 def median_blur(img: np.ndarray, k: int) -> np.ndarray:
@@ -345,10 +483,44 @@ def _area_halve(src: np.ndarray, oh: int, ow: int) -> np.ndarray:
     return out.astype(_F32)
 
 
+_COEF_BITS = 11  # cv2's INTER_RESIZE_COEF_BITS
+
+
+def _fixed_taps(n_in: int, n_out: int, clamp: bool):
+    """cv2's fixed-point linear taps along one side of a uint8 resize:
+    (first index, second index, weight of each in 1/2048)."""
+    x = ((np.arange(n_out, dtype=_F64) + 0.5) * (n_in / n_out) - 0.5).astype(_F32)
+    i = np.floor(x).astype(np.int64)
+    t = (x - i.astype(_F32)).astype(_F32)
+    if clamp:
+        t = np.where((i < 0) | (i >= n_in - 1), _F32(0), t)
+        i = np.clip(i, 0, n_in - 1)
+    scale = _F32(1 << _COEF_BITS)
+    w0 = np.rint((_F32(1) - t) * scale).astype(np.int64)
+    w1 = np.rint(t * scale).astype(np.int64)
+    return np.clip(i, 0, n_in - 1), np.clip(i + 1, 0, n_in - 1), w0, w1
+
+
+def resize_linear_u8(src: np.ndarray, size) -> np.ndarray:
+    """``cv2.resize(src, size)`` (``INTER_LINEAR``) of a uint8 (H, W) or
+    (H, W, C) image to ``size = (w, h)``."""
+    if src.dtype != np.uint8:
+        raise TypeError(f'resize_linear_u8 takes uint8 images, got {src.dtype}')
+    (ow, oh), (h, w) = size, src.shape[:2]
+    x0, x1, a0, a1 = _fixed_taps(w, ow, clamp=True)
+    y0, y1, b0, b1 = _fixed_taps(h, oh, clamp=False)
+    extra = (None,) * (src.ndim - 2)
+    s = src.astype(np.int64)
+    rows = s[:, x0] * a0[(slice(None),) + extra] + s[:, x1] * a1[(slice(None),) + extra]
+    b0, b1 = b0[(slice(None), None) + extra], b1[(slice(None), None) + extra]
+    out = (((b0 * (rows[y0] >> 4)) >> 16) + ((b1 * (rows[y1] >> 4)) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
 def resize(src: np.ndarray, f: float = None, size=None) -> np.ndarray:
     """``cv2.resize(src, (0, 0), fx=f, fy=f)`` of a float32 (H, W) or (H, W,
     2) map, or ``cv2.resize(src, size, interpolation=cv2.INTER_NEAREST)`` of
-    an int32 plane to ``size = (w, h)``."""
+    a label plane (uint8, int32 or float32) to ``size = (w, h)``."""
     h, w = src.shape[:2]
     if size is not None:
         ow, oh = size

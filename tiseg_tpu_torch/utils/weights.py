@@ -27,8 +27,9 @@ import torch
 # Sequential, so their conv/bn indices start at 1)
 _VGG16_STAGE_CONVS = (2, 2, 3, 3, 3)
 _NUM_DECODE = 5
-# ResNet50 blocks per stage; HoVer-Net dense units per decoder stage
-_RESNET50_LAYERS = (3, 4, 6, 3)
+# ResNet blocks per stage and convs per block; HoVer-Net dense units per decoder stage
+_RESNET_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
+_RESNET_BLOCK_CONVS = {18: 2, 34: 2, 50: 3, 101: 3}
 _HOVER_DENSE_UNITS = {'u3': 8, 'u2': 4}
 # DCAN's convs per stage and the stages its heads tap; FullNet's dense blocks and layers per block
 _DCAN_STAGE_CONVS, _DCAN_TAP_STAGES = (2, 2, 3, 3, 3), (4, 5, 6)
@@ -168,22 +169,33 @@ def mt_cdnet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]
     return _vgg_decoder_branches(variables, 'dgm')
 
 
-def _resnet50(sd, prefix, params, stats):
-    """ResNet50 / ResNetExt trunk (stem conv bias zero)."""
+def resnet_state_dict(sd, prefix, params, stats, depth: int = 50, stem_bias: bool = False):
+    """A ResNet trunk of ``depth`` 18/34/50/101 (dilated or not: dilation
+    carries no weight) into ``sd`` under ``prefix`` (``''``: a backbone
+    built alone, ``build_backbone``); ``stem_bias`` adds the zero stem conv
+    bias of HoVer-Net's ``ResNetExt``."""
+    dot = f'{prefix}.' if prefix else ''
     kernel = np.asarray(params['stem_conv']['kernel'])
-    sd[f'{prefix}.conv1.weight'] = _conv(kernel)
-    sd[f'{prefix}.conv1.bias'] = torch.zeros(kernel.shape[-1])
-    _bn(sd, f'{prefix}.bn1', params['stem_bn'], stats['stem_bn'])
-    for li, n_blocks in enumerate(_RESNET50_LAYERS, start=1):
+    sd[f'{dot}conv1.weight'] = _conv(kernel)
+    if stem_bias:
+        sd[f'{dot}conv1.bias'] = torch.zeros(kernel.shape[-1])
+    _bn(sd, f'{dot}bn1', params['stem_bn'], stats['stem_bn'])
+    for li, n_blocks in enumerate(_RESNET_LAYERS[depth], start=1):
         for b in range(n_blocks):
             fx = f'layer{li}_block{b}'
-            pre = f'{prefix}.layer{li}.{b}'
-            for c in (1, 2, 3):
+            pre = f'{dot}layer{li}.{b}'
+            for c in range(1, _RESNET_BLOCK_CONVS[depth] + 1):
                 sd[f'{pre}.conv{c}.weight'] = _conv(params[fx][f'conv{c}']['kernel'])
                 _bn(sd, f'{pre}.bn{c}', params[fx][f'bn{c}'], stats[fx][f'bn{c}'])
             if 'downsample' in params[fx]:
                 sd[f'{pre}.downsample.0.weight'] = _conv(params[fx]['downsample']['kernel'])
                 _bn(sd, f'{pre}.downsample.1', params[fx]['bn_down'], stats[fx]['bn_down'])
+    return sd
+
+
+def _resnet50(sd, prefix, params, stats):
+    """ResNetExt's trunk: the depth-50 case with its zero stem conv bias."""
+    return resnet_state_dict(sd, prefix, params, stats, depth=50, stem_bias=True)
 
 
 def hovernet_state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
