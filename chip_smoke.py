@@ -305,6 +305,30 @@
    stage within 1e-4 of its largest magnitude); tools/get_inf_time.py and
    tools/get_flops.py on the UNet recipe at 8 x 256^2 (get_flops at 1 x
    256^2), their printed lines.
+12. The compute dtype (bf16_path, after the last modules): the UNet / MoNuSeg
+   cell of phase 3 (its weights, its 1000^2 image) with dtype=torch.bfloat16
+   through InferenceRunner, on the executor and with TISEG_FUSED_TAIL=1, each
+   run's launches read alone (B1 once, strip route; B10 once per network
+   forward, in its bf16 mode), beside the float32 executor: B1's instances
+   bit for bit its plain version on each run's plane, B10's first main-path
+   launch within its bf16 tolerance of its plain version, timed with its
+   bound at the bf16 rate and the unfused bf16 tail (cuDNN) as its library
+   time; the share of sem_pred equal to the float32 route's (at least 97%),
+   instances, e2e ms and peak memory. Then UNet (8 x 256^2), HoVer-Net
+   (8 x 256^2) and DIST (16 x 256^2) from their MoNuSeg recipes on synthetic
+   batches in bf16, 3 + 10 steps each: ms per step (host clock), the host's
+   enqueue time and the card's span of each step (CUDA events), images/s,
+   peak GiB, finite losses, parameters, optimizer state and BN statistics
+   float32, beside the float32 steps that phases 3b, 3f and 3h timed at the
+   same batch sizes. Then one eval batch of every other segmentor (2 x 256^2,
+   the MicroNets' 252^2) in bf16 against its float32 heads, each head within
+   6% of the float32 head's largest value. In bf16 the BN-fed convolutions
+   sum bf16 products in float32 (cuDNN's TF32 mode, whose operands hold bf16
+   values exactly), as the JAX package's program does: one such convolution
+   (3x3, 128 -> 128 at 8 x 128^2) is held to a float64 convolution of the
+   same bf16 operands, within 2^-12 of its largest value (an algorithm that
+   transformed and rounded its operands would show there), and timed beside
+   the plain bf16 and the float32 convolution.
 
 TF32 is off for convolutions and matrix products in every comparison.
 Prints, before its last two lines, one JSON object with each kernel's
@@ -999,25 +1023,26 @@ def last_stage(seg):
 
 
 def unfused_tail(fp, x, z):
-    """The executor's own last stage on the same inputs: four cuDNN
-    convolutions, a matrix product and the depth-to-space copy."""
+    """The executor's own last stage on the same inputs, in their dtype: four
+    cuDNN convolutions, a matrix product and the depth-to-space copy."""
     from tiseg_tpu_torch.models.heads.fast_decode import PhaseSkip, apply_fast_unet_head
-    return apply_fast_unet_head(fp, x, [PhaseSkip(z, z.shape[-1] // 4)])
+    return apply_fast_unet_head(fp, x, [PhaseSkip(z, z.shape[-1] // 4)], dtype=x.dtype)
 
 
-def time_fused_decode(label, x, z, weights, fp, reps=25):
-    """Kernel, plain and unfused-tail ms of B10 on (x, z), with its bound."""
+def time_fused_decode(label, x, z, weights, fp, reps=25, dtype=torch.float32):
+    """Kernel, plain and unfused-tail ms of B10 on (x, z) in ``dtype``, with its bound."""
     from tiseg_tpu_torch.ops.fused_decode import fused_decode0_cls, fused_decode0_cls_plain
     os.environ.pop('TISEG_FUSED_TAIL', None)  # the yardstick is the unfused tail
     with torch.inference_mode():
-        out = fused_decode0_cls(x, z, *weights)
-        k_ms = cuda_ms(lambda: fused_decode0_cls(x, z, *weights), reps=reps)
-        p_ms = cuda_ms(lambda: fused_decode0_cls_plain(x, z, *weights), reps=3, warmup=1)
+        out = fused_decode0_cls(x, z, *weights, dtype=dtype)
+        k_ms = cuda_ms(lambda: fused_decode0_cls(x, z, *weights, dtype=dtype), reps=reps)
+        p_ms = cuda_ms(lambda: fused_decode0_cls_plain(x, z, *weights, dtype=dtype), reps=3, warmup=1)
         lib_ms = cuda_ms(lambda: unfused_tail(fp, x, z), reps=reps)
     b_ms, b_by, fma_ms = fused_decode_bound(x, z, out, weights[0].shape[-1] // 4, weights[2].shape[-1] // 4)
-    print(f'fused_decode0_cls {label} x {tuple(x.shape)} z {tuple(z.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms, '
-          f'unfused tail (4 cuDNN convolutions + matmul + d2s) {lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}; '
-          f'{fma_ms * 1e3:.2f} us at the 67 TFLOP/s float32 rate)', flush=True)
+    print(f'fused_decode0_cls {label} x {tuple(x.shape)} z {tuple(z.shape)} {str(dtype).split(".")[-1]}: kernel '
+          f'{k_ms:.4f} ms, plain {p_ms:.2f} ms, unfused tail (4 cuDNN convolutions + matmul + d2s, {x.dtype}) '
+          f'{lib_ms:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}; {fma_ms * 1e3:.2f} us at the 67 TFLOP/s float32 '
+          f'rate)', flush=True)
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, bound_ms_f32_fma=fma_ms)
 
 
@@ -1069,7 +1094,8 @@ UNET_HW = 1000  # the MoNuSeg tiles the UNet recipe evaluates
 def unet_recipe_seg(args):
     """UNet from the MoNuSeg recipe (device_postprocess, ``args.patch_batch``) with seeded weights, and one
     1000^2 image; the classifier bias puts ~40% of view 0's pixels on the foreground side, so that the
-    random-weight net gives the post-processor a plane with objects."""
+    random-weight net gives the post-processor a plane with objects. Float32; ``bf16_path`` copies its
+    weights into a bfloat16 twin."""
     from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
     from tiseg_tpu_torch.models import build_segmentor
     from tiseg_tpu_torch.utils import Config
@@ -1426,6 +1452,8 @@ def unet_train_path(args):
           f'(bound {MAP_TOL}), {moved:.3e} from the executor before training; B1 launches {launches[0]} '
           f'(cluster route), foreground {float((sem_pred > 0).mean()):.4f}, {n_inst} instances, equal to the host '
           f"pipeline's partition", flush=True)
+    return {'config': UNET_CONFIG, 'batch': TRAIN_BATCH, 'ms_per_step': step_ms, 'ms_min': min(times),
+            'ms_max': max(times), 'images_per_s': TRAIN_BATCH / step_ms * 1e3, 'peak_gib': peak_gib}
 
 
 # -- phase 3c: UNet-S2D on the committed trained weights --------------------------------
@@ -2389,6 +2417,7 @@ def family_train_path(args):
         del seg, state, step, batch
         torch.cuda.empty_cache()
     print(json.dumps({'family_train': out}), flush=True)
+    return out
 
 
 def check_label_maps_on(windows):
@@ -2548,6 +2577,7 @@ def zoo_train_path(args):
         del seg, state, step, batch
         torch.cuda.empty_cache()
     print(json.dumps({'zoo_train': out}), flush=True)
+    return out
 
 
 def nucleus_share_(seg, imgs, conv) -> None:
@@ -4653,6 +4683,356 @@ def last_modules_path(args) -> dict:
                                        'params': n_params, 'gflops_256': flops / 1e9}}), flush=True)
     return {'inference_cli_launches': launches['launches']}
 
+# -- phase 12: the compute dtype, bfloat16 eval and training ------------------------------------
+# a bf16 head of a net against its float32 head on the same weights and input, in units of the float32 head's
+# largest value: tests/test_torch_bf16_zoo.py's bound (2.8 % seen on the CPU at 64^2)
+BF16_EVAL_BOUND = 0.06
+# the share of the bf16 UNet's sem_pred equal to the float32 executor's on the 1000^2 image: the seeded net's bias
+# sits at the 60th percentile of its logit margin, so many pixels are near-ties (98.76-98.77% seen in the first run)
+BF16_SEM_PRED_SHARE = 0.97
+BF16_TRAIN = (  # (name, MoNuSeg recipe, batch of 256^2): the recipes' samples_per_gpu, as their float32 phases
+    ('UNet', UNET_CONFIG, TRAIN_BATCH),
+    ('HoverNet', ZOO_CONFIG['HoverNet'], 8),
+    ('DIST', DIST_MONUSEG_CONFIG, 16),
+)
+# a BN-fed convolution of the bf16 step (models/nn.py:_ConvIntoNorm): its float32 sums against a float64
+# convolution of the same bf16 operands, in units of the largest output; a bf16 step is 2^-8 of a value
+BF16_DIAG_PAIRS = 4  # bf16 steps timed with the garbage collector on and off, in turns
+BF16_DIAG_TOP = 4  # the host operators listed from a profiled bf16 step
+BF16_CONV_PROBE = (8, 128, 128)  # batch, channels in and out, side: UNet's second stage at 256^2 crops
+BF16_CONV_TOL = 2.0 ** -12
+BF16_EVAL_NETS = ('CUNet', 'CDNet', 'MultiTaskUNet', 'MultiTaskCUNet', 'MultiTaskCDNet', 'HoverNet', 'DCAN',
+                  'FullNet', 'UNetS2D', 'DIST', 'MicroNet', 'CMicroNet')
+BF16_EVAL_IMAGES = 2
+
+
+def bf16_train_batch(name: str, seed: int, n: int, hw: int) -> dict:
+    """``n`` synthetic nuclei images at MoNuSeg density with the labels ``name``'s loss reads: UNet's of
+    ``train_batch``, HoVer-Net's ``sem_gt`` and HVLabelMake's ``hv_gt``, DIST's ``sem_gt`` of BoundLabelMake
+    (edge 2) and DistanceLabelMake's ``dist_gt`` (its recipe's label makers), on the card."""
+    from tiseg_tpu_torch.datasets.ops import BoundLabelMake, DistanceLabelMake, HVLabelMake
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
+    if name == 'UNet':
+        return train_batch(seed, n, hw, 'cuda')
+    imgs, labels = [], collections.defaultdict(list)
+    for i in range(n):
+        img, _, inst = make_nuclei(seed + i, hw, nuclei_density(hw))
+        data = {'inst_gt': inst, 'sem_gt': (inst > 0).astype(np.int32), 'seg_fields': []}
+        if name == 'HoverNet':
+            labels['sem_gt'].append(data['sem_gt'])
+            labels['hv_gt'].append(HVLabelMake()(data)['hv_gt'].astype(np.float32))
+        else:
+            data = DistanceLabelMake(inst_norm=False)(BoundLabelMake(edge_id=2, selem_radius=(2, 2))(data))
+            labels['sem_gt'].append(data['sem_gt'].astype(np.int32))
+            labels['dist_gt'].append(data['dist_gt'].astype(np.float32))
+        imgs.append(img)
+    return {'data': {'img': torch.from_numpy(np.stack(imgs)).cuda()},
+            'label': {k: torch.from_numpy(np.stack(v)).cuda() for k, v in labels.items()}}
+
+
+def bf16_unet_eval(args) -> dict:
+    """The UNet / MoNuSeg cell of ``unet_main_path`` (its weights, its 1000^2 image, split 256/40 windows x 8
+    views, device_postprocess) with dtype=torch.bfloat16 through InferenceRunner: the executor, then the executor
+    with TISEG_FUSED_TAIL=1 (B10 in its bf16 mode), each with the counts read from that run alone; B1 bit for
+    bit against its plain version on the bf16 run's plane, B10's first launch within its bf16 tolerance of its
+    plain version on the same inputs, timed with its bound and the unfused bf16 tail; the share of sem_pred
+    equal to the float32 executor's, instances, e2e ms and peak memory beside the float32 executor's."""
+    from tiseg_tpu_torch.apis import InferenceRunner
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.ops import fused_decode
+    from tiseg_tpu_torch.ops.fused_decode import fused_decode0_cls, fused_decode0_cls_plain
+    from tiseg_tpu_torch.ops.instance_pp import instance_postprocess_plain
+    from tiseg_tpu_torch.utils import Config
+
+    hw = UNET_HW
+    seg32, img = unet_recipe_seg(args)
+    cfg = Config.fromfile(os.path.join(ROOT, UNET_CONFIG))
+    cfg.model.test_cfg = dict(seg32.test_cfg)
+    seg16 = build_segmentor(cfg.model, device='cuda', seed=args.seed, dtype=torch.bfloat16)
+    seg16.net.load_state_dict(seg32.net.state_dict())
+    counters = {**b1_counters(), 'fused_decode0_cls': (fused_decode0_cls, 'launches')}
+    captured = {}
+    launch_fused = fused_decode._launch_cuda
+
+    def capturing_launch(*call_args):
+        captured.setdefault('fused_args', call_args)
+        return launch_fused(*call_args)
+
+    runs = {}
+    for name, seg, fused_tail in (('float32 executor', seg32, False), ('bf16 executor', seg16, False),
+                                  ('bf16 executor + fused tail', seg16, True)):
+        runner = InferenceRunner(seg)
+        device_pp = seg._device_instance_pp
+
+        def capturing_pp(sem_pred, pp=device_pp):
+            captured['sem_pred'] = sem_pred
+            return pp(sem_pred)
+
+        os.environ['TISEG_FUSED_TAIL'] = '1' if fused_tail else '0'
+        try:
+            runner.dispatch(img, (hw, hw))  # warm-up: the card's first convolutions of these shapes
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            captured.clear()
+            seg._device_instance_pp, fused_decode._launch_cuda = capturing_pp, capturing_launch
+            zero_counts(counters)
+            out = runner.dispatch(img, (hw, hw))
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+            seg._device_instance_pp, fused_decode._launch_cuda = device_pp, launch_fused
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            e2e_ms = wall_ms(lambda: runner.dispatch(img, (hw, hw)), reps=5)
+        finally:
+            seg._device_instance_pp, fused_decode._launch_cuda = device_pp, launch_fused
+            os.environ.pop('TISEG_FUSED_TAIL', None)
+        n_forwards = -(-200 // args.patch_batch)
+        want = dict(B1_STRIP_LAUNCHES, fused_decode0_cls=n_forwards if fused_tail else 0)
+        if launches != want:
+            raise AssertionError(f'UNet {name}: launches {launches}, expected {want}')
+        sem_pred, sem_out, inst_out = captured['sem_pred'], out['sem_pred'], out['inst_pred']
+        ps, pi = instance_postprocess_plain(sem_pred)
+        if not (torch.equal(sem_out, ps) and torch.equal(inst_out, pi)):
+            raise AssertionError(f'UNet {name}: B1 differs from its plain version on the main-path plane')
+        n_inst = len(torch.unique(inst_out)) - 1
+        fg = float((sem_pred > 0).float().mean())
+        if not (0.1 <= fg <= 0.5 and n_inst > 0):
+            raise AssertionError(f'UNet {name}: degenerate plane, foreground {fg:.3f}, {n_inst} instances')
+        runs[name] = dict(sem_pred=sem_pred, launches=launches, instances=n_inst, foreground=fg, e2e_ms=e2e_ms,
+                          peak_gib=peak_gib, fused_args=captured.get('fused_args'))
+        print(f'bf16 path, UNet {name}: launches {launches}, foreground {fg:.4f}, {n_inst} instances, B1 equal to its '
+              f'plain version; e2e {e2e_ms:.2f} ms per {hw}^2 image (median of 5, patch_batch {args.patch_batch}), '
+              f'peak memory {peak_gib:.3f} GiB', flush=True)
+    ref = runs['float32 executor']['sem_pred']
+    for name in ('bf16 executor', 'bf16 executor + fused tail'):
+        runs[name]['sem_pred_equal_to_float32'] = float((runs[name]['sem_pred'] == ref).float().mean())
+    if not all(runs[n]['sem_pred_equal_to_float32'] >= BF16_SEM_PRED_SHARE
+               for n in ('bf16 executor', 'bf16 executor + fused tail')):
+        raise AssertionError(f'bf16 path: sem_pred equal to the float32 route on '
+                             f'{[runs[n]["sem_pred_equal_to_float32"] for n in runs if "bf16" in n]} of the pixels')
+
+    # B10 in bf16 on the first patch batch of the main path
+    x, z, *weights, dtype = runs['bf16 executor + fused tail']['fused_args']
+    if dtype != torch.bfloat16 or x.dtype != torch.bfloat16:
+        raise AssertionError(f'B10 on the bf16 path ran in {dtype} on {x.dtype} inputs')
+    with torch.inference_mode():
+        got = fused_decode0_cls(x, z, *weights, dtype=dtype)
+        torch.cuda.synchronize()
+        want = fused_decode0_cls_plain(x, z, *weights, dtype=dtype)
+    top = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    tol = max(0.15, BF16_STEPS * 2.0 ** -8 * top)
+    if err > tol:
+        raise AssertionError(f'B10 bf16 on the main path: max |kernel - plain| {err:.3e} > {tol:.3e}')
+    print(f'bf16 path, B10 on the first main-path patch batch: max |kernel - plain| {err:.3e} (tolerance {tol:.3e}, '
+          f'largest logit {top:.3f})', flush=True)
+    _, fp = last_stage(seg16)
+    b10 = dict(launches=runs['bf16 executor + fused tail']['launches']['fused_decode0_cls'], max_abs_err=err,
+               **time_fused_decode('UNet bf16 main path', x, z, weights, fp, reps=10, dtype=dtype))
+    b1 = runs['bf16 executor + fused tail']['launches']['launches'] + runs['bf16 executor']['launches']['launches']
+    summary = {n: {k: v for k, v in r.items() if k not in ('sem_pred', 'fused_args')} for n, r in runs.items()}
+    del seg32, seg16, runs, captured, x, z, weights
+    return {'unet_eval': summary, 'b10': b10, 'b1_launches': b1}
+
+
+def bf16_train_row(args, name: str, config: str, n: int, dtype: torch.dtype) -> dict:
+    """``name`` from its MoNuSeg recipe in ``dtype`` on a synthetic batch of ``n`` x 256^2 through
+    build_train_state and make_train_step: TRAIN_WARMUP + TRAIN_TIMED steps, each timed on the host clock (to
+    its synchronize) with the host's enqueue time (to the step's return) and the card's span (CUDA events
+    around the step); ms per step, images/s, peak GiB; the losses finite, the parameters, optimizer moments and
+    BN statistics float32 after the steps."""
+    from tiseg_tpu_torch.apis import build_train_state
+    from tiseg_tpu_torch.engine import make_train_step
+    from tiseg_tpu_torch.models import build_segmentor
+    from tiseg_tpu_torch.utils import Config
+    cfg = Config.fromfile(os.path.join(ROOT, config))
+    batch = bf16_train_batch(name, args.seed + 23000, n, TRAIN_HW)
+    seg = build_segmentor(cfg.model, device='cuda', seed=args.seed, dtype=dtype)
+    state = build_train_state(seg, cfg, iters_per_epoch=TRAIN_ITERS_PER_EPOCH, seed=args.seed)
+    step = make_train_step(seg)
+    for _ in range(TRAIN_WARMUP):
+        state, logs = step(state, batch)
+    first = float(logs['loss'])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, enqueue, spans = [], [], []
+    for _ in range(TRAIN_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, logs = step(state, batch)
+        end.record()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        spans.append(start.elapsed_time(end))
+    last, ms = float(logs['loss']), statistics.median(times)
+    floats = [t for t in (*seg.net.parameters(), *seg.net.buffers(),
+                          *(v for s in state.tx.state.values() for v in s.values() if torch.is_tensor(v)))
+              if t.is_floating_point()]
+    if not (np.isfinite(first) and np.isfinite(last) and all(t.dtype == torch.float32 for t in floats)):
+        raise AssertionError(f'{name} {dtype} train: losses {first} {last}, '
+                             f'{sorted({str(t.dtype) for t in floats})} state')
+    row = dict(config=config, batch=n, ms_per_step=ms, ms_min=min(times), ms_max=max(times),
+               enqueue_ms=statistics.median(enqueue), device_span_ms=statistics.median(spans),
+               images_per_s=n / ms * 1e3, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, loss_first=first,
+               loss_last=last, steps=state.step)
+    if dtype == torch.bfloat16:
+        row.update(step_diagnosis(step, state, batch))
+    del seg, state, step, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def step_diagnosis(step, state, batch) -> dict:
+    """Where a short step's time goes, after its timed steps: the Python heap's objects, BF16_DIAG_PAIRS pairs of
+    steps with the garbage collector on and off in turns (after one gc.collect), the caching allocator's
+    cudaMalloc calls over them, one step under torch.profiler tracing the card (its kernel time) and one tracing
+    the host (its self time summed over the operators, and the BF16_DIAG_TOP operators that took most of it)."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+    gc.collect()
+    mallocs = torch.cuda.memory_stats().get('num_device_alloc', 0)
+    times = {True: [], False: []}
+    for _ in range(BF16_DIAG_PAIRS):
+        for enabled in (True, False):
+            if not enabled:
+                gc.disable()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+                times[enabled].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                gc.enable()
+    mallocs = torch.cuda.memory_stats().get('num_device_alloc', 0) - mallocs
+    profiled = {}
+    for activity in (ProfilerActivity.CUDA, ProfilerActivity.CPU):  # apart: tracing the host slows the card's work
+        with profile(activities=[activity]) as prof:
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+        profiled[activity] = prof.key_averages()
+    kernel_us = sum(getattr(e, 'self_device_time_total', 0) for e in profiled[ProfilerActivity.CUDA])
+    host = sorted(((e.self_cpu_time_total, e.key, e.count) for e in profiled[ProfilerActivity.CPU]), reverse=True)
+    return dict(heap_objects=len(gc.get_objects()), gc_on_ms=statistics.median(times[True]),
+                gc_off_ms=statistics.median(times[False]), cuda_mallocs=mallocs, kernel_ms=kernel_us / 1e3,
+                host_ops_ms=sum(t for t, _, _ in host) / 1e3,
+                top_host_ops=[(name, round(t / 1e3, 3), n) for t, name, n in host[:BF16_DIAG_TOP]])
+
+
+def bf16_train(args, float32_steps: dict) -> dict:
+    """UNet, HoVer-Net and DIST from their MoNuSeg recipes in bfloat16 (bf16_train_row), each beside the
+    float32 step of the same recipe and batch size that an earlier phase of this run timed
+    (``float32_steps``: unet_train_path, zoo_train_path, family_train_path), with step_diagnosis: the bf16
+    steps are short enough for the host to set their pace."""
+    out = {}
+    for name, config, n in BF16_TRAIN:
+        f32 = float32_steps[name]
+        if f32['batch'] != n:
+            raise AssertionError(f'{name}: the float32 phase timed batches of {f32["batch"]}, this phase {n}')
+        row = bf16_train_row(args, name, config, n, torch.bfloat16)
+        out[name] = {'bfloat16': row, 'float32': {k: f32[k] for k in ('ms_per_step', 'images_per_s', 'peak_gib')},
+                     'float32_over_bfloat16': f32['ms_per_step'] / row['ms_per_step']}
+        print(f'bf16 path, {name} train bfloat16 ({config}, batch {n} x {TRAIN_HW}^2): {row["ms_per_step"]:.2f} ms '
+              f'per step (median of {TRAIN_TIMED} after {TRAIN_WARMUP} warm-ups; min {row["ms_min"]:.2f}, max '
+              f'{row["ms_max"]:.2f}; the host returns from the step after {row["enqueue_ms"]:.2f} ms, the card\'s '
+              f'span {row["device_span_ms"]:.2f} ms), {row["images_per_s"]:.1f} images/s, peak memory '
+              f'{row["peak_gib"]:.3f} GiB, loss {row["loss_first"]:.5f} -> {row["loss_last"]:.5f} (steps '
+              f'{row["steps"]}); float32 in its phase {f32["ms_per_step"]:.2f} ms, {f32["images_per_s"]:.1f} '
+              f'images/s, {f32["peak_gib"]:.3f} GiB: {out[name]["float32_over_bfloat16"]:.2f} x; then, with the '
+              f'garbage collector on and off in turns, {row["gc_on_ms"]:.2f} and {row["gc_off_ms"]:.2f} ms per '
+              f'step ({row["heap_objects"]} objects on the heap, {row["cuda_mallocs"]} cudaMalloc calls over '
+              f'those steps); profiled steps: the card\'s kernels {row["kernel_ms"]:.2f} ms, the host\'s '
+              f'operators {row["host_ops_ms"]:.2f} ms, most of it in {row["top_host_ops"]}', flush=True)
+    return out
+
+
+def bf16_conv_probe(args) -> dict:
+    """One BN-fed convolution of the bf16 train step (models/nn.py:_ConvIntoNorm, 3x3 of BF16_CONV_PROBE) on
+    the card: its float32 output against a float64 convolution of the same bf16 operands (the largest gap in
+    units of the largest output, and the share of outputs equal to the float64 sum rounded to float32), beside
+    the float32 convolution with TF32 off on the same operands; each timed, with the plain bf16 convolution
+    (rounded output). Fails if the TF32 route's gap exceeds BF16_CONV_TOL."""
+    import torch.nn.functional as F
+
+    from tiseg_tpu_torch.models.nn import Conv2d, set_compute_dtype
+    b, ch, hw = BF16_CONV_PROBE
+    g = torch.Generator(device='cuda').manual_seed(args.seed + 25000)
+    conv = Conv2d(ch, ch, 3, padding=1, bias=False, device='cuda', into_norm=True).requires_grad_(False)
+    conv.weight.copy_(torch.randn(conv.weight.shape, device='cuda', generator=g) * (2.0 / (9 * ch)) ** 0.5)
+    set_compute_dtype(conv, torch.bfloat16)
+    x = torch.randn(b, ch, hw, hw, device='cuda', generator=g).to(torch.bfloat16)
+    w = conv.weight.to(torch.bfloat16)
+    routes = {'tf32_into_norm': lambda: conv(x), 'float32': lambda: F.conv2d(x.float(), w.float(), padding=1),
+              'bf16': lambda: F.conv2d(x, w, padding=1)}
+    with torch.no_grad():
+        ref = F.conv2d(x.double(), w.double(), padding=1)
+        scale = float(ref.abs().max())
+        row = {}
+        for name, fn in routes.items():
+            y = fn()
+            if name != 'bf16' and y.dtype != torch.float32:
+                raise AssertionError(f'bf16 conv probe: {name} gave {y.dtype}')
+            row[name] = dict(max_gap=float((y.double() - ref).abs().max()) / scale,
+                             equal_share=float((y.float() == ref.float()).float().mean()), ms=wall_ms(fn, reps=10))
+    if not row['tf32_into_norm']['max_gap'] <= BF16_CONV_TOL:
+        raise AssertionError(f'bf16 conv probe: the TF32 route is {row["tf32_into_norm"]["max_gap"]:.3e} of the '
+                             f'largest output from the float64 sums of the same operands (tolerance {BF16_CONV_TOL})')
+    print(f'bf16 path, a BN-fed conv (3x3 {ch} -> {ch}, {b} x {hw}^2, bf16 operands) against float64 sums of the '
+          f'same operands, gaps in units of the largest output: {json.dumps(row)}', flush=True)
+    return row
+
+
+def bf16_eval_nets(args) -> dict:
+    """One eval batch (2 x 256^2; the MicroNets' 252^2) of every other segmentor in bfloat16 against the same
+    seeded net in float32 on the card: each head within BF16_EVAL_BOUND of the float32 head's largest value."""
+    from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
+    from tiseg_tpu_torch.models import build_segmentor
+    out = {}
+    for name in BF16_EVAL_NETS:
+        hw = 252 if 'Micro' in name else TRAIN_HW
+        img = torch.from_numpy(np.stack([make_nuclei(args.seed + 24000 + i, hw, nuclei_density(hw))[0]
+                                         for i in range(BF16_EVAL_IMAGES)])).cuda()
+        heads = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            seg = build_segmentor(dict(type=name, num_classes=2, test_cfg=dict(mode='whole')), device='cuda',
+                                  seed=args.seed, dtype=dtype)
+            heads[dtype] = {k: v.float() for k, v in seg.forward_heads(img).items()}
+            del seg
+        errs = {k: float((heads[torch.bfloat16][k] - v).abs().max() / v.abs().max())
+                for k, v in heads[torch.float32].items()}
+        if not all(np.isfinite(e) and e <= BF16_EVAL_BOUND for e in errs.values()):
+            raise AssertionError(f'bf16 path, {name} eval: heads against float32 {errs} (bound {BF16_EVAL_BOUND})')
+        out[name] = errs
+        torch.cuda.empty_cache()
+    print(f'bf16 path, one eval batch of each other net against its float32 heads ({BF16_EVAL_IMAGES} x 256^2, the '
+          f'MicroNets\' 252^2; bound {BF16_EVAL_BOUND} of the float32 head\'s largest value): {json.dumps(out)}',
+          flush=True)
+    return out
+
+
+def bf16_path(args, float32_steps: dict) -> dict:
+    """Phase 12 of the module docstring; ``float32_steps``: the float32 train steps of UNet, HoVer-Net and DIST
+    from their phases of this run. Returns the kernels line's bf16 keys of B1 and B10."""
+    card = card_line()
+    t0 = time.perf_counter()
+    ev = bf16_unet_eval(args)
+    t1 = time.perf_counter()
+    probe = bf16_conv_probe(args)
+    train = bf16_train(args, float32_steps)
+    t2 = time.perf_counter()
+    nets = bf16_eval_nets(args)
+    print(json.dumps({'bf16': {'card': card, 'unet_eval': ev['unet_eval'], 'conv_probe': probe, 'train': train,
+                               'eval_nets': nets, 'b10': ev['b10']}}), flush=True)
+    print(f'bf16 path ({card}): UNet eval {t1 - t0:.1f} s, train {t2 - t1:.1f} s, other nets '
+          f'{time.perf_counter() - t2:.1f} s', flush=True)
+    b10 = ev['b10']
+    return {'instance_postprocess_sweep': {'bf16_launches': ev['b1_launches']},
+            'fused_decode0_cls': {'bf16_launches': b10['launches'], 'bf16_max_abs_err': b10['max_abs_err'],
+                                  **{f'bf16_{k}': b10[k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
+                                                                    'library_ms')}}}
+
 
 SOURCES = {
     'instance_postprocess_sweep': ('tiseg_tpu_torch/csrc/instance_pp.cu', 'tiseg_tpu/ops/pallas_sweep.py:478'),
@@ -4773,7 +5153,7 @@ def main(argv=None) -> int:
     stats = unet_main_path(args)
     print(f'UNet phase: {time.perf_counter() - t0:.1f} s', flush=True)
     t0 = time.perf_counter()
-    unet_train_path(args)
+    float32_steps = {'UNet': unet_train_path(args)}
     print(f'UNet train phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4789,7 +5169,7 @@ def main(argv=None) -> int:
     print(f'train CLI phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    family_train_path(args)
+    float32_steps['DIST'] = family_train_path(args)['DIST']
     print(f'family train phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4797,7 +5177,7 @@ def main(argv=None) -> int:
     print(f'CDNet CLI phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    zoo_train_path(args)
+    float32_steps['HoverNet'] = zoo_train_path(args)['HoverNet']
     print(f'zoo train phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4850,6 +5230,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     stats['instance_postprocess_sweep'].update(last_modules_path(args))
     print(f'last modules phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for name, row in bf16_path(args, float32_steps).items():
+        stats[name].update(row)
+    print(f'bf16 phase: {time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.empty_cache()
 
     # -- phases 7 and 8 ------------------------------------------------------------

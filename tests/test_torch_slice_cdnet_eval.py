@@ -34,7 +34,7 @@ from tiseg_tpu_torch.datasets.synthetic import make_nuclei, nuclei_density
 from tiseg_tpu_torch.models import build_segmentor
 from tiseg_tpu_torch.ops.sliding import reverse_tta_transform, tta_forward_views, tta_views
 from tiseg_tpu_torch.utils.weights import state_dict_from_flax
-from torch_port_utils import flatten_variables, random_variables, standardize_head
+from torch_port_utils import flatten_variables, jax_fused_and_postprocessed, random_variables, standardize_head
 
 HW = 96
 NUM_CLASSES = 7
@@ -64,11 +64,7 @@ def slice_run():
 
     jseg = build_jax_segmentor(dict(MODEL, train_cfg=dict(), test_cfg=TEST_CFG))
     jvars = jax.tree_util.tree_map(jnp.asarray, variables)
-
-    def both(v, im):
-        return jseg.inference(v, im), jseg.inference_and_postprocess(v, im)
-
-    jax_fused, jax_out = jax.tree_util.tree_map(np.asarray, jax.jit(both)(jvars, jnp.asarray(img)))
+    jax_fused, jax_out = jax_fused_and_postprocessed(jseg, jvars, img)
     return port, img, port_fused, port_out, jax_fused, jax_out
 
 

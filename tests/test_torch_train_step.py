@@ -29,7 +29,7 @@ from tiseg_tpu_torch.datasets.synthetic import make_nuclei, multiclass_nuclei, n
 from tiseg_tpu_torch.engine import make_eval_step, make_train_step, trainable_parameters
 from tiseg_tpu_torch.models.segmentors import UNet
 from tiseg_tpu_torch.utils import Config, weights
-from torch_port_utils import random_unet_variables
+from torch_port_utils import random_unet_variables, shared_across_workers
 
 HW, BATCH, STEPS = 64, 2, 5
 OPTIMIZER = dict(type='Adam', lr=0.0001, weight_decay=0.0005)  # the main recipe's, with a fixed LR
@@ -77,19 +77,22 @@ def _vgg_conv_biases(net):
 def jax_float64_gradients():
     """The JAX package's float64 gradients, logs and BN statistics of one
     train forward on ``_batch(100)`` from the seed-11 weights: the reference
-    of the two gradient tests, computed once."""
-    variables = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), random_unet_variables(seed=11))
-    with jax.enable_x64(True):
-        jseg = JaxUNet(2, dtype=jnp.float64)
+    of the two gradient tests, computed once per test run."""
+    def compute():
+        variables = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), random_unet_variables(seed=11))
+        with jax.enable_x64(True):
+            jseg = JaxUNet(2, dtype=jnp.float64)
 
-        def loss_fn(params, stats, b):
-            total, (logs, new_state) = jseg.loss({'params': params, 'batch_stats': stats}, b, train=True)
-            return total, (logs, new_state)
+            def loss_fn(params, stats, b):
+                total, (logs, new_state) = jseg.loss({'params': params, 'batch_stats': stats}, b, train=True)
+                return total, (logs, new_state)
 
-        v = jax.tree_util.tree_map(jnp.asarray, variables)
-        grads, (logs, new_state) = jax.jit(jax.grad(loss_fn, has_aux=True))(v['params'], v['batch_stats'],
-                                                                            _jax_batch(_batch(100)))
-        return jax.tree_util.tree_map(np.asarray, (grads, logs, new_state))
+            v = jax.tree_util.tree_map(jnp.asarray, variables)
+            grads, (logs, new_state) = jax.jit(jax.grad(loss_fn, has_aux=True))(v['params'], v['batch_stats'],
+                                                                                _jax_batch(_batch(100)))
+            return jax.tree_util.tree_map(np.asarray, (grads, logs, new_state))
+
+    return shared_across_workers(b'test_torch_train_step.jax_float64_gradients', compute)
 
 
 def test_loss_logs_and_gradients_match_jax(start, jax_float64_gradients):

@@ -3,7 +3,8 @@
 
 A train-step case is a dict: ``model`` (``build_segmentor`` config),
 ``state`` (the net's state dict), ``batches`` (global numpy batches, one per
-step), ``optimizer``, ``dtype`` and ``local_loss`` (True: every rank's loss
+step), ``optimizer``, ``dtype`` (of the parameters), ``compute_dtype`` (the
+segmentor's, float32 by default) and ``local_loss`` (True: every rank's loss
 on its own rows with the local BatchNorm statistics, the gradients
 averaged: what plain DDP computes). :func:`run_case` runs it on this
 process's rank of the active group, or on one process without a group, and
@@ -89,7 +90,7 @@ def run_case(case, device='cpu'):
 
     world, rank = world_rank()
     dtype = case['dtype']
-    seg = build_segmentor(case['model'], device=device)
+    seg = build_segmentor(case['model'], device=device, dtype=case.get('compute_dtype', torch.float32))
     seg.net.to(dtype)
     seg.net.load_state_dict(case['state'])
     steps = len(case['batches'])

@@ -2,6 +2,14 @@
 seeded numpy weights that go into both the JAX and the port's nets, and a
 plain emulation of the block-local labelling of the plane-resident
 kernels."""
+import glob
+import hashlib
+import os
+import pickle
+import shutil
+import tempfile
+import time
+
 import jax
 import numpy as np
 
@@ -215,11 +223,7 @@ def mt_slice_run(model_type):
 
     jseg = build_jax_segmentor(dict(model, train_cfg=dict(), test_cfg=MT_TEST_CFG))
     jvars = jax.tree_util.tree_map(jnp.asarray, variables)
-
-    def both(v, im):
-        return jseg.inference(v, im), jseg.inference_and_postprocess(v, im)
-
-    jax_fused, jax_out = jax.tree_util.tree_map(np.asarray, jax.jit(both)(jvars, jnp.asarray(img)))
+    jax_fused, jax_out = jax_fused_and_postprocessed(jseg, jvars, img)
     return model_type, port, port_fused, port_out, jax_fused, jax_out
 
 
@@ -371,13 +375,55 @@ def label_blocks(key, blocks, uf):
     return piece
 
 
+def shared_across_workers(key: bytes, compute):
+    """``compute()``, once per test run for each ``key``: under pytest-xdist
+    the first worker to ask computes it under a file lock and pickles it into
+    a directory of the run (``PYTEST_XDIST_TESTRUNUID`` under the temp dir),
+    and every other worker reads it (directories of runs over a day old are
+    removed). The tier-1 command runs ``--dist load``, which spreads the
+    cases of one module over the workers, and each of them would otherwise
+    compile and run the module fixture's JAX reference again.
+    Without xdist it computes."""
+    uid = os.environ.get('PYTEST_XDIST_TESTRUNUID')
+    if uid is None:
+        return compute()
+    import filelock
+    root = os.path.join(tempfile.gettempdir(), f'tiseg-torch-tests-{uid}')
+    if not os.path.isdir(root):  # the run's first request: drop the directories of runs over a day old
+        for old in glob.glob(os.path.join(tempfile.gettempdir(), 'tiseg-torch-tests-*')):
+            if time.time() - os.path.getmtime(old) > 86400:
+                shutil.rmtree(old, ignore_errors=True)
+        os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, hashlib.sha256(key).hexdigest() + '.pkl')
+    with filelock.FileLock(path + '.lock'):
+        if os.path.exists(path):
+            with open(path, 'rb') as f:
+                return pickle.load(f)
+        value = compute()
+        with open(path + '.part', 'wb') as f:
+            pickle.dump(value, f)
+        os.replace(path + '.part', path)
+        return value
+
+
 def jax_fused_and_postprocessed(jseg, jvars, img):
     """The JAX segmentor's fused maps (``inference``) and its
     ``inference_and_postprocess`` outputs, as numpy, from one jitted program:
-    XLA computes the forward they share once, and the net compiles once."""
-    fused, out = jax.jit(lambda v, im: (jseg.inference(v, im), jseg.inference_and_postprocess(v, im)))(
-        jvars, jax.numpy.asarray(img))
-    return {k: np.asarray(v) for k, v in fused.items()}, {k: np.asarray(v) for k, v in out.items()}
+    XLA computes the forward they share once, and the net compiles once.
+    Shared across the test run's workers (:func:`shared_across_workers`),
+    keyed by everything the program reads: the segmentor's class, net and
+    configs, ``TISEG_FUSED_TAIL`` (read while tracing), the variables and
+    the image."""
+    def compute():
+        fused, out = jax.jit(lambda v, im: (jseg.inference(v, im), jseg.inference_and_postprocess(v, im)))(
+            jvars, jax.numpy.asarray(img))
+        return {k: np.asarray(v) for k, v in fused.items()}, {k: np.asarray(v) for k, v in out.items()}
+
+    key = pickle.dumps((type(jseg).__name__, repr(jseg.net), repr(jseg.test_cfg), repr(jseg.train_cfg),
+                        os.environ.get('TISEG_FUSED_TAIL'), getattr(jseg, '_int8_fpq', None) is not None,
+                        [(str(p), np.asarray(a).tobytes()) for p, a in jax.tree_util.tree_leaves_with_path(jvars)],
+                        np.asarray(img).tobytes()))
+    return shared_across_workers(key, compute)
 
 
 # -- the int8 executors (tests/test_torch_quant_*.py) -------------------------------------

@@ -49,7 +49,13 @@ class InferenceRunner:
         return seg.inference(img, ori_hw=tuple(ori_hw))
 
     def __call__(self, img, ori_hw) -> Dict[str, np.ndarray]:
-        return {k: v.cpu().numpy() for k, v in self.dispatch(img, ori_hw).items()}
+        return {k: _numpy(v.cpu()) for k, v in self.dispatch(img, ori_hw).items()}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy, a bfloat16 map (numpy has no bfloat16)
+    widened to float32: exact, so its argmax and ties are kept."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def fetch_later(tensors: Dict[str, torch.Tensor]) -> Callable[[], Dict[str, np.ndarray]]:
@@ -58,7 +64,7 @@ def fetch_later(tensors: Dict[str, torch.Tensor]) -> Callable[[], Dict[str, np.n
     gives numpy arrays. (A blocking ``.cpu()`` waits for everything queued
     on the stream, the next image's work included.)"""
     if not any(v.is_cuda for v in tensors.values()):
-        return lambda: {k: v.numpy() for k, v in tensors.items()}
+        return lambda: {k: _numpy(v) for k, v in tensors.items()}
     host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
             for k, v in tensors.items()}
     done = torch.cuda.Event()
@@ -66,7 +72,7 @@ def fetch_later(tensors: Dict[str, torch.Tensor]) -> Callable[[], Dict[str, np.n
 
     def wait():
         done.synchronize()
-        return {k: v.numpy() for k, v in host.items()}
+        return {k: _numpy(v) for k, v in host.items()}
 
     return wait
 

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..builder import BACKBONES
-from ..nn import BatchNorm2d
+from ..nn import BatchNorm2d, Conv2d
 
 DEPTH_PLAN = {
     18: ('basic', (2, 2, 2, 2)),
@@ -39,7 +39,8 @@ def _bn(ch, device):
 def _downsample(in_ch, out_ch, stride, device):
     if stride == 1 and in_ch == out_ch:
         return None
-    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, stride, bias=False, device=device), _bn(out_ch, device))
+    return nn.Sequential(Conv2d(in_ch, out_ch, 1, stride, bias=False, device=device, into_norm=True),
+                         _bn(out_ch, device))
 
 
 class BasicBlock(nn.Module):
@@ -47,10 +48,11 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int, stride: int = 1, dilation: int = 1, device=None):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, features, 3, stride, padding=dilation, dilation=dilation, bias=False,
-                               device=device)
+        self.conv1 = Conv2d(in_ch, features, 3, stride, padding=dilation, dilation=dilation, bias=False,
+                            device=device, into_norm=True)
         self.bn1 = _bn(features, device)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=dilation, dilation=dilation, bias=False, device=device)
+        self.conv2 = Conv2d(features, features, 3, padding=dilation, dilation=dilation, bias=False, device=device,
+                            into_norm=True)
         self.bn2 = _bn(features, device)
         self.downsample = _downsample(in_ch, features, stride, device)
 
@@ -65,12 +67,12 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_ch: int, features: int, stride: int = 1, dilation: int = 1, device=None):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, features, 1, bias=False, device=device)
+        self.conv1 = Conv2d(in_ch, features, 1, bias=False, device=device, into_norm=True)
         self.bn1 = _bn(features, device)
-        self.conv2 = nn.Conv2d(features, features, 3, stride, padding=dilation, dilation=dilation, bias=False,
-                               device=device)
+        self.conv2 = Conv2d(features, features, 3, stride, padding=dilation, dilation=dilation, bias=False,
+                            device=device, into_norm=True)
         self.bn2 = _bn(features, device)
-        self.conv3 = nn.Conv2d(features, features * 4, 1, bias=False, device=device)
+        self.conv3 = Conv2d(features, features * 4, 1, bias=False, device=device, into_norm=True)
         self.bn3 = _bn(features * 4, device)
         self.downsample = _downsample(in_ch, features * 4, stride, device)
 
@@ -94,7 +96,7 @@ class ResNet(nn.Module):
         block = Bottleneck if block_type == 'bottleneck' else BasicBlock
         self.stem_pool = stem_pool
         self.out_indices = tuple(out_indices)
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, stem_stride, padding=3, bias=stem_bias, device=device)
+        self.conv1 = Conv2d(in_channels, 64, 7, stem_stride, padding=3, bias=stem_bias, device=device, into_norm=True)
         self.bn1 = _bn(64, device)
         ch = 64
         for si, n_blocks in enumerate(layers):

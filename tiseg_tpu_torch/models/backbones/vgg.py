@@ -16,7 +16,7 @@ from __future__ import annotations
 from torch import nn
 
 from ..builder import BACKBONES
-from ..nn import BatchNorm2d
+from ..nn import BatchNorm2d, Conv2d
 
 # convs per stage (stages 1..4 start with a pool; stage 5 is pool only)
 VGG_STAGE_CONVS = {
@@ -36,7 +36,7 @@ class VGG(nn.Module):
             layers = [nn.MaxPool2d(2, 2)] if s > 0 else []
             for _ in range(n_convs):
                 out_ch = VGG_STAGE_CHANNELS[s]
-                conv = nn.Conv2d(in_ch, out_ch, 3, padding=1, device=device)
+                conv = Conv2d(in_ch, out_ch, 3, padding=1, device=device, into_norm=True)
                 conv.bias.requires_grad_(False)
                 layers += [conv, BatchNorm2d(out_ch, eps=1e-5, momentum=0.1, device=device), nn.ReLU()]
                 in_ch = out_ch

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..builder import HEADS
-from ..nn import ConvModule
+from ..nn import Conv2d, ConvModule
 from .unet_head import UNetHead
 
 
@@ -41,7 +41,8 @@ class AU(nn.Module):
 
     def __init__(self, gate_dims: int, num_masks: int = 1, device=None):
         super().__init__()
-        self.conv = nn.Sequential(nn.Conv2d(gate_dims, num_masks, 1, bias=False, device=device), nn.Sigmoid())
+        self.conv = nn.Sequential(Conv2d(gate_dims, num_masks, 1, bias=False, device=device, keep_float32=True),
+                                  nn.Sigmoid())
 
     def forward(self, signal, gate):
         return signal * (1 + self.conv(gate))
@@ -55,11 +56,11 @@ class DGM(nn.Module):
         self.mask_feats = RU(in_dims, feed_dims, device=device)
         self.dir_feats = RU(feed_dims, feed_dims, device=device)
         self.point_feats = RU(feed_dims, feed_dims, device=device)
-        self.point_conv = nn.Conv2d(feed_dims, 1, 1, device=device)
+        self.point_conv = Conv2d(feed_dims, 1, 1, device=device, keep_float32=True)
         self.point_to_dir_attn = AU(1, device=device)
-        self.dir_conv = nn.Conv2d(feed_dims, num_angles + 1, 1, device=device)
+        self.dir_conv = Conv2d(feed_dims, num_angles + 1, 1, device=device, keep_float32=True)
         self.dir_to_mask_attn = AU(num_angles + 1, device=device)
-        self.mask_conv = nn.Conv2d(feed_dims, num_classes, 1, device=device)
+        self.mask_conv = Conv2d(feed_dims, num_classes, 1, device=device, keep_float32=True)
 
     def forward(self, x):
         mask_feature = self.mask_feats(x)

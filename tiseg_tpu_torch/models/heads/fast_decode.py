@@ -19,6 +19,13 @@ memory, so no activation is copied for the layout. The convolutions stay
 ``F.conv2d`` / ``F.conv_transpose2d``, as the JAX package leaves them to
 XLA; only the fused last stage (``TISEG_FUSED_TAIL=1``) is a hand-written
 kernel (``ops/fused_decode.py``).
+
+``dtype`` is the executor's compute dtype (the net's): BN is folded in the
+net's dtype and the folded weights are rounded to it, and the activations
+are computed in it; None keeps the net's dtype (float32, or the float64 of
+the parity tests). In bfloat16 each product is rounded before its bias is
+added and the skip's product is added before the bias, in the JAX
+executor's order; float32 folds the biases into the convolutions.
 """
 from __future__ import annotations
 
@@ -174,8 +181,19 @@ def d2s(y, Fo: int):
     return y.reshape(B, Hb, Wb, 2, 2, Fo).permute(0, 1, 3, 2, 4, 5).reshape(B, Hb * 2, Wb * 2, Fo)
 
 
+def _low(t: torch.Tensor) -> bool:
+    return t.dtype == torch.bfloat16
+
+
+def _as(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t if dtype is None else t.to(dtype)
+
+
 def _conv(x, W, b=None, padding=1, stride=1):
-    """NHWC activation, OIHW weight (+ bias) -> NHWC."""
+    """NHWC activation, OIHW weight (+ bias) -> NHWC; a bfloat16 product is
+    rounded before the bias is added."""
+    if b is not None and _low(W):
+        return _conv(x, W, None, padding, stride) + b
     return F.conv2d(x.permute(0, 3, 1, 2), W, b, stride=stride, padding=padding).permute(0, 2, 3, 1)
 
 
@@ -239,9 +257,10 @@ def _vgg_pairs(stage):
 
 
 @torch.no_grad()
-def build_fast_vgg16_params(backbone) -> Dict:
+def build_fast_vgg16_params(backbone, dtype=None) -> Dict:
     """Fold BN into every conv of a ``VGG16BN``; stage 0 additionally gets
-    phase-space weights (stride-2 4x4 input conv + 2x2 block conv)."""
+    phase-space weights (stride-2 4x4 input conv + 2x2 block conv). The
+    folded weights are rounded to ``dtype``."""
     fp = {}
     (c0, n0), (c1, n1) = _vgg_pairs(backbone.stages[0])
     k0, b0 = _folded(c0, n0, _hwio(c0.weight))
@@ -257,15 +276,16 @@ def build_fast_vgg16_params(backbone) -> Dict:
             k, b = _folded(conv, bn, _hwio(conv.weight))
             convs.append((_oihw(k), b))
         fp['stages'].append(convs)
-    return fp
+    return _map(lambda t: _as(t, dtype), fp)
 
 
-def apply_fast_vgg16(fp, img):
-    """Eval-mode VGG16-BN pyramid of an NHWC batch. Returns the 6 stage
-    outputs (NHWC) like ``VGG16BN``, but outs[0] (the big (2G)^2 x 64 map) is
-    a :class:`PhaseSkip`: it is never laid out in standard form."""
+def apply_fast_vgg16(fp, img, dtype=None):
+    """Eval-mode VGG16-BN pyramid of an NHWC batch, in ``dtype`` (that of
+    ``fp``). Returns the 6 stage outputs (NHWC) like ``VGG16BN``, but
+    outs[0] (the big (2G)^2 x 64 map) is a :class:`PhaseSkip`: it is never
+    laid out in standard form."""
     C0 = fp['W1'].shape[1] // 4
-    z0 = F.relu_(_conv(img, fp['W0'], fp['b0'], padding=1, stride=2))
+    z0 = F.relu_(_conv(_as(img, dtype), fp['W0'], fp['b0'], padding=1, stride=2))
     z1 = _mask_edges_flat(F.relu_(_conv(z0, fp['W1'], fp['b1'], padding=1)), C0)
     outs = [PhaseSkip(z1, C0)]
     x = _pool_from_offm1(z1, C0)
@@ -286,10 +306,11 @@ def apply_fast_vgg16(fp, img):
 PHASE_STAGES = (0, 1)  # the low-channel, high-resolution decode stages
 
 @torch.no_grad()
-def build_fast_unet_head_params(head) -> Dict:
+def build_fast_unet_head_params(head, dtype=None) -> Dict:
     """Fold BN + build phase weights for a ``UNetHead``. The decode stages
     of ``PHASE_STAGES`` are rewritten in phase space; the others run as plain
-    folded convs. Decode stage ``i`` is ``head.decode_layers[n - 1 - i]``."""
+    folded convs. Decode stage ``i`` is ``head.decode_layers[n - 1 - i]``.
+    The weights are rounded to ``dtype`` after the fold."""
     fp = {'stages': {}}
     n = len(head.decode_layers)
     for i in range(n):
@@ -316,36 +337,39 @@ def build_fast_unet_head_params(head) -> Dict:
         cls = head.postprocess
         fp['cls_kernel'] = _hwio(cls.weight.detach()).contiguous()  # (1, 1, F, nc)
         fp['cls_bias'] = cls.bias.detach()
-    return fp
+    return _map(lambda t: _as(t, dtype), fp)
 
 
-def _apply_stage_phase(st, x, skip):
+def _apply_stage_phase(st, x, skip, dtype=None):
     """x: (B, G, G, C) low-res map; skip: (B, 2G, 2G, C_s) or a PhaseSkip.
     Returns the (2G)^2 output in offset-0 phase layout (B, G, G, 4F_c). The
     skip enters via a stride-2 4x4 conv directly on the original tensor (or a
     2x2 block conv on its phase layout); the tconv via a 2x2 block conv."""
-    t = F.relu_(_conv(x, st['Wt'], st['bt'], padding=1))  # (G+1)^2 x 4F_t, offset -1
+    t = F.relu_(_conv(_as(x, dtype), st['Wt'], st['bt'], padding=1))  # (G+1)^2 x 4F_t, offset -1
     # rows -1 and 2G of the tconv output do not exist in the unfolded net (the
     # following SAME conv sees zero padding there): mask them
     t = _mask_edges_flat(t, st['Wt'].shape[0] // 4)
-    y = _conv(t, st['Wc_t'], st['bc'], padding=0)  # G^2 x 4F_c, offset 0
+    low = _low(st['bc'])
+    y = _conv(t, st['Wc_t'], None if low else st['bc'], padding=0)  # G^2 x 4F_c, offset 0
     if isinstance(skip, PhaseSkip):
         y += _conv(skip.z, st['Wc_s_phase'], padding=0)
     else:
-        y += _conv(skip, st['Wc_s'], padding=1, stride=2)
-    return F.relu_(y)
+        y += _conv(_as(skip, dtype), st['Wc_s'], padding=1, stride=2)
+    return F.relu_(y + st['bc'] if low else y)
 
 
-def _apply_stage_plain(st, x, skip):
+def _apply_stage_plain(st, x, skip, dtype=None):
     if isinstance(skip, PhaseSkip):
         skip = phase_to_standard(skip)
-    y = F.relu_(F.conv_transpose2d(x.permute(0, 3, 1, 2), st['Wt'], st['bt'], stride=2,
-                                   padding=1).permute(0, 2, 3, 1))
+    low = _low(st['bt'])
+    y = F.conv_transpose2d(_as(x, dtype).permute(0, 3, 1, 2), st['Wt'], None if low else st['bt'], stride=2,
+                           padding=1).permute(0, 2, 3, 1)
+    y = F.relu_(y + st['bt'] if low else y)
     dh = skip.shape[1] - y.shape[1]
     dw = skip.shape[2] - y.shape[2]
     if dh or dw:
         y = F.pad(y, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-    y = torch.cat([y, skip], dim=-1)
+    y = torch.cat([y, _as(skip, dtype)], dim=-1)
     return F.relu_(_conv(y, st['Wc'], st['bc']))
 
 
@@ -358,10 +382,11 @@ def _use_fused_tail(st, skip, x, fp) -> bool:
     return 'Wc_t' in st and isinstance(skip, PhaseSkip) and 'cls_kernel' in fp and x is not None
 
 
-def apply_fast_unet_head(fp, bottom, skips):
+def apply_fast_unet_head(fp, bottom, skips, dtype=None):
     """Eval-mode UNetHead on NHWC maps: bottom + skips (low->high stride)
-    -> class logits (B, H, W, nc). Mirrors ``UNetHead.forward`` with BN
-    folded and the stages of ``phase_stages`` in phase space."""
+    -> class logits (B, H, W, nc) in ``dtype`` (that of ``fp``). Mirrors
+    ``UNetHead.forward`` with BN folded and the stages of ``phase_stages``
+    in phase space."""
     x = bottom
     n = len(fp['stages'])
     phase_out = None  # (B, G, G, 4F) offset-0 phase layout of the latest map
@@ -375,11 +400,11 @@ def apply_fast_unet_head(fp, bottom, skips):
                 from ...ops.fused_decode import fused_decode0_cls
                 return fused_decode0_cls(
                     x, skips[0].z, _hwio(st['Wt']), st['bt'], _hwio(st['Wc_t']), _hwio(st['Wc_s_phase']),
-                    st['bc'], fp['cls_kernel'], fp['cls_bias'])
-            phase_out = _apply_stage_phase(st, x, skips[i])
+                    st['bc'], fp['cls_kernel'], fp['cls_bias'], dtype=dtype or torch.float32)
+            phase_out = _apply_stage_phase(st, x, skips[i], dtype)
             x = None
         else:
-            x = _apply_stage_plain(st, x, skips[i])
+            x = _apply_stage_plain(st, x, skips[i], dtype)
     if 'cls_kernel' not in fp:
         return d2s(phase_out, phase_out.shape[-1] // 4) if phase_out is not None else x
     Wk, bk = fp['cls_kernel'], fp['cls_bias']

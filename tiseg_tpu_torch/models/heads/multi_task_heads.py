@@ -22,6 +22,7 @@ from typing import Sequence
 from torch import nn
 
 from ..builder import HEADS
+from ..nn import Conv2d
 from .cd_head import AU, RU
 from .unet_head import UNetHead
 
@@ -33,8 +34,8 @@ class MultiTaskBranches(nn.Module):
         super().__init__()
         self.mask_feats = RU(in_dims, feed_dims, device=device)
         self.aux_mask_feats = RU(feed_dims, feed_dims, device=device)
-        self.mask_conv = nn.Conv2d(feed_dims, num_classes[1], 1, device=device)
-        self.aux_mask_conv = nn.Conv2d(feed_dims, num_classes[0], 1, device=device)
+        self.mask_conv = Conv2d(feed_dims, num_classes[1], 1, device=device, keep_float32=True)
+        self.aux_mask_conv = Conv2d(feed_dims, num_classes[0], 1, device=device, keep_float32=True)
 
     def forward(self, x):
         mask_feature = self.mask_feats(x)
@@ -61,10 +62,10 @@ class _MTDGMOutputs(nn.Module):
                  mask_attn: bool, device=None):
         super().__init__()
         dir_ch = 1 if use_regression else num_angles + 1
-        self.point_conv = nn.Conv2d(feed_dims, 1, 1, device=device)
-        self.dir_conv = nn.Conv2d(feed_dims, dir_ch, 1, device=device)
-        self.tc_mask_conv = nn.Conv2d(feed_dims, 3, 1, device=device)
-        self.mask_conv = nn.Conv2d(feed_dims, num_classes, 1, device=device)
+        self.point_conv = Conv2d(feed_dims, 1, 1, device=device, keep_float32=True)
+        self.dir_conv = Conv2d(feed_dims, dir_ch, 1, device=device, keep_float32=True)
+        self.tc_mask_conv = Conv2d(feed_dims, 3, 1, device=device, keep_float32=True)
+        self.mask_conv = Conv2d(feed_dims, num_classes, 1, device=device, keep_float32=True)
         self.point_to_dir_attn = self.dir_to_tc_mask_attn = self.dir_to_mask_attn = None
         if not noau:
             self.point_to_dir_attn = AU(1, device=device)

@@ -52,10 +52,11 @@ def _plain_conv(conv):
 
 
 @torch.no_grad()
-def build_cdnet_fp(net) -> Dict[str, Any]:
+def build_cdnet_fp(net, dtype=torch.float32) -> Dict[str, Any]:
     """BN folded into every conv of a ``CDNetNet``'s backbone, decoder and
     DGM: ``{'vgg': [[(W, b)] per stage], 'dec': [{'Wt', 'bt', 'Wc', 'bc'}]
-    indexed by decode stage (0 = full resolution), 'dgm': {...}}``."""
+    indexed by decode stage (0 = full resolution), 'dgm': {...}}``. Folded in
+    float32, rounded to ``dtype``."""
     vgg = [[_folded(conv, bn, _hwio(conv.weight)) for conv, bn in _vgg_pairs(stage)]
            for stage in list(net.backbone.stages)[:5]]
     head = net.head
@@ -80,7 +81,7 @@ def build_cdnet_fp(net) -> Dict[str, Any]:
     for nm in ('point_to_dir_attn', 'dir_to_mask_attn'):
         dgm[nm] = _hwio(getattr(dgm_mod, nm).conv[0].weight).detach()
     fp = {'vgg': vgg, 'dec': dec, 'dgm': dgm}
-    return _map(lambda t: t.float().contiguous(), fp)
+    return _map(lambda t: t.to(dtype).contiguous(), fp)
 
 
 # ---------------------------------------------------------------------------

@@ -175,7 +175,7 @@ def _plain_stage_sited(st, i, x, skip, fpq, scales_out, dtype):
     quantized mode runs the transposed conv and the concat conv in int8,
     both halves of the concat at the ``dec{i}.pc`` scale."""
     if isinstance(skip, PhaseSkip):  # not reachable on the shipped layout
-        return _apply_stage_plain(st, x, skip)
+        return _apply_stage_plain(st, x, skip, dtype)
     if fpq is None:
         if scales_out is not None:
             scales_out[f'dec{i}.pt'] = _absmax(x)
@@ -382,7 +382,7 @@ def _run_head_q8(fp, bottom, skips, fpq, k_phase: int, dtype=torch.bfloat16, out
     for i in range(n - 1, k_phase, -1):
         st = stages[i]
         if not plain_q:
-            x = _apply_stage_plain(st, x, skips[i])
+            x = _apply_stage_plain(st, x, skips[i], dtype)
             continue
         site_t, site_c = f'dec{i}.pt', f'dec{i}.pc'
         xq = x if x.dtype == torch.int8 else _qround(x, act[site_t])

@@ -59,10 +59,11 @@ def _up(x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def build_hovernet_fp(net) -> Dict[str, Any]:
+def build_hovernet_fp(net, dtype=torch.float32) -> Dict[str, Any]:
     """A ``HoverNetNet`` in the executors' folded form: ``{'stem': (W, b),
     'blocks': [[{'c1', 'c2', 'c3', 'down'}]], 'conv_bot': W, 'branches':
-    {name: {...}}}``."""
+    {name: {...}}}``. Folded in
+    float32, rounded to ``dtype``."""
     bb = net.backbone
     fp: Dict[str, Any] = {'stem': _folded(bb.conv1, bb.bn1, _hwio(bb.conv1.weight)), 'blocks': []}
     for si in range(len(_LAYERS)):
@@ -96,7 +97,7 @@ def build_hovernet_fp(net) -> Dict[str, Any]:
         br['u0_bn'] = _bn_affine(dec.u0[0])
         br['u0_cls'] = (_hwio(dec.u0[2].weight).detach(), dec.u0[2].bias.detach())
         fp['branches'][nm] = br
-    return _map(lambda t: t.float().contiguous(), fp)
+    return _map(lambda t: t.to(dtype).contiguous(), fp)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ..builder import HEADS
-from ..nn import ConvModule, pad_to_match, transposed_conv_module
+from ..nn import Conv2d, ConvModule, pad_to_match, transposed_conv_module
 
 
 class UNetLayer(nn.Module):
@@ -48,7 +48,7 @@ class UNetHead(nn.Module):
             layers.append(UNetLayer(ch, skip_channels[idx], stage_dims[idx], num_convs, device=device))
             ch = stage_dims[idx]
         self.decode_layers = nn.ModuleList(layers)
-        self.postprocess = nn.Conv2d(ch, num_classes, 1, device=device) if num_classes is not None else None
+        self.postprocess = Conv2d(ch, num_classes, 1, device=device) if num_classes is not None else None
 
     def forward(self, bottom, skips):
         x = bottom

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..dtype import log_softmax, softmax
+
 SMOOTH = 1e-4
 
 
@@ -46,7 +48,7 @@ def _class_weight(class_weight, labels: torch.Tensor, like: torch.Tensor) -> tor
 def cross_entropy(logits, labels, weight=None, class_weight=None, reduction='mean'):
     """Per-pixel softmax CE. ``weight`` is a per-pixel map, ``class_weight``
     a (C,) vector (reference cross_entropy_loss.py:9-33)."""
-    nll = -_pick(torch.log_softmax(logits, dim=-1), labels)
+    nll = -_pick(log_softmax(logits, dim=-1), labels)
     if class_weight is not None:
         nll = nll * _class_weight(class_weight, labels, nll)
     if weight is not None:
@@ -81,7 +83,7 @@ def _batch_dice_per_class(probs, labels, num_classes: int, weights):
 def batch_multiclass_dice_loss(logits, labels, num_classes: int, weights=None):
     """Sum over foreground classes of (1 - batch-pooled dice); softmax probs
     (reference dice_loss.py:64-100)."""
-    return _batch_dice_per_class(torch.softmax(logits, dim=-1), labels, num_classes, weights)
+    return _batch_dice_per_class(softmax(logits, dim=-1), labels, num_classes, weights)
 
 
 def batch_multiclass_sigmoid_dice_loss(logits, labels, num_classes: int, weights=None):
@@ -91,7 +93,7 @@ def batch_multiclass_sigmoid_dice_loss(logits, labels, num_classes: int, weights
 def multiclass_dice_loss(logits, labels, num_classes: int, weights=None):
     """Per-image dice averaged over batch, summed over *all* classes
     (reference dice_loss.py:139-176)."""
-    probs = torch.softmax(logits, dim=-1)
+    probs = softmax(logits, dim=-1)
     target = one_hot(labels, num_classes)
     inter = (probs * target).sum(dim=(1, 2))  # (B, C)
     denom = probs.sum(dim=(1, 2)) + target.sum(dim=(1, 2))
@@ -103,7 +105,7 @@ def multiclass_dice_loss(logits, labels, num_classes: int, weights=None):
 
 
 def _pooled_inter_add(logits, labels, num_classes: int):
-    probs = torch.softmax(logits, dim=-1)
+    probs = softmax(logits, dim=-1)
     target = one_hot(labels, num_classes)
     return (probs * target).sum(dim=(0, 1, 2)), probs.sum(dim=(0, 1, 2)) + target.sum(dim=(0, 1, 2))
 
@@ -125,7 +127,7 @@ def focal_loss(logits, labels, gamma: float = 2.0, class_weight=None, loss_type=
     """Softmax/sigmoid focal loss; ``robust`` clamps the focusing factor to
     [0, 2] (reference focal_loss.py:6-100, RobustFocalLoss2d)."""
     if loss_type == 'softmax':
-        p_t = _pick(torch.softmax(logits, dim=-1), labels)
+        p_t = _pick(softmax(logits, dim=-1), labels)
     else:
         prob = torch.sigmoid(logits[..., 0] if logits.dim() == labels.dim() + 1 else logits)
         p_t = torch.where(labels > 0, prob, 1 - prob)
@@ -244,7 +246,7 @@ def variance_loss(logits, inst_gt, max_instances: int = 256):
     """Intra-instance variance of softmax probabilities (reference
     var_loss.py:9-36), via sums over a static id capacity: ids at or above
     ``max_instances - 1`` share the last slot, as in the JAX package."""
-    probs = torch.softmax(logits, dim=-1)  # (B, H, W, C)
+    probs = softmax(logits, dim=-1)  # (B, H, W, C)
     B, H, W, C = probs.shape
     ids = inst_gt.long().clamp(0, max_instances - 1).reshape(B, H * W)
     flat = probs.reshape(B, H * W, C)

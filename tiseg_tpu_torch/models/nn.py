@@ -7,6 +7,13 @@ variance with the biased batch variance, as flax does (:class:`BatchNorm2d`).
 Dropout draws its mask from the generator the train step hands it
 (:class:`Dropout`), never from torch's global stream.
 
+The compute dtype (the JAX package's ``dtype``, bfloat16 on the card):
+:func:`set_compute_dtype` gives every :class:`Conv2d`,
+:class:`ConvTranspose2d` and :class:`BatchNorm2d` of a net the dtype its
+flax twin computes in; parameters, running statistics and gradients stay
+float32. With float32, the default, each module is its ``torch.nn`` base
+class, unchanged.
+
 Inside a data-parallel group (``parallel/``) a train-mode BatchNorm takes
 its statistics over every rank's samples and a dropout draws its mask at
 the global batch's shape and keeps this rank's rows, so that the N-rank
@@ -15,6 +22,8 @@ JAX package's step over the mesh).
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -22,6 +31,7 @@ from torch import nn
 from ..ops.sliding import resize_bilinear
 from ..parallel.data import all_reduce_sum, data_parallel
 from ..utils.device import world_rank
+from .dtype import resolve_dtype, scalar_in
 
 
 class _GlobalBatchNorm(torch.autograd.Function):
@@ -53,6 +63,94 @@ class _GlobalBatchNorm(torch.autograd.Function):
         return grad_x, grad_weight, grad_bias, None, None, None
 
 
+def _tf32_products(x: torch.Tensor):
+    """cuDNN's TF32 mode, the other cuDNN settings kept, around a
+    convolution of bfloat16 values held in float32 on the card
+    (``torch.backends.cudnn.flags``: a process-wide setting while the
+    convolution is enqueued). TF32 operands hold bfloat16 values exactly, so
+    the tensor cores form exact products and sum them in float32; an
+    algorithm that transforms its operands (Winograd, FFT) may round the
+    transformed tiles, which ``chip_smoke.py:bf16_conv_probe`` measures."""
+    if not x.is_cuda:
+        return nullcontext()
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, benchmark_limit=cudnn.benchmark_limit,
+                       deterministic=cudnn.deterministic, allow_tf32=True)
+
+
+class _ConvIntoNorm(torch.autograd.Function):
+    """A convolution (``aten.convolution`` with ``args``) of bfloat16
+    operands whose float32 sum goes to the BatchNorm after it unrounded:
+    the JAX package's compiled program folds the BN's widening into the
+    conv, which then hands over its float32 accumulator. The backward runs
+    in bfloat16 (the cotangent rounded, as the transpose of that widening
+    rounds it), as the JAX package's gradient does."""
+
+    @staticmethod
+    def forward(ctx, x, weight, args):
+        ctx.args = args
+        ctx.save_for_backward(x, weight)
+        with _tf32_products(x):
+            return torch.ops.aten.convolution(x.float(), weight.float(), None, *args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            grad.to(x.dtype), x, weight, None, *ctx.args,
+            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None
+
+
+def _conv_lowp(mod, x, transposed: bool):
+    """``mod``'s convolution in its ``compute_dtype``, as flax
+    ``nn.Conv(dtype=...)`` computes it: operands rounded to the dtype; the
+    sum rounded and the bias added in the dtype (a second rounding), or,
+    for a conv ``into_norm``, the float32 sum handed on (bias in float32)."""
+    dtype = mod.compute_dtype
+    args = (mod.stride, mod.padding, mod.dilation, transposed,
+            mod.output_padding if transposed else (0, 0), mod.groups)
+    x, weight = x.to(dtype), mod.weight.to(dtype)
+    if mod.into_norm and dtype != torch.float32:
+        y = _ConvIntoNorm.apply(x, weight, args)
+        return y if mod.bias is None else y + mod.bias.view(-1, 1, 1)
+    y = torch.ops.aten.convolution(x, weight, None, *args)
+    return y if mod.bias is None else y + mod.bias.to(dtype).view(-1, 1, 1)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with a compute dtype. With ``compute_dtype`` None (the
+    default) it is ``nn.Conv2d``. Otherwise it computes as flax
+    ``nn.Conv(dtype=...)`` (:func:`_conv_lowp`). ``into_norm`` marks a conv
+    whose output goes to a BatchNorm and nowhere else; ``keep_float32`` a
+    conv that the JAX package builds without a dtype: flax promotes it to
+    its float32 kernel, so it widens a bfloat16 input and computes in
+    float32 whatever the net's dtype."""
+
+    compute_dtype = None
+
+    def __init__(self, *args, into_norm: bool = False, keep_float32: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.into_norm, self.keep_float32 = into_norm, keep_float32
+
+    def forward(self, x):
+        return super().forward(x) if self.compute_dtype is None else _conv_lowp(self, x, False)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with a compute dtype, as :class:`Conv2d`
+    (flax ``nn.ConvTranspose(dtype=...)``)."""
+
+    compute_dtype = None
+
+    def __init__(self, *args, into_norm: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.into_norm, self.keep_float32 = into_norm, False
+
+    def forward(self, x):
+        return super().forward(x) if self.compute_dtype is None else _conv_lowp(self, x, True)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode step updates ``running_var`` with
     the biased batch variance, as flax ``nn.BatchNorm`` does (torch's own
@@ -60,9 +158,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     train mode; eval mode is ``nn.BatchNorm2d``. State-dict keys and
     ``isinstance`` checks are those of ``nn.BatchNorm2d``. In train mode
     inside a data-parallel group the batch is the global batch
-    (:meth:`forward_global`)."""
+    (:meth:`forward_global`). With a ``compute_dtype`` (flax
+    ``nn.BatchNorm(dtype=...)``) the statistics and the normalisation are
+    taken in float32 from the input and the output is rounded to it."""
+
+    compute_dtype = None
+    keep_float32 = False
 
     def forward(self, x):
+        if self.compute_dtype is not None:
+            return self._forward(x.float()).to(self.compute_dtype)
+        return self._forward(x)
+
+    def _forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         if data_parallel():
@@ -99,10 +207,10 @@ class ConvModule(nn.Module):
     drops the ReLU."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3, norm: bool = True,
-                 act: bool = True, device=None):
+                 act: bool = True, device=None, keep_float32: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, padding=kernel_size // 2, bias=not norm,
-                              device=device)
+        self.conv = Conv2d(in_channels, out_channels, kernel_size, padding=kernel_size // 2, bias=not norm,
+                           device=device, into_norm=norm, keep_float32=keep_float32)
         self.bn = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1, device=device) if norm else None
         self.act = act
 
@@ -118,7 +226,7 @@ def transposed_conv_module(in_channels: int, out_channels: int, device=None) -> 
     flax ConvTranspose 'SAME' of the JAX package equals this with its kernel
     flipped spatially (see utils/weights.py)."""
     return nn.Sequential(
-        nn.ConvTranspose2d(in_channels, out_channels, 4, stride=2, padding=1, bias=False, device=device),
+        ConvTranspose2d(in_channels, out_channels, 4, stride=2, padding=1, bias=False, device=device, into_norm=True),
         BatchNorm2d(out_channels, eps=1e-5, momentum=0.1, device=device),
         nn.ReLU())
 
@@ -156,10 +264,33 @@ class Dropout(nn.Module):
     def forward(self, x, generator=None):
         if not self.training or self.p == 0:
             return x
-        return x * dropout_mask(x.shape, self.p, generator, x.device, x.dtype)
+        mask = dropout_mask(x.shape, self.p, generator, x.device, x.dtype)
+        if x.dtype == torch.bfloat16:  # flax: where(keep, x / (1 - p), 0), 1 - p rounded to bfloat16, one rounding
+            return torch.where(mask != 0, x / scalar_in(1.0 - self.p, x.dtype),
+                               torch.zeros((), dtype=x.dtype, device=x.device))
+        return x * mask
 
     def extra_repr(self) -> str:
         return f'p={self.p}'
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> nn.Module:
+    """Give every conv, transposed conv and BatchNorm of ``module`` the
+    compute dtype ``dtype`` (float32 or bfloat16, or their names): None
+    for float32, float32 for a conv that keeps it (``keep_float32``).
+    Raises on a ``torch.nn`` conv or BatchNorm that has no compute dtype.
+    Returns ``module``."""
+    dtype = resolve_dtype(dtype)
+    for name, mod in module.named_modules():
+        if isinstance(mod, (Conv2d, ConvTranspose2d, BatchNorm2d)):
+            if dtype == torch.float32:
+                mod.compute_dtype = None
+            else:
+                mod.compute_dtype = torch.float32 if mod.keep_float32 else dtype
+        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.BatchNorm2d)) and dtype != torch.float32:
+            raise TypeError(f'{name or type(module).__name__}: a torch.nn {type(mod).__name__} has no compute dtype '
+                            f'({dtype} requested); build it from models/nn.py')
+    return module
 
 
 def resize_bilinear_nchw(x, out_hw):

@@ -26,6 +26,7 @@ import torch
 from ...ops.sliding import resize_bilinear, reverse_tta_transform, tta_forward_views, tta_views
 from ...parallel.data import data_parallel, gather_rows, global_batch
 from ...utils.device import resolve_device
+from ..dtype import resolve_dtype, softmax
 
 
 def parse_losses(losses: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -47,12 +48,13 @@ class BaseSegmentor:
     first_view_heads = ()
 
     def __init__(self, num_classes: int, train_cfg: Optional[dict] = None, test_cfg: Optional[dict] = None,
-                 device=None):
+                 device=None, dtype=torch.float32):
         self.num_classes = num_classes
         self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
         self.device = resolve_device(device)
-        self.net = None  # set by subclass
+        self.dtype = resolve_dtype(dtype)
+        self.net = None  # set by subclass, in the compute dtype (``nn.set_compute_dtype``)
 
     # -- forward ------------------------------------------------------------
     def prepare_inference(self):
@@ -116,13 +118,17 @@ class BaseSegmentor:
         return reverse_tta_transform(logit, rotate_degree, flip_direction)
 
     def fuse_head(self, name: str, logit: torch.Tensor) -> torch.Tensor:
+        """Softmax of a softmax head, in the logits' dtype (``dtype.softmax``:
+        a bfloat16 head rounds where the JAX package's does)."""
         if name in self.softmax_heads:
-            return torch.softmax(logit, dim=-1)
+            return softmax(logit, dim=-1)
         return logit
 
     # -- inference engine -----------------------------------------------------
     def inference(self, img: torch.Tensor, ori_hw: Optional[Tuple[int, int]] = None):
-        """TTA x (split | whole) -> per-head fused maps (B, H, W, K) at ori_hw."""
+        """TTA x (split | whole) -> per-head fused maps (B, H, W, K) at ori_hw,
+        in the heads' dtype: the views are summed and divided by their
+        count in it (bfloat16 for a bfloat16 net), as the JAX package does."""
         mode = self.test_cfg.get('mode', 'whole')
         if mode not in ('split', 'whole'):
             raise ValueError(f'unknown test mode {mode!r}')

@@ -19,9 +19,10 @@ from ...ops.ddm import generate_direction_differential_map
 from ...ops.sliding import resize_bilinear, reverse_tta_transform, tta_forward_views, tta_views
 from ..backbones.vgg import VGG16BN
 from ..builder import SEGMENTORS
+from ..dtype import softmax
 from ..heads.cd_head import CDHead
 from ..losses import batch_multiclass_dice_loss, cross_entropy, mdice, mse_loss, tdice
-from ..nn import he_init_
+from ..nn import he_init_, set_compute_dtype
 from .base import BaseSegmentor, parse_losses
 from .unet import instance_postprocess
 
@@ -65,7 +66,7 @@ def fuse_direction_views(seg: BaseSegmentor, img: torch.Tensor, ori_hw, prob_hea
     sums, dir_views = None, []
     for (rot, flip), out in zip(views, outs):
         out = {k: reverse_tta_transform(o, rot, flip) for k, o in out.items()}
-        part = {k: torch.softmax(out[k], dim=-1) for k in prob_heads}
+        part = {k: softmax(out[k], dim=-1) for k in prob_heads}
         part['point'] = out['point']
         sums = part if sums is None else {k: sums[k] + part[k] for k in part}
         dir_views.append(out['dir'])
@@ -76,7 +77,7 @@ def fuse_direction_views(seg: BaseSegmentor, img: torch.Tensor, ori_hw, prob_hea
     dd_sum, dir_map0 = None, None
     for dv in dir_views:
         if dir_map_fn is None:
-            dv = torch.softmax(dv, dim=-1)
+            dv = softmax(dv, dim=-1)
         if ori_hw is not None:
             dv = resize_bilinear(dv, ori_hw)
         if dir_map_fn is None:
@@ -106,11 +107,11 @@ class CDNet(BaseSegmentor):
     device_pp_default_radius = 3
 
     def __init__(self, num_classes, train_cfg=None, test_cfg=None, num_angles: int = 8, device=None,
-                 seed: int = 0):
-        super().__init__(num_classes, train_cfg, test_cfg, device=device)
+                 seed: int = 0, dtype=torch.float32):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device, dtype=dtype)
         self.num_angles = num_angles
         self._int8_fpq = None
-        self.net = CDNetNet(num_classes, num_angles, device=self.device)
+        self.net = set_compute_dtype(CDNetNet(num_classes, num_angles, device=self.device), self.dtype)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
 
@@ -122,7 +123,7 @@ class CDNet(BaseSegmentor):
         if not (self.test_cfg.get('int8_eval', False) and self._int8_fpq is not None):
             return None
         from ..heads.quant_cdnet import build_cdnet_fp
-        return {'fp': build_cdnet_fp(self.net), 'int8': self._int8_fpq}
+        return {'fp': build_cdnet_fp(self.net, dtype=self.dtype), 'int8': self._int8_fpq}
 
     def calibrate_int8(self, calib_img):
         """Abs-max calibration on one NHWC batch and weight quantization,
@@ -131,9 +132,9 @@ class CDNet(BaseSegmentor):
         from ..heads.quant_cdnet import build_cdnet_fp, calibrate, quantize_params
         self._int8_fpq = None
         with torch.inference_mode():
-            fp = build_cdnet_fp(self.net)
+            fp = build_cdnet_fp(self.net, dtype=self.dtype)
             img = torch.as_tensor(calib_img, dtype=torch.float32, device=self.device)
-            self._int8_fpq = quantize_params(fp, calibrate(fp, img, dtype=torch.float32))
+            self._int8_fpq = quantize_params(fp, calibrate(fp, img, dtype=self.dtype))
         return self._int8_fpq
 
     def forward_heads(self, img, prep=None):
@@ -144,7 +145,7 @@ class CDNet(BaseSegmentor):
         from ..heads.quant_cdnet import apply_cdnet_q, apply_cdnet_q8, resident_ok
         run = apply_cdnet_q8 if resident_ok(prep['int8']) else apply_cdnet_q
         with torch.inference_mode():
-            return run(prep['fp'], prep['int8'], img, dtype=torch.float32)
+            return run(prep['fp'], prep['int8'], img, dtype=self.dtype)
 
     def loss(self, batch, generator=None):
         """CE and batch dice on ``sem_gt_w_bound`` (``num_classes + 1``

@@ -12,7 +12,7 @@ import torch
 
 from ..builder import SEGMENTORS
 from ..losses import batch_multiclass_dice_loss, cross_entropy
-from ..nn import he_init_
+from ..nn import he_init_, set_compute_dtype
 from .base import BaseSegmentor, parse_losses
 from .unet import FastVGGUNetEval, UNetNet, instance_postprocess
 
@@ -33,9 +33,9 @@ class CUNet(FastVGGUNetEval, BaseSegmentor):
     device_pp_strip_boundary = True
     device_pp_default_radius = 3
 
-    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
-        super().__init__(num_classes, train_cfg, test_cfg, device=device)
-        self.net = CUNetNet(num_classes, device=self.device)
+    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0, dtype=torch.float32):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device, dtype=dtype)
+        self.net = set_compute_dtype(CUNetNet(num_classes, device=self.device), self.dtype)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
 

@@ -16,8 +16,9 @@ import torch
 from torch import nn
 
 from ..builder import SEGMENTORS
+from ..dtype import widen
 from ..losses import batch_multiclass_dice_loss, cross_entropy
-from ..nn import ConvModule, Dropout, he_init_, max_pool_2x, resize_bilinear_nchw
+from ..nn import ConvModule, Dropout, he_init_, max_pool_2x, resize_bilinear_nchw, set_compute_dtype
 from .base import BaseSegmentor, parse_losses
 from .unet import instance_postprocess
 
@@ -42,8 +43,11 @@ class DCANNet(nn.Module):
         self.stage6 = nn.ModuleList([ConvModule(in_ch, 1024, 7, norm=False, device=device), Dropout(0.5),
                                      ConvModule(1024, 1024, 1, norm=False, device=device)])
         for k, ch in zip(TAP_STAGES, (512, 512, 1024)):
-            self.add_module(f'up_conv_{k}_cell', ConvModule(ch, num_classes, 1, norm=False, act=False, device=device))
-            self.add_module(f'up_conv_{k}_cont', ConvModule(ch, 2, 1, norm=False, act=False, device=device))
+            # the taps' convs have no dtype in the JAX package: float32
+            self.add_module(f'up_conv_{k}_cell', ConvModule(ch, num_classes, 1, norm=False, act=False, device=device,
+                                                            keep_float32=True))
+            self.add_module(f'up_conv_{k}_cont', ConvModule(ch, 2, 1, norm=False, act=False, device=device,
+                                                            keep_float32=True))
 
     def forward(self, x, generator=None):
         x = x.permute(0, 3, 1, 2)
@@ -56,9 +60,16 @@ class DCANNet(nn.Module):
             x = max_pool_2x(x)
         conv7, drop, conv1 = self.stage6
         taps.append(conv1(drop(conv7(x), generator)))
+        return self.fuse_taps(taps, hw)
+
+    def fuse_taps(self, taps, hw):
+        """``{'sem', 'cont'}`` NHWC logits of the (stage 4, 5, 6) NCHW
+        ``taps``: each widened to float32 and resized to ``hw``, as the JAX
+        package resizes them and keeps them, then through its float32 1x1
+        convs, summed per head."""
         cell = cont = 0
         for k, t in zip(TAP_STAGES, taps):
-            t = resize_bilinear_nchw(t, hw)
+            t = resize_bilinear_nchw(widen(t), hw)
             cell = cell + getattr(self, f'up_conv_{k}_cell')(t)
             cont = cont + getattr(self, f'up_conv_{k}_cont')(t)
         return {'sem': cell.permute(0, 2, 3, 1), 'cont': cont.permute(0, 2, 3, 1)}
@@ -73,9 +84,9 @@ class DCAN(BaseSegmentor):
     device_pp_supported = True
     device_pp_default_radius = 3
 
-    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
-        super().__init__(num_classes, train_cfg, test_cfg, device=device)
-        self.net = DCANNet(num_classes, device=self.device)
+    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0, dtype=torch.float32):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device, dtype=dtype)
+        self.net = set_compute_dtype(DCANNet(num_classes, device=self.device), self.dtype)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
 

@@ -19,7 +19,7 @@ from torch import nn
 from ...ops.dist_ws import dynamic_watershed_device
 from ..builder import SEGMENTORS
 from ..losses import batch_multiclass_dice_loss, cross_entropy, mse_loss
-from ..nn import ConvModule, he_init_, max_pool_2x, resize_bilinear_nchw
+from ..nn import Conv2d, ConvModule, he_init_, max_pool_2x, resize_bilinear_nchw, set_compute_dtype
 from ..utils.postprocess import dynamic_watershed
 from .base import BaseSegmentor, parse_losses
 
@@ -45,8 +45,8 @@ class DISTNet(nn.Module):
             self.add_module(f'up_conv{s}', nn.Sequential(ConvModule(in_ch, ch, 3, device=device)))
             self.add_module(f'up_stage{s}', _convs(2 * ch, ch, device))
             in_ch = ch
-        self.sem_head = nn.Conv2d(in_ch, num_classes, 1, device=device)
-        self.dist_head = nn.Conv2d(in_ch, 1, 1, device=device)
+        self.sem_head = Conv2d(in_ch, num_classes, 1, device=device, keep_float32=True)
+        self.dist_head = Conv2d(in_ch, 1, 1, device=device, keep_float32=True)
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)
@@ -71,9 +71,9 @@ class DIST(BaseSegmentor):
     softmax_heads = ('sem',)  # 'dist' is mean-fused raw regression
     device_pp_supported = True
 
-    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
-        super().__init__(num_classes, train_cfg, test_cfg, device=device)
-        self.net = DISTNet(num_classes, device=self.device)
+    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0, dtype=torch.float32):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device, dtype=dtype)
+        self.net = set_compute_dtype(DISTNet(num_classes, device=self.device), self.dtype)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
 

@@ -20,8 +20,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..builder import SEGMENTORS
+from ..dtype import scalar_in
 from ..losses import batch_multiclass_dice_loss, cross_entropy
-from ..nn import BatchNorm2d, Dropout, he_init_
+from ..nn import BatchNorm2d, Conv2d, Dropout, he_init_, set_compute_dtype
 from .base import BaseSegmentor, parse_losses
 from .unet import instance_postprocess
 
@@ -38,16 +39,20 @@ GROWTH_RATE, N_LAYERS, DILATIONS, DROP_RATE, COMPRESS_RATIO = 24, 6, (1, 2, 4, 8
 
 class ConvLRB(nn.Module):
     """conv (bias-free, 'SAME' padding) -> LeakyReLU 0.01 -> BN (the
-    reference ConvLayer's order), as ``.conv`` and ``.bn``."""
+    reference ConvLayer's order), as ``.conv`` and ``.bn``. In bfloat16 the
+    conv's output is rounded (the LeakyReLU stands between it and the BN)
+    and the slope is 0.01 rounded to bfloat16, as flax's ``leaky_relu``
+    applies its Python slope."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, dilation: int = 1, device=None):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, padding=dilation * (kernel_size // 2), dilation=dilation,
-                              bias=False, device=device)
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, padding=dilation * (kernel_size // 2), dilation=dilation,
+                           bias=False, device=device)
         self.bn = BatchNorm2d(out_ch, eps=1e-5, momentum=0.1, device=device)
 
     def forward(self, x):
-        return self.bn(F.leaky_relu(self.conv(x), 0.01))
+        x = self.conv(x)
+        return self.bn(F.leaky_relu(x, scalar_in(0.01, x.dtype)))
 
 
 class DenseLayer(nn.Module):
@@ -81,7 +86,7 @@ class FullNetNet(nn.Module):
             self.blocks.add_module(f'block{b}', block)
             self.blocks.add_module(f'trans{b}', ConvLRB(in_ch, out_ch, 1, device=device))
             in_ch = out_ch
-        self.conv2 = nn.Conv2d(in_ch, num_classes + 1, 3, padding=1, bias=False, device=device)
+        self.conv2 = Conv2d(in_ch, num_classes + 1, 3, padding=1, bias=False, device=device, keep_float32=True)
 
     def forward(self, x, generator=None):
         x = self.conv1(x.permute(0, 3, 1, 2))
@@ -101,9 +106,9 @@ class FullNet(BaseSegmentor):
     device_pp_strip_boundary = True
     device_pp_default_radius = 3
 
-    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
-        super().__init__(num_classes, train_cfg, test_cfg, device=device)
-        self.net = FullNetNet(num_classes, device=self.device)
+    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0, dtype=torch.float32):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device, dtype=dtype)
+        self.net = set_compute_dtype(FullNetNet(num_classes, device=self.device), self.dtype)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
 

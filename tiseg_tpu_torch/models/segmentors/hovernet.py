@@ -24,7 +24,7 @@ from ...ops.hover import hover_post_proc_device
 from ..backbones.resnet import ResNetExt
 from ..builder import SEGMENTORS
 from ..losses import batch_multiclass_dice_loss, cross_entropy, gradient_mse_loss, mdice, mse_loss, tdice
-from ..nn import BatchNorm2d, he_init_, upsample_2x_nearest
+from ..nn import BatchNorm2d, Conv2d, he_init_, set_compute_dtype, upsample_2x_nearest
 from ..utils.postprocess import hover_post_proc
 from .base import BaseSegmentor, parse_losses
 
@@ -33,8 +33,9 @@ def _bn(ch, device):
     return BatchNorm2d(ch, eps=1e-5, momentum=0.1, device=device)
 
 
-def _conv(in_ch, out_ch, k, device, groups=1, bias=False):
-    return nn.Conv2d(in_ch, out_ch, k, padding=k // 2, groups=groups, bias=bias, device=device)
+def _conv(in_ch, out_ch, k, device, groups=1, bias=False, into_norm=False, keep_float32=False):
+    return Conv2d(in_ch, out_ch, k, padding=k // 2, groups=groups, bias=bias, device=device, into_norm=into_norm,
+                  keep_float32=keep_float32)
 
 
 class HoverDenseBlock(nn.Module):
@@ -48,7 +49,7 @@ class HoverDenseBlock(nn.Module):
         units, ch = [], in_ch
         for _ in range(unit_count):
             units.append(nn.Sequential(
-                _bn(ch, device), nn.ReLU(), _conv(ch, unit_ch[0], 1, device),
+                _bn(ch, device), nn.ReLU(), _conv(ch, unit_ch[0], 1, device, into_norm=True),
                 _bn(unit_ch[0], device), nn.ReLU(), _conv(unit_ch[0], unit_ch[1], ksize, device, groups=split)))
             ch += unit_ch[1]
         self.units = nn.ModuleList(units)
@@ -72,8 +73,9 @@ class HoverDecoderBranch(nn.Module):
         dense2 = HoverDenseBlock(128, 4, ksize=ksize, device=device)
         self.u2 = nn.Sequential(_conv(512, 128, ksize, device), dense2,
                                 _conv(dense2.out_channels, 256, 1, device))
-        self.u1 = nn.Sequential(_conv(256, 64, ksize, device))
-        self.u0 = nn.Sequential(_bn(64, device), nn.ReLU(), _conv(64, out_ch, 1, device, bias=True))
+        self.u1 = nn.Sequential(_conv(256, 64, ksize, device, into_norm=True))
+        self.u0 = nn.Sequential(_bn(64, device), nn.ReLU(),
+                                _conv(64, out_ch, 1, device, bias=True, keep_float32=True))
 
     def forward(self, feats):
         d0, d1, d2, d3 = feats
@@ -125,9 +127,9 @@ class HoverNet(BaseSegmentor):
         then the host route, which resizes, at any other scale."""
         return self.test_cfg.get('scale_factor', 1) == 1
 
-    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
-        super().__init__(num_classes, train_cfg, test_cfg, device=device)
-        self.net = HoverNetNet(num_classes, device=self.device)
+    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0, dtype=torch.float32):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device, dtype=dtype)
+        self.net = set_compute_dtype(HoverNetNet(num_classes, device=self.device), self.dtype)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
         self._int8_fpq = None
@@ -140,7 +142,7 @@ class HoverNet(BaseSegmentor):
         if not (self.test_cfg.get('int8_eval', False) and self._int8_fpq is not None):
             return None
         from ..heads.quant_hovernet import build_hovernet_fp
-        return {'fp': build_hovernet_fp(self.net), 'int8': self._int8_fpq}
+        return {'fp': build_hovernet_fp(self.net, dtype=self.dtype), 'int8': self._int8_fpq}
 
     def calibrate_int8(self, calib_img, float_branches=('hv',), float_site_prefixes=()):
         """Abs-max calibration on one NHWC batch and weight quantization, on
@@ -150,9 +152,9 @@ class HoverNet(BaseSegmentor):
         from ..heads.quant_hovernet import build_hovernet_fp, calibrate, quantize_params
         self._int8_fpq = None
         with torch.inference_mode():
-            fp = build_hovernet_fp(self.net)
+            fp = build_hovernet_fp(self.net, dtype=self.dtype)
             img = torch.as_tensor(calib_img, dtype=torch.float32, device=self.device)
-            self._int8_fpq = quantize_params(fp, calibrate(fp, img, dtype=torch.float32),
+            self._int8_fpq = quantize_params(fp, calibrate(fp, img, dtype=self.dtype),
                                              float_branches=tuple(float_branches),
                                              float_site_prefixes=tuple(float_site_prefixes))
         return self._int8_fpq
@@ -164,7 +166,7 @@ class HoverNet(BaseSegmentor):
             return super().forward_heads(img)
         from ..heads.quant_hovernet import apply_hovernet_q8
         with torch.inference_mode():
-            return apply_hovernet_q8(prep['fp'], prep['int8'], img, dtype=torch.float32)
+            return apply_hovernet_q8(prep['fp'], prep['int8'], img, dtype=self.dtype)
 
     def loss(self, batch, generator=None):
         """On ``sem``: 5 x CE plus 0.5 x batch dice against ``sem_gt``; on

@@ -21,7 +21,8 @@ from torch import nn
 
 from ..builder import SEGMENTORS
 from ..losses import batch_multiclass_dice_loss, cross_entropy
-from ..nn import BatchNorm2d, Dropout, he_init_, max_pool_2x, resize_bilinear_nchw
+from ..nn import (BatchNorm2d, Conv2d, ConvTranspose2d, Dropout, he_init_, max_pool_2x, resize_bilinear_nchw,
+                  set_compute_dtype)
 from .base import BaseSegmentor, parse_losses
 from .unet import instance_postprocess
 
@@ -33,9 +34,10 @@ class ConvBNRelu(nn.Module):
     conv has a bias) -> ReLU (where ``act``), as ``.conv`` and ``.bn``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, pad: bool = False, norm: bool = True,
-                 act: bool = True, device=None):
+                 act: bool = True, device=None, keep_float32: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2 if pad else 0, bias=not norm, device=device)
+        self.conv = Conv2d(in_ch, out_ch, kernel, padding=kernel // 2 if pad else 0, bias=not norm, device=device,
+                           into_norm=norm, keep_float32=keep_float32)
         self.bn = BatchNorm2d(out_ch, eps=1e-5, momentum=0.1, device=device) if norm else None
         self.act = act
 
@@ -80,8 +82,8 @@ class UpBlock(nn.Module):
                                                               device=device))
         self.convs = nn.Sequential(ConvBNRelu(feed_dims, feed_dims, norm=False, device=device),
                                    ConvBNRelu(feed_dims, feed_dims, norm=False, device=device))
-        self.in_trans_conv = nn.ConvTranspose2d(feed_dims, feed_dims, 5, device=device)
-        self.skip_trans_conv = nn.ConvTranspose2d(skip_ch, feed_dims, 5, device=device)
+        self.in_trans_conv = ConvTranspose2d(feed_dims, feed_dims, 5, device=device)
+        self.skip_trans_conv = ConvTranspose2d(skip_ch, feed_dims, 5, device=device)
         self.bottle_neck = ConvBNRelu(2 * feed_dims, feed_dims, kernel=1, pad=True, norm=False, device=device)
 
     def forward(self, x, skip):
@@ -97,7 +99,8 @@ class DecodeBlock(nn.Module):
                                                                       act=False, device=device))
         self.feed_conv = ConvBNRelu(feed_dims, feed_dims, norm=False, device=device)
         self.drop = Dropout(0.5)
-        self.sem_conv = ConvBNRelu(feed_dims, num_classes, norm=False, act=False, device=device)
+        self.sem_conv = ConvBNRelu(feed_dims, num_classes, norm=False, act=False, device=device,
+                                   keep_float32=True)
 
     def forward(self, x, generator=None):
         feats = self.feed_conv(self.upsample(x))
@@ -126,7 +129,7 @@ class MicroNetNet(nn.Module):
         for j, (in_ch, feed, up) in enumerate(((128, 64, 2), (256, 128, 4), (512, 256, 8)), start=1):
             self.add_module(f'out_branch{j}', DecodeBlock(in_ch, feed, num_classes, up, device=device))
         self.drop = Dropout(0.5)
-        self.final_sem_conv = nn.Conv2d(64 + 128 + 256, num_classes, 3, device=device)
+        self.final_sem_conv = Conv2d(64 + 128 + 256, num_classes, 3, device=device, keep_float32=True)
 
     def forward(self, img, generator=None):
         if tuple(img.shape[1:3]) != (INPUT_HW, INPUT_HW):
@@ -160,9 +163,9 @@ class MicroNet(BaseSegmentor):
     device_pp_supported = True
     out_channels_extra = 0  # CMicroNet predicts a boundary channel more
 
-    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
-        super().__init__(num_classes, train_cfg, test_cfg, device=device)
-        self.net = MicroNetNet(num_classes + self.out_channels_extra, device=self.device)
+    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0, dtype=torch.float32):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device, dtype=dtype)
+        self.net = set_compute_dtype(MicroNetNet(num_classes + self.out_channels_extra, device=self.device), self.dtype)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
 

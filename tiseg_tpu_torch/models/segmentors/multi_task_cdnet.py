@@ -18,11 +18,12 @@ from torch import nn
 from ...ops.ddm import regression_to_dir_map
 from ..backbones.vgg import VGG16BN
 from ..builder import SEGMENTORS
+from ..dtype import softmax
 from ..heads.multi_task_heads import MultiTaskCDHead, MultiTaskCDHeadTwobranch
 from ..losses import (active_contour_loss, batch_multiclass_dice_loss, batch_multiclass_sigmoid_dice_loss,
                       binary_cross_entropy, cross_entropy, focal_loss, levelset_loss, mdice, mse_loss,
                       multiclass_dice_loss, one_hot, tdice, topological_loss, variance_loss)
-from ..nn import he_init_
+from ..nn import he_init_, set_compute_dtype
 from .base import BaseSegmentor, parse_losses
 from .cdnet import fuse_direction_views
 from .multi_task_unet import _boundary_stripped, _MTDevicePP, _mt_postprocess, three_class_target
@@ -31,7 +32,7 @@ from .multi_task_unet import _boundary_stripped, _MTDevicePP, _mt_postprocess, t
 def weighted_batch_dice_loss(logits, labels, num_classes: int, weight_map):
     """Batch dice with every pixel weighted by ``weight_map``, summed over
     the foreground classes (reference multi_task_cdnet.py:30-80)."""
-    probs = torch.softmax(logits, dim=-1)
+    probs = softmax(logits, dim=-1)
     target = one_hot(labels, num_classes)
     w = weight_map[..., None]
     inter = (probs * target * w).sum(dim=(0, 1, 2))
@@ -68,8 +69,8 @@ class MultiTaskCDNet(_MTDevicePP, BaseSegmentor):
     its loss (the other flags read below). ``seed`` draws the initial
     weights."""
 
-    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
-        super().__init__(num_classes, train_cfg, test_cfg, device=device)
+    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0, dtype=torch.float32):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device, dtype=dtype)
         tc = self.train_cfg
         self.num_angles = tc.get('num_angles', 8)
         self.use_regression = tc.get('use_regression', False)
@@ -83,9 +84,9 @@ class MultiTaskCDNet(_MTDevicePP, BaseSegmentor):
         self.use_tploss = tc.get('use_tploss', False)
         self.tploss_weight = tc.get('tploss_weight', False)
         self.dir_weight_map = tc.get('dir_weight_map', False)
-        self.net = MTCDNetNet(num_classes, num_angles=self.num_angles, noau=tc.get('noau', False),
-                              use_regression=self.use_regression, parallel=tc.get('parallel', False),
-                              use_twobranch=tc.get('use_twobranch', False), device=self.device)
+        self.net = set_compute_dtype(MTCDNetNet(num_classes, num_angles=self.num_angles, noau=tc.get('noau', False),
+                                  use_regression=self.use_regression, parallel=tc.get('parallel', False),
+                                  use_twobranch=tc.get('use_twobranch', False), device=self.device), self.dtype)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
 
@@ -134,7 +135,7 @@ class MultiTaskCDNet(_MTDevicePP, BaseSegmentor):
                 losses['mask_ce_loss'] = alpha * cross_entropy(sem_logit, sem_gt)
             losses['mask_dice_loss'] = beta * batch_multiclass_dice_loss(sem_logit, sem_gt, self.num_classes)
             if self.use_ac:
-                probs = torch.softmax(sem_logit, dim=-1)
+                probs = softmax(sem_logit, dim=-1)
                 ac = [active_contour_loss(probs[..., i:i + 1], class_target(i), len_weight=self.ac_len_weight,
                                           w_area=ac_w_area)
                       for i in range(1, self.num_classes)]

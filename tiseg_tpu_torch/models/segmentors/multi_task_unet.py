@@ -18,8 +18,8 @@ from ..backbones.vgg import VGG16BN
 from ..builder import SEGMENTORS
 from ..heads.multi_task_heads import MultiTaskUNetHead
 from ..losses import batch_multiclass_dice_loss, cross_entropy, multiclass_dice_loss
-from ..nn import he_init_
 from ..utils.postprocess import align_foreground
+from ..nn import he_init_, set_compute_dtype
 from .base import BaseSegmentor, parse_losses
 
 
@@ -98,9 +98,9 @@ class MultiTaskUNet(_MTDevicePP, BaseSegmentor):
     softmax_heads = ('aux', 'sem')
     aux_classes = 2
 
-    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
-        super().__init__(num_classes, train_cfg, test_cfg, device=device)
-        self.net = MTUNetNet(self.aux_classes, num_classes, device=self.device)
+    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0, dtype=torch.float32):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device, dtype=dtype)
+        self.net = set_compute_dtype(MTUNetNet(self.aux_classes, num_classes, device=self.device), self.dtype)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
 

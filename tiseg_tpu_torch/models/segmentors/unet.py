@@ -21,7 +21,7 @@ from ..backbones.vgg import VGG16BN
 from ..builder import SEGMENTORS
 from ..heads.unet_head import UNetHead
 from ..losses import batch_multiclass_dice_loss, cross_entropy
-from ..nn import he_init_
+from ..nn import he_init_, set_compute_dtype
 from .base import BaseSegmentor, parse_losses
 
 
@@ -66,8 +66,9 @@ def instance_postprocess(sem_pred: np.ndarray, radius: int = 1, min_size: int = 
 class FastVGGUNetEval:
     """Mixin: the phase-space eval forward for VGG16BN + UNetHead nets
     (``heads/fast_decode.py``), an exact rewrite of the net's eval forward
-    with BN folded. Used when ``test_cfg['fast_eval']`` (default on) and the
-    input's height and width divide by 4; otherwise the unfolded net runs.
+    with BN folded, in the segmentor's compute dtype. Used when
+    ``test_cfg['fast_eval']`` (default on) and the input's height and width
+    divide by 4; otherwise the unfolded net runs.
 
     With ``test_cfg['int8_eval']`` set and an int8 tree from
     :meth:`calibrate_int8`, the eval forward runs the int8-resident executor
@@ -86,9 +87,15 @@ class FastVGGUNetEval:
     def _int8_active(self) -> bool:
         return bool(self.test_cfg.get('int8_eval', False)) and self._int8_fpq is not None
 
+    def _exec_dtype(self):
+        """The float executor's dtype: the compute dtype, or None (the net's
+        own, float64 in the parity tests) for float32."""
+        return None if self.dtype == torch.float32 else self.dtype
+
     def _fold(self):
         from ..heads.fast_decode import build_fast_unet_head_params, build_fast_vgg16_params
-        return {'vgg': build_fast_vgg16_params(self.net.backbone), 'head': build_fast_unet_head_params(self.net.head)}
+        return {'vgg': build_fast_vgg16_params(self.net.backbone, dtype=self._exec_dtype()),
+                'head': build_fast_unet_head_params(self.net.head, dtype=self._exec_dtype())}
 
     def prepare_inference(self):
         """Fold BN and build the phase-space weights from the net's present
@@ -112,7 +119,7 @@ class FastVGGUNetEval:
         with torch.inference_mode():
             fp = self._fold()
             img = torch.as_tensor(calib_img, dtype=torch.float32, device=self.device)
-            scales = calibrate(fp['vgg'], fp['head'], img, dtype=torch.float32)
+            scales = calibrate(fp['vgg'], fp['head'], img, dtype=self.dtype)
             self._int8_fpq = quantize_params(fp['vgg'], fp['head'], scales, margin=margin)
         return self._int8_fpq
 
@@ -134,7 +141,7 @@ class FastVGGUNetEval:
                 prep = self.prepare_inference()
                 if resident_ok(prep['head']):
                     sem_pred = apply_fast_unet_q8(prep['vgg'], prep['head'], prep['int8'], img,
-                                                  dtype=torch.float32, out='pred')
+                                                  dtype=self.dtype, out='pred')
                     if self.device_pp_strip_boundary:
                         sem_pred = torch.where(sem_pred == self.num_classes, 0, sem_pred)
                     sem_out, inst_out = self._device_instance_pp(sem_pred)
@@ -154,9 +161,9 @@ class FastVGGUNetEval:
             if 'int8' in prep:
                 from ..heads.quant_decode import apply_fast_unet_q, apply_fast_unet_q8, resident_ok
                 run = apply_fast_unet_q8 if resident_ok(prep['head']) else apply_fast_unet_q
-                return {'sem': run(prep['vgg'], prep['head'], prep['int8'], img, dtype=torch.float32)}
-            feats = apply_fast_vgg16(prep['vgg'], img)
-            return {'sem': apply_fast_unet_head(prep['head'], feats[-1], feats[:-1])}
+                return {'sem': run(prep['vgg'], prep['head'], prep['int8'], img, dtype=self.dtype)}
+            feats = apply_fast_vgg16(prep['vgg'], img, dtype=self._exec_dtype())
+            return {'sem': apply_fast_unet_head(prep['head'], feats[-1], feats[:-1], dtype=self._exec_dtype())}
 
 
 @SEGMENTORS.register_module()
@@ -166,9 +173,9 @@ class UNet(FastVGGUNetEval, BaseSegmentor):
 
     device_pp_supported = True
 
-    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0):
-        super().__init__(num_classes, train_cfg, test_cfg, device=device)
-        self.net = UNetNet(num_classes, device=self.device)
+    def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0, dtype=torch.float32):
+        super().__init__(num_classes, train_cfg, test_cfg, device=device, dtype=dtype)
+        self.net = set_compute_dtype(UNetNet(num_classes, device=self.device), self.dtype)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
 

@@ -25,7 +25,7 @@ from torch import nn
 from ..builder import SEGMENTORS
 from ..heads.s2d_exec import apply_s2d, apply_s2d_q8, build_s2d_params, calibrate_s2d, d2s2, quantize_s2d, s2d2
 from ..heads.unet_head import UNetLayer
-from ..nn import ConvModule, he_init_, max_pool_2x
+from ..nn import Conv2d, ConvModule, he_init_, max_pool_2x, set_compute_dtype
 from .base import BaseSegmentor
 from .unet import UNet
 
@@ -52,7 +52,7 @@ class UNetS2DNet(nn.Module):
             setattr(self, f'decode{idx}', UNetLayer(ch, VGG16_STAGE_CHANNELS[idx], DEC_DIMS[idx], 2, device=device))
             ch = DEC_DIMS[idx]
         self.decode0_conv = ConvModule(ch + VGG16_STAGE_CHANNELS[0], DEC_DIMS[0], 3, device=device)
-        self.cls = nn.Conv2d(DEC_DIMS[0], 4 * num_classes, 1, device=device)
+        self.cls = Conv2d(DEC_DIMS[0], 4 * num_classes, 1, device=device)
 
     def forward(self, img):
         x = s2d2(img).permute(0, 3, 1, 2)
@@ -71,10 +71,6 @@ class UNetS2DNet(nn.Module):
         return {'sem': d2s2(self.cls(x).permute(0, 2, 3, 1))}
 
 
-def _dtype(dtype) -> torch.dtype:
-    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
-
-
 @SEGMENTORS.register_module()
 class UNetS2D(UNet):
     """``dtype`` (float32 or bfloat16) is the executors' working type;
@@ -83,9 +79,8 @@ class UNetS2D(UNet):
 
     def __init__(self, num_classes, train_cfg=None, test_cfg=None, device=None, seed: int = 0,
                  dtype=torch.float32):
-        BaseSegmentor.__init__(self, num_classes, train_cfg, test_cfg, device=device)
-        self.dtype = _dtype(dtype)
-        self.net = UNetS2DNet(num_classes, device=self.device)
+        BaseSegmentor.__init__(self, num_classes, train_cfg, test_cfg, device=device, dtype=dtype)
+        self.net = set_compute_dtype(UNetS2DNet(num_classes, device=self.device), self.dtype)
         he_init_(self.net, torch.Generator().manual_seed(seed))
         self.net.to(memory_format=torch.channels_last).eval()
         self._int8_fpq = None
